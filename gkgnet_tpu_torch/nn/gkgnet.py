@@ -1,0 +1,131 @@
+"""GKGNet backbone, eval forward (counterpart: ``gkgnet_tpu/nn/gkgnet.py``).
+
+A 4-stage pyramid of Grapher+FFN blocks over a stride-4 patch grid, with a
+parallel label-embedding pathway: after the last block of every stage the
+label tokens query the stage feature map through a cross-graph k-NN
+(GrapherLabel) and are projected to the next stage's width.
+
+Module names follow the reference's mmcls state_dict: ``stem.convs.*``,
+``pos_embed`` (1, C, H, W), ``label_lt``, ``backbone.{i}`` (a Downsample, or
+a Grapher/FFN pair as ``.0``/``.1``), ``gcn_label.{stage}.{j}`` and
+``ffn_label.{stage}.0``. The per-stage relative-position distance bias is
+computed once per model (numpy) and held as a non-persistent fp32 buffer,
+one table per stage shared by the blocks of the stage.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gkgnet_tpu_torch.nn.grapher import Grapher, GrapherLabel
+from gkgnet_tpu_torch.nn.layers import FFN, Downsample, Stem
+from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table
+
+ARCH_SETTINGS = {
+    "t": dict(conv="mr", act="gelu", norm="batch", bias=True,
+              epsilon=0.2, use_stochastic=False,
+              blocks=(2, 2, 6, 2), channels=(48, 96, 240, 384), emb_dims=1024),
+    "s": dict(conv="mr", act="gelu", norm="batch", bias=True,
+              epsilon=0.2, use_stochastic=False,
+              blocks=(2, 2, 6, 2), channels=(80, 160, 400, 640), emb_dims=1024),
+    "b": dict(conv="mr", act="gelu", norm="batch", bias=True,
+              epsilon=0.2, use_stochastic=False,
+              blocks=(2, 2, 18, 2), channels=(128, 256, 512, 1024),
+              emb_dims=1024),
+}
+
+REDUCE_RATIOS = (4, 2, 1, 1)
+
+
+class GKGNet(nn.Module):
+    """Multi-label Vision-GNN backbone. ``forward`` returns
+    ``(label_embeddings (B, n_classes, C3), gap_features (B, C3),
+    edge_index)``."""
+
+    def __init__(self, arch: str = "s", k: int = 9, k_label_gcn: int = 9,
+                 num_group: int = 2, n_classes: int = 80, size: int = 576,
+                 num_gcn: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        opt = ARCH_SETTINGS[arch]
+        blocks, channels = opt["blocks"], opt["channels"]
+        act, conv, bias = opt["act"], opt["conv"], opt["bias"]
+        stochastic = opt["use_stochastic"]
+        self.dtype = dtype
+        self.n_classes = n_classes
+        max_dilation = 49 // k
+        hw = size // 4
+
+        self.stem = Stem(3, channels[0], act, dtype)
+        self.pos_embed = nn.Parameter(torch.zeros(1, channels[0], hw, hw))
+        self.label_lt = nn.Embedding(n_classes, channels[0])
+
+        n_stage = hw * hw
+        for i in range(len(blocks)):
+            table = get_relative_pos_table(channels[i], n_stage,
+                                           REDUCE_RATIOS[i])
+            self.register_buffer(f"rel_pos_stage{i}",
+                                 torch.from_numpy(table), persistent=False)
+            n_stage //= 4
+
+        self.backbone = nn.ModuleList()
+        self.gcn_label = nn.ModuleList()
+        self.ffn_label = nn.ModuleList()
+        # per flat backbone entry: (stage, is a Grapher/FFN pair, ends stage)
+        self._plan: list[tuple[int, bool, bool]] = []
+        grapher_idx = 0
+        stage_n = hw * hw
+        for i in range(len(blocks)):
+            if i > 0:
+                self.backbone.append(Downsample(channels[i - 1], channels[i],
+                                                dtype))
+                self._plan.append((i, False, False))
+                stage_n //= 4
+            r_i = REDUCE_RATIOS[i]
+            for j in range(blocks[i]):
+                dilation = min(grapher_idx // 4 + 1, max_dilation)
+                n_targets = stage_n // (r_i * r_i)
+                if k * dilation > n_targets:
+                    raise ValueError(
+                        f"stage {i}: k*dilation={k * dilation} exceeds "
+                        f"{n_targets} candidate nodes — increase `size` or "
+                        f"reduce `k` (k=9 needs size>=224)")
+                self.backbone.append(nn.Sequential(
+                    Grapher(channels[i], k, dilation, conv, act, "batch",
+                            bias, stochastic, r_i, num_group, dtype=dtype),
+                    FFN(channels[i], channels[i] * 4, act, dtype)))
+                self._plan.append((i, True, j == blocks[i] - 1))
+                grapher_idx += 1
+            n_label_gcn = num_gcn if i == len(blocks) - 1 else 1
+            self.gcn_label.append(nn.ModuleList(
+                GrapherLabel(channels[i], k_label_gcn, 1, "mr", act, "batch",
+                             bias, stochastic, num_group, dtype=dtype)
+                for _ in range(n_label_gcn)))
+            if i < len(blocks) - 1:
+                self.ffn_label.append(nn.Sequential(
+                    nn.Linear(channels[i], channels[i + 1])))
+
+    def forward(self, x: torch.Tensor):
+        b = x.shape[0]
+        label_emb = self.label_lt.weight.to(self.dtype)[None].expand(
+            b, self.n_classes, -1)
+        x = self.stem(x)
+        x = x + self.pos_embed.permute(0, 2, 3, 1).to(self.dtype)
+        edge_index = None
+        for module, (stage, is_block, ends_stage) in zip(self.backbone,
+                                                         self._plan):
+            if not is_block:
+                x = module(x)
+                continue
+            grapher, ffn = module
+            x = ffn(grapher(x, getattr(self, f"rel_pos_stage{stage}")))
+            if ends_stage:
+                for gcn in self.gcn_label[stage]:
+                    label_emb, edge_index = gcn(label_emb, x)
+                if stage < len(self.ffn_label):
+                    lin = self.ffn_label[stage][0]
+                    label_emb = torch.nn.functional.linear(
+                        label_emb, lin.weight.to(self.dtype),
+                        lin.bias.to(self.dtype))
+        gap = x.float().mean(dim=(1, 2))
+        return label_emb, gap.to(self.dtype), edge_index

@@ -1,0 +1,191 @@
+"""Basic layers, eval semantics, channel-last (counterpart:
+``gkgnet_tpu/nn/layers.py``).
+
+Parameters are held in fp32 with the reference's mmcls names and torch
+layouts (conv weights ``(Cout, Cin/groups, kh, kw)``), and cast to the
+compute dtype where they are used, as the JAX package does. Weights are
+created empty; ``gkgnet_tpu_torch.nn.classifier.init_parameters`` fills them
+from a seeded generator.
+
+  * ``BatchNorm``: running statistics, normalization computed in fp32 and
+    cast back to the compute dtype.
+  * ``PointwiseConv``: 1x1 (grouped) convolution over the last axis as a
+    matmul; ``BasicConv`` uses groups=4.
+  * ``Activation``: exact-erf GELU (and relu).
+  * ``Stem``/``Downsample``: 3x3 convolutions on NHWC tensors.
+  * ``DropPath`` is the identity in eval and is not a module here.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class BatchNorm(nn.Module):
+    """Batch normalization over the last axis with running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.float() - self.running_mean) * torch.rsqrt(
+            self.running_var + self.eps) * self.weight + self.bias
+        return y.to(self.dtype)
+
+
+class Activation(nn.Module):
+    """relu, or gelu with the exact erf (the activation of every arch);
+    the reference's other activations are not ported."""
+
+    def __init__(self, act: str = "relu"):
+        super().__init__()
+        self.act = act.lower()
+        if self.act not in ("relu", "gelu"):
+            raise NotImplementedError(f"activation [{act}] is not ported")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x) if self.act == "gelu" else F.relu(x)
+
+
+class PointwiseConv(nn.Module):
+    """1x1 convolution over the channel (last) axis as a (grouped) matmul.
+    ``weight`` has the torch layout ``(Cout, Cin/groups, 1, 1)``."""
+
+    def __init__(self, in_features: int, out_features: int, groups: int = 1,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if in_features % groups or out_features % groups:
+            raise ValueError(f"channels ({in_features}->{out_features}) not "
+                             f"divisible by groups={groups}")
+        self.groups = groups
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features // groups, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias \
+            else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight[:, :, 0, 0].to(self.dtype)     # (Cout, Cin/g)
+        x = x.to(self.dtype)
+        g = self.groups
+        if g == 1:
+            y = x @ w.t()
+        else:
+            lead, cin = x.shape[:-1], x.shape[-1]
+            xg = x.reshape(-1, g, cin // g).transpose(0, 1)   # (g, rows, i)
+            wg = w.reshape(g, -1, cin // g)                   # (g, o, i)
+            y = torch.bmm(xg, wg.transpose(1, 2)).transpose(0, 1)
+            y = y.reshape(*lead, w.shape[0])
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class BasicConv(nn.Sequential):
+    """[1x1 grouped conv -> BN -> act] stack; mmcls indices conv 0, norm 1,
+    act 2 for each stage of the stack."""
+
+    def __init__(self, channels: Sequence[int], act: str | None = "relu",
+                 norm: str | None = None, use_bias: bool = True,
+                 groups: int = 4, dtype: torch.dtype = torch.float32):
+        layers: list[nn.Module] = []
+        for cin, cout in zip(channels[:-1], channels[1:]):
+            layers.append(PointwiseConv(cin, cout, groups, use_bias, dtype))
+            if norm is not None and norm.lower() != "none":
+                layers.append(BatchNorm(cout, dtype=dtype))
+            if act is not None and act.lower() != "none":
+                layers.append(Activation(act))
+        super().__init__(*layers)
+
+
+class ConvNorm(nn.Sequential):
+    """Ungrouped 1x1 conv + BN (the Grapher/FFN fc blocks)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(PointwiseConv(in_features, out_features, dtype=dtype),
+                         BatchNorm(out_features, dtype=dtype))
+
+
+class FFN(nn.Module):
+    """fc1 -> act -> fc2 with a residual (DropPath is the identity in eval)."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 act: str = "relu", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = ConvNorm(in_features, hidden_features, dtype)
+        self.act = Activation(act)
+        self.fc2 = ConvNorm(hidden_features, in_features, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x))) + x
+
+
+class Conv3x3(nn.Module):
+    """3x3 convolution, padding 1, on NHWC tensors; ``weight`` has the torch
+    layout ``(Cout, Cin, 3, 3)``."""
+
+    def __init__(self, in_features: int, out_features: int, stride: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # an NHWC tensor seen as NCHW is channels-last in memory: the
+        # convolution takes and returns that layout without copies
+        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                     self.weight.to(self.dtype), self.bias.to(self.dtype),
+                     stride=self.stride, padding=1)
+        return y.permute(0, 2, 3, 1)
+
+
+class Stem(nn.Module):
+    """Image -> stride-4 patch grid: 3 convs with BN (+act) between. The
+    mmcls sequence is convs.[conv, bn, act, conv, bn, act, conv, bn]."""
+
+    def __init__(self, in_features: int, out_dim: int, act: str = "relu",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.convs = nn.Sequential(
+            Conv3x3(in_features, out_dim // 2, 2, dtype),
+            BatchNorm(out_dim // 2, dtype=dtype), Activation(act),
+            Conv3x3(out_dim // 2, out_dim, 2, dtype),
+            BatchNorm(out_dim, dtype=dtype), Activation(act),
+            Conv3x3(out_dim, out_dim, 1, dtype),
+            BatchNorm(out_dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.convs(x)
+
+
+class Downsample(nn.Module):
+    """3x3 stride-2 conv + BN between stages (mmcls ``conv.[conv, bn]``)."""
+
+    def __init__(self, in_features: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = nn.Sequential(Conv3x3(in_features, out_dim, 2, dtype),
+                                  BatchNorm(out_dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def avg_pool_nhwc(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Non-overlapping r x r average pooling of an NHWC tensor."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // r, r, w // r, r, c).mean(dim=(2, 4))

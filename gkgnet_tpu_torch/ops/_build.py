@@ -1,0 +1,94 @@
+"""Build the port's CUDA sources with ``nvcc`` into shared libraries with a
+plain C interface, and load them with ``ctypes``.
+
+Each source under ``gkgnet_tpu_torch/csrc`` becomes ``build/<name>-<hash>.so``
+at the repository root, where the hash covers the source and the flags: a
+changed source is rebuilt, an unchanged one is loaded as it is. The library
+is compiled under a temporary name and renamed into place, so an
+interrupted build leaves nothing that a later run would load. No PyTorch
+headers are compiled and nothing waits on a lock.
+
+Nothing is built when this module is imported: ``load`` builds on first
+use, on the machine with the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+NVCC_TIMEOUT_S = 600
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# name -> (seconds the build took, 0.0 when the library was already built;
+#          the compiler's output, which holds the -Xptxas -v summary)
+build_info: dict[str, tuple[float, str]] = {}
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the CUDA
+    toolkit's conventional install location."""
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _compile(name: str, out: str) -> tuple[float, str]:
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s: "
+                           f"{' '.join(cmd)}") from e
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0, log
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, building it first if the
+    source changed since the last build."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if os.path.exists(path):
+            build_info[name] = (0.0, "")
+        else:
+            build_info[name] = _compile(name, path)
+        lib = ctypes.CDLL(path)
+        _loaded[name] = lib
+    return lib

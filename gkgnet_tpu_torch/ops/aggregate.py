@@ -1,0 +1,44 @@
+"""Neighbour gather and max-relative aggregation in plain PyTorch
+(counterpart: ``gkgnet_tpu/ops/aggregate.py``).
+
+  * ``gather_nodes``: ``y (B, M, C)`` gathered with ``idx (B, N, k)`` into
+    ``(B, N, k, C)``.
+  * ``max_relative``: ``max_k(y[idx] - x)``, the 'mr' aggregation.
+  * ``interleave_channels``: ``[x_0, m_0, x_1, m_1, ...]``, the channel
+    order of the reference's concat, which the grouped 1x1 conv after it
+    depends on.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gather_nodes(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``y (B, M, C)``, ``idx (B, N, k)`` -> ``(B, N, k, C)``."""
+    b, _, c = y.shape
+    _, n, k = idx.shape
+    flat = idx.reshape(b, n * k, 1).long().expand(b, n * k, c)
+    return torch.gather(y, 1, flat).reshape(b, n, k, c)
+
+
+def interleave_channels(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Two ``(..., C)`` tensors -> ``(..., 2C)`` as ``[x_0, m_0, x_1, m_1, ...]``."""
+    return torch.stack([x, m], dim=-1).reshape(*x.shape[:-1], 2 * x.shape[-1])
+
+
+def max_relative(x: torch.Tensor, idx: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor:
+    """``max_k(y[idx] - x)`` per query node, computed in fp32 and cast to
+    ``x.dtype``.
+
+    Args:
+      x: query/centre nodes ``(B, N, C)``.
+      idx: ``(B, N, k)`` neighbour indices into the target set.
+      y: target nodes ``(B, M, C)``; ``None`` -> self (y = x).
+    Returns:
+      ``(B, N, C)`` aggregated relative features.
+    """
+    src = x if y is None else y
+    rel = gather_nodes(src.float(), idx) - x.float()[:, :, None, :]
+    return torch.amax(rel, dim=2).to(x.dtype)

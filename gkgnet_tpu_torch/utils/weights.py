@@ -1,0 +1,119 @@
+"""Load the JAX package's variable tree into the port.
+
+``load_jax_variables(model, variables)`` takes the tree that
+``gkgnet_tpu``'s ``GKGNetClassifier.init`` returns (``params`` and
+``batch_stats`` as nested dicts of numpy arrays; ``constants`` is ignored,
+since the port recomputes its relative-position tables) and fills the
+port's parameters and buffers. The port's ``state_dict`` uses the
+reference's mmcls key names, so the mapping here is the inverse of the JAX
+package's torch-checkpoint converter, with its own copy of the layout
+transforms:
+
+  * 3x3 conv     (kh, kw, Cin, Cout)    -> (Cout, Cin, kh, kw)
+  * 1x1 conv     (G, Cin/G, Cout/G)     -> (Cout, Cin/G, 1, 1)
+  * Dense        (Cin, Cout)            -> Linear (Cout, Cin)
+  * pos_embed    (1, H, W, C)           -> (1, C, H, W)
+  * BatchNorm    scale/bias, mean/var   -> weight/bias, running_mean/var
+  * head fc1_kernel (C_cls, Cin)        -> head.fc1.weight as it is
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+from torch import nn
+
+_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
+         "embedding": "weight", "mean": "running_mean", "var": "running_var"}
+_STEM = {"conv0": 0, "norm0": 1, "conv1": 3, "norm1": 4, "conv2": 6, "norm2": 7}
+_CONV_NORM = {"conv": "0", "norm": "1"}
+
+
+def _walk(tree: dict, prefix: tuple = ()) -> Iterator[tuple[tuple, Any]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _walk(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _block_path(p: list[str]) -> list[str]:
+    """Path inside a Grapher, GrapherLabel or FFN -> mmcls sub-keys."""
+    if p[0] in ("fc1", "fc2"):                    # ConvNorm
+        return [p[0], _CONV_NORM[p[1]]]
+    if p[0] == "graph_conv":                      # gconv.nn: BasicConv
+        m = re.fullmatch(r"(conv|norm)(\d+)", p[3])
+        idx = 3 * int(m.group(2)) + (0 if m.group(1) == "conv" else 1)
+        return ["graph_conv", "gconv", p[2], str(idx)]
+    if p[0] == "ffn":                             # FFN inside GrapherLabel
+        return ["ffn", p[1], _CONV_NORM[p[2]]]
+    raise KeyError(f"unmapped module path {p}")
+
+
+def torch_key(path: tuple[str, ...]) -> str:
+    """JAX variable path (without the collection) -> mmcls state_dict key."""
+    *mods, leaf = path
+    if mods[0] == "head":
+        if leaf.startswith("fc1_"):
+            return f"head.fc1.{_LEAF[leaf[4:]]}"
+        return f"head.{mods[1]}.{_LEAF[leaf]}"
+    mods = mods[1:]                               # drop 'backbone'
+    if not mods:
+        if leaf != "pos_embed":
+            raise KeyError(f"unmapped backbone leaf {leaf}")
+        return "backbone.pos_embed"
+    name = mods[0]
+    if name == "stem":
+        parts = ["stem", "convs", str(_STEM[mods[1]])]
+    elif name == "label_lt":
+        parts = ["label_lt"]
+    elif m := re.fullmatch(r"backbone_(\d+)(?:_(grapher|ffn))?", name):
+        parts = ["backbone", m.group(1)]
+        if m.group(2) is None:                    # Downsample
+            parts += ["conv", _CONV_NORM[mods[1]]]
+        else:
+            parts += ["0" if m.group(2) == "grapher" else "1"]
+            parts += _block_path(mods[1:])
+    elif m := re.fullmatch(r"gcn_label_(\d+)_(\d+)", name):
+        parts = ["gcn_label", m.group(1), m.group(2)] + _block_path(mods[1:])
+    elif m := re.fullmatch(r"ffn_label_(\d+)", name):
+        parts = ["ffn_label", m.group(1), "0"]
+    else:
+        raise KeyError(f"unmapped path {path}")
+    return ".".join(["backbone", *parts, _LEAF[leaf]])
+
+
+def to_torch_layout(path: tuple[str, ...], value) -> np.ndarray:
+    """One JAX leaf -> the torch layout of its state_dict entry."""
+    a = np.asarray(value, dtype=np.float32)
+    leaf = path[-1]
+    if leaf == "pos_embed":
+        return a.transpose(0, 3, 1, 2)
+    if leaf != "kernel":
+        return a
+    if a.ndim == 4:                               # 3x3 conv
+        return a.transpose(3, 2, 0, 1)
+    if a.ndim == 3:                               # 1x1 conv, G groups
+        g, cin_g, cout_g = a.shape
+        return a.transpose(0, 2, 1).reshape(g * cout_g, cin_g, 1, 1)
+    return a.T                                    # Dense
+
+
+def state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """The JAX tree's ``params`` and ``batch_stats`` as an mmcls-keyed
+    state_dict of fp32 tensors."""
+    out: dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _walk(variables.get(collection, {})):
+            arr = np.ascontiguousarray(to_torch_layout(path, value))
+            out[torch_key(path)] = torch.from_numpy(arr)
+    return out
+
+
+def load_jax_variables(model: nn.Module, variables: dict) -> None:
+    """Fill ``model``'s parameters and buffers from the JAX tree. Every key
+    must match in name and shape (``load_state_dict(strict=True)``)."""
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
