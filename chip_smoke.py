@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
 Run from the repository root, with no arguments:
 
@@ -7,25 +7,41 @@ Run from the repository root, with no arguments:
 
 Phases (each prints its elapsed seconds):
   1. device: the card's name, count, and name + power limit from nvidia-smi;
-  2. build: nvcc builds every kernel of the path from csrc/ (seconds, and
-     the -Xptxas -v register and spill summary; each row below adds the
-     block's dynamic shared memory);
+  2. build: nvcc builds every kernel of the paths from csrc/, one process
+     per source, all at once (seconds, and the -Xptxas -v register and
+     spill summary; each row below adds the block's dynamic shared memory);
   3. kernels: each kernel against its plain PyTorch version at every shape
-     the main path gives it (bf16, BG=16, i.e. batch 8), plus one fp32 row:
+     the main paths give it (bf16, BG=16, i.e. batch 8), plus one fp32 row.
+     The forward (knn_mr_fused):
      (a) mr bitwise equal to the plain max-relative of the kernel's own idx,
      (b) fp64 ordering oracle: each kernel column's fp64 distance within
          ORACLE_TOL of the true rank-(s*d) candidate's,
      (c) the share of rows whose idx equals the plain version's (printed,
          not asserted: near-ties may order differently in fp32),
      (d) kernel and plain times with CUDA events after warmup;
-  4. model: entry(device="cuda", batch=8) in bf16: 16 kernel launches per
+     the backward (knn_mr_backward), on inputs with exact ties in the max
+     (tie_fixture) and the forward kernel's idx:
+     (e) gx bitwise -g; the per-edge gradients, hence the tie sets,
+         bitwise the plain version's;
+     (f) gy within backward_gy_bound of the fp64 sum of those gradients
+         (the fp32 summation bound; in bf16 plus one rounding);
+     (g) a second launch bitwise equal (no atomics), and the times;
+  4. eval: entry(device="cuda", batch=8) in bf16: 16 kernel launches per
      forward, finite (8, 80) logits; 3 requests through predict(); then
      ms/forward and a profile of device time by kernel; then batch 1 in
      fp32 (TF32 off): each of the 16 calls held against the plain version on
      the forward's own activations, and the logits of the kernel path and
      the plain paths printed (see compare_fp32_paths for why they are not
      held to a tolerance);
-  5. the kernels line, nvidia-smi's line, and the result line.
+  5. train: train_entry(device="cuda", batch=8) in bf16 for 3 steps: 16
+     forward and 16 backward launches per step, finite losses and gradient
+     norm, parameters and BatchNorm statistics moved, the EMA between the
+     initial and the new parameters; then ms/step, img/s, peak memory and
+     a profile; then one step at batch 2 in fp32: each of the 16 backward
+     calls held against the plain version on the step's own activations,
+     and the kernel path's loss printed beside the plain path's and beside
+     the kernel path's on images moved by one ulp;
+  6. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -35,11 +51,13 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
 
@@ -47,10 +65,11 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from gkgnet_tpu_torch.entry import entry, predict  # noqa: E402
+from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.ops import _build, knn_mr  # noqa: E402
 from gkgnet_tpu_torch.ops.aggregate import max_relative  # noqa: E402
+from gkgnet_tpu_torch.ops.knn import l2_normalize  # noqa: E402
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
 
 BG = 16                   # batch 8 x 2 channel groups
@@ -62,7 +81,8 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense; fp32 without TF32
 
 # (name, N, M, D, k, dilation, bias table (channels, nodes, r) or None,
-#  calls per forward, dtype, targets: "pooled" / "self" / "labels")
+#  calls per forward (and per train step), dtype, targets: "pooled" /
+#  "self" / "labels")
 ROWS = [
     ("stage1", 20736, 1296, 40, 9, 1, (80, 20736, 4), 2, "bf16", "pooled"),
     ("stage2", 5184, 1296, 80, 9, 1, (160, 5184, 2), 2, "bf16", "pooled"),
@@ -114,7 +134,8 @@ def print_ptxas_summary(compiler_log: str) -> None:
     name = None
     for line in compiler_log.splitlines():
         fn = re.search(r"Compiling entry function '_Z\w*?(knn_mr_kernel|"
-                       r"l2norm_rows)I(13__nv_bfloat16|f)(?:Li(\d+))?", line)
+                       r"l2norm_rows|edge_grads|gather_targets)"
+                       r"I(13__nv_bfloat16|f)(?:Li(\d+))?", line)
         if fn:
             dtype = "bf16" if fn.group(2) != "f" else "fp32"
             name = f"{fn.group(1)}<{dtype}" + (
@@ -125,29 +146,38 @@ def print_ptxas_summary(compiler_log: str) -> None:
         print(f"  ptxas {name}: {'; '.join(parts)}", flush=True)
 
 
-def profile_forward(fn, model, x, iters: int = 3) -> None:
-    """Device time by kernel over a few forwards (torch.profiler), the share
-    of it in the port's kernels, and the device's busy share of the host
-    wall time under the profiler (one stream: kernels do not overlap)."""
+OUR_KERNELS = ("knn_mr_kernel", "l2norm_rows", "edge_grads", "gather_targets")
+
+
+def profile_device(run, unit: str, iters: int = 3) -> None:
+    """Device time by kernel over a few calls of ``run`` (torch.profiler),
+    the share of it in the port's kernels, and the device's busy share of
+    the host wall time under the profiler (one stream: kernels do not
+    overlap)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(iters):
-            fn(model, x)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / iters
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
-    ours_ms = sum(e.self_device_time_total for e in kernels
-                  if "knn_mr_kernel" in e.key or "l2norm_rows" in e.key
-                  ) / 1e3 / iters
-    log(f"profile: {wall_ms:.2f} ms/forward host wall under the profiler; "
+    ours = {}
+    for e in kernels:
+        for name in OUR_KERNELS:
+            if name in e.key:
+                ours[name] = ours.get(name, 0.0) + \
+                    e.self_device_time_total / 1e3 / iters
+    ours_ms = sum(ours.values())
+    log(f"profile: {wall_ms:.2f} ms/{unit} host wall under the profiler; "
         f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %), "
-        f"of which knn_mr {ours_ms:.2f} ms "
-        f"({100 * ours_ms / max(busy_ms, 1e-9):.1f} %)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        f"of which the port's kernels {ours_ms:.2f} ms "
+        f"({100 * ours_ms / max(busy_ms, 1e-9):.1f} %: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ours.items()) + ")")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3 / iters:8.3f} ms "
               f"{e.count // iters:4d}x  {e.key[:100]}", flush=True)
 
@@ -278,6 +308,242 @@ def kernel_rows() -> list[dict]:
     return results
 
 
+def tie_fixture(x: torch.Tensor, y: torch.Tensor) -> None:
+    """Make query row 0 of every group tie exactly in its max on every
+    channel: four equal target rows along its own direction (y rows 0-3 =
+    3 x_0; with y = x, rows 0-3 equal) are its nearest targets, so the
+    kept slots 0 and d hold two of them for a dilation d <= 3, and x_0 is
+    large enough that every other rel is below theirs."""
+    gen = torch.Generator().manual_seed(99)
+    base = 5.0 * (1.0 + 0.1 * torch.randn(x.shape[-1], generator=gen))
+    base = base.to(x.device)
+    if y is x:
+        x[:, :4] = base
+    else:
+        x[:, 0] = base
+        y[:, :4] = 3.0 * base
+
+
+def check_backward(name: str, x, y, idx, g, out) -> tuple[float, int]:
+    """(e) and (f) for one backward launch ``out = (gx, gy, ge)``. Returns
+    the largest |gy - exact| and the number of rows with a tie."""
+    gx, gy, ge = out
+    check(gx.dtype == x.dtype and gy.shape == y.shape and gy.dtype == y.dtype,
+          f"{name}: backward output shapes")
+    check(torch.equal(gx, -g), f"{name}: gx is not -g")
+    ge_ref = knn_mr.edge_gradients_reference(x, y, idx, g)
+    check(torch.equal(ge, ge_ref), f"{name}: per-edge gradients (tie sets) "
+          f"differ from the plain version's")
+    tie_rows = int(((ge_ref != 0).sum(dim=2) > 1).any(dim=-1).sum())
+    del ge_ref
+    exact, bound = knn_mr.backward_gy_bound(ge, idx, y.shape[1])
+    err = (gy.double() - exact).abs()
+    over = int((err > bound).sum())
+    check(over == 0, f"{name}: gy off the fp64 sum beyond the bound at "
+          f"{over} entries (worst {err.max().item():.3e})")
+    return err.max().item(), tie_rows
+
+
+def backward_rows() -> list[dict]:
+    """Phase 3, backward: every main-path shape of the backward kernel
+    against its plain version, on tie fixtures. Returns one dict per row."""
+    results = []
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for (name, n, m, d, k, dil, table, calls, dt, targets) in ROWS:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = torch.randn((BG, n, d), generator=gen, device="cuda")
+        y = x if targets == "self" else torch.randn(
+            (BG, m, d), generator=gen, device="cuda")
+        tie_fixture(x, y)
+        x = x.to(dtype)
+        y = x if targets == "self" else y.to(dtype)
+        bias = None if table is None else torch.from_numpy(
+            get_relative_pos_table(*table)).cuda()
+        idx, _, _, _ = knn_mr.launch(x, y, bias, k, dil)
+        del bias
+        g = torch.randn((BG, n, d), generator=gen, device="cuda").to(dtype)
+        out = knn_mr.launch_backward(x, y, idx, g)
+        torch.cuda.synchronize()
+        max_abs_err, tie_rows = check_backward(name, x, y, idx, g, out)
+        check(tie_rows >= BG, f"{name}: the tie fixture gave {tie_rows} "
+              f"rows with a tie")
+        # (g) determinism, then times
+        again = knn_mr.launch_backward(x, y, idx, g)
+        check(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]),
+              f"{name}: two launches differ")
+        del again
+        iters = 20 if n * m < 10**7 else 10
+        ms = cuda_ms(lambda: knn_mr.launch_backward(x, y, idx, g), iters, 3)
+        plain_ms = cuda_ms(
+            lambda: knn_mr.knn_mr_backward_reference(x, y, idx, g), 3, 1)
+        # least time: x, y, idx, g read once, gx and gy written once; per
+        # edge and channel a subtraction, a comparison, a split and an add
+        gx, gy, _ = out
+        nbytes = (x.nbytes + (0 if targets == "self" else y.nbytes)
+                  + idx.nbytes + g.nbytes + gx.nbytes + gy.nbytes)
+        flops = 4.0 * BG * n * k * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS["fp32"] * 1e3
+        row = dict(name=name, dtype=dt, N=n, M=m, D=d, k=k,
+                   smem_bytes=0, calls_per_step=calls, ms=ms,
+                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=max_abs_err, tie_rows=tie_rows)
+        print("bwd_row " + json.dumps(row), flush=True)
+        results.append(row)
+        del x, y, idx, g, out, gx, gy
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_phase() -> dict:
+    """Phase 5: the training step's main path, 3 steps at batch 8 in bf16,
+    then its time, memory and profile. Returns its launch counts and
+    numbers."""
+    fn, (state, batch) = train_entry(device="cuda", batch=8)
+    model = state.model
+    log("train: GKGNet-S@576 bf16, batch 8, drop_path 0.1, AdamW + EMA, "
+        "built")
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if "running" in k}
+    knn_mr.launches = 0
+    knn_mr.backward_launches = 0
+    for i in range(3):
+        f0, b0 = knn_mr.launches, knn_mr.backward_launches
+        t = time.perf_counter()
+        state, logs = fn(state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        fwd, bwd = knn_mr.launches - f0, knn_mr.backward_launches - b0
+        check(fwd == 16 and bwd == 16, f"train step {i}: {fwd} forward and "
+              f"{bwd} backward launches, expected 16 and 16")
+        values = {k: float(v) for k, v in logs.items()}
+        for key in ("loss", "bce_loss", "asy_loss", "grad_norm"):
+            check(math.isfinite(values[key]),
+                  f"train step {i}: {key} = {values[key]}")
+        log(f"train step {i}: {step_s * 1e3:.1f} ms host wall; " + ", ".join(
+            f"{k} {v:.6g}" for k, v in values.items()))
+    launches = (knn_mr.launches, knn_mr.backward_launches)
+    unmoved = [k for k, v in model.named_parameters()
+               if torch.equal(v.detach(), p0[k])]
+    check(not unmoved, f"parameters that did not move: {unmoved[:5]}")
+    sd = model.state_dict()
+    still = [k for k, v in stats0.items() if torch.equal(sd[k], v)]
+    check(not still, f"BatchNorm statistics that did not move: {still[:5]}")
+    key = "backbone.stem.convs.0.weight"
+    ema, p3 = state.ema_params[key], sd[key]
+    check(not torch.equal(ema, p3) and not torch.equal(ema, p0[key])
+          and (ema - p0[key]).abs().max() < (p3 - p0[key]).abs().max(),
+          "the EMA is not between the initial and the new parameters")
+    log(f"train: 3 steps passed: {launches[0]} forward and {launches[1]} "
+        f"backward launches, every parameter and BatchNorm statistic moved, "
+        f"the EMA between")
+
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / iters
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train: {step_ms:.2f} ms/step at batch 8, {8e3 / step_ms:.1f} img/s "
+        f"(bf16, mean of {iters} steps, host clock with synchronize); peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    profile_device(lambda: fn(state, batch), "step", iters=2)
+    del fn, state, batch, model, p0, stats0, sd
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms, peak_bytes=peak)
+
+
+def compare_fp32_train() -> None:
+    """One training step of GKGNet-S@576 at batch 2 in fp32 (TF32 off): each
+    of the 16 backward calls held to the plain version on the step's own
+    activations ((e) and (f)); then the same step from the same start on
+    the plain path (both kernels replaced by their plain versions), and on
+    the kernel path with every image value moved by one fp32 ulp. The
+    losses and gradient norms are printed, not asserted: a near-tie
+    neighbour flip in the forward changes the step (see
+    compare_fp32_paths), and the one-ulp run shows how far the model
+    itself moves the step for a change below any kernel's error."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calls = []
+    kernel_bwd = knn_mr.launch_backward
+    kernel_fwd = knn_mr.launch
+
+    def recording(x, y, idx, g):
+        out = kernel_bwd(x, y, idx, g)
+        calls.append(((x, y, idx, g), out))
+        return out
+
+    def plain_fwd(x, y, bias, k, dilation):
+        idx, mr = knn_mr.knn_mr_reference(x, y, bias, k, dilation)
+        return idx, mr, l2_normalize(x), l2_normalize(y)
+
+    def plain_bwd(x, y, idx, g):
+        gx, gy = knn_mr.knn_mr_backward_reference(x, y, idx, g)
+        return gx, gy, None
+
+    results = []
+    for fwd, bwd, ulp in ((kernel_fwd, recording, False),
+                          (plain_fwd, plain_bwd, False),
+                          (kernel_fwd, kernel_bwd, True)):
+        fn, (state, batch) = train_entry(device="cuda", batch=2,
+                                         dtype=torch.float32)
+        if ulp:
+            batch["img"] = torch.nextafter(batch["img"],
+                                           torch.full_like(batch["img"], 1e9))
+        knn_mr.launch, knn_mr.launch_backward = fwd, bwd
+        try:
+            state, logs = fn(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            knn_mr.launch, knn_mr.launch_backward = kernel_fwd, kernel_bwd
+        results.append({k: float(v) for k, v in logs.items()})
+        del fn, state, batch
+    check(len(calls) == 16, f"{len(calls)} backward calls, expected 16")
+    worst = 0.0
+    for i, ((x, y, idx, g), out) in enumerate(calls):
+        err, tie_rows = check_backward(f"fp32 backward call {i}", x, y, idx,
+                                       g, out)
+        worst = max(worst, err)
+        print(f"  fp32 backward call {i:2d}: N={x.shape[1]:5d} "
+              f"M={y.shape[1]:5d} D={x.shape[2]:3d} k={idx.shape[2]}: "
+              f"{tie_rows} rows with a tie; max |gy - fp64| {err:.3e}",
+              flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    kernel, plain, moved = results
+
+    def rel(key, other):
+        return abs(kernel[key] - other[key]) / abs(kernel[key])
+
+    log(f"train fp32 batch 2: 16 backward calls passed (worst |gy - fp64| "
+        f"{worst:.3e}); loss: kernel {kernel['loss']:.7g}, plain "
+        f"{plain['loss']:.7g} (rel diff {rel('loss', plain):.3e}), kernel on "
+        f"images one ulp up {moved['loss']:.7g} (rel diff "
+        f"{rel('loss', moved):.3e}); grad_norm: kernel "
+        f"{kernel['grad_norm']:.7g}, plain {plain['grad_norm']:.7g} (rel diff "
+        f"{rel('grad_norm', plain):.3e}), one ulp up {moved['grad_norm']:.7g} "
+        f"(rel diff {rel('grad_norm', moved):.3e})")
+
+
+def per_step(rows: list[dict], calls_key: str) -> dict:
+    """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
+    and the bound that holds for the larger part of that bound_ms."""
+    main_rows = [r for r in rows if r[calls_key]]
+    total = {key: sum(r[key] * r[calls_key] for r in main_rows)
+             for key in ("ms", "plain_ms", "bound_ms")}
+    by_ops = sum(r["bound_ms"] * r[calls_key] for r in main_rows
+                 if r["bound_by"] == "operations")
+    total["bound_by"] = ("operations" if by_ops > total["bound_ms"] / 2
+                         else "bytes")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -290,21 +556,30 @@ def main() -> int:
     log(f"device: {kind} x{count}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t = time.perf_counter()
-    knn_mr._lib()
-    seconds, compiler_log = _build.build_info["knn_mr"]
-    log(f"build: knn_mr.cu in {seconds:.1f} s (load {time.perf_counter() - t:.1f} s)")
-    print_ptxas_summary(compiler_log)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda load: load(), (knn_mr._lib, knn_mr._bwd_lib)))
+    for name in ("knn_mr", "knn_mr_bwd"):
+        seconds, compiler_log = _build.build_info[name]
+        log(f"build: {name}.cu in {seconds:.1f} s")
+        print_ptxas_summary(compiler_log)
+    log(f"build: both kernels built and loaded in "
+        f"{time.perf_counter() - t:.1f} s")
 
-    # 3. kernel vs plain at every main-path shape
+    # 3. kernels vs plain at every main-path shape
     rows = kernel_rows()
-    log("kernels: every row passed (a) bitwise mr and (b) the fp64 oracle")
+    log("kernels: every forward row passed (a) bitwise mr and (b) the fp64 "
+        "oracle")
+    bwd_rows = backward_rows()
+    log("kernels: every backward row passed (e) gx and the tie sets, (f) gy "
+        "against the fp64 sums and (g) determinism")
 
-    # 4. model: the main path, then requests
+    # 4. eval: the main path, then requests
     fn, (model, x) = entry(device="cuda", batch=8)
     log("model: GKGNet-S@576 bf16, batch 8, built")
     knn_mr.launches = 0
+    knn_mr.backward_launches = 0
     logits = fn(model, x)
     torch.cuda.synchronize()
     check(knn_mr.launches == 16,
@@ -321,44 +596,63 @@ def main() -> int:
               f"request {i}: scores {tuple(scores.shape)}")
         log(f"request {i}: scores {tuple(scores.shape)} in "
             f"[{float(scores.min()):.4f}, {float(scores.max()):.4f}]")
-    main_path_launches = knn_mr.launches
-    check(main_path_launches == 64, f"{main_path_launches} launches over "
-          f"one forward and 3 requests, expected 64")
+    eval_launches = knn_mr.launches
+    check(eval_launches == 64 and knn_mr.backward_launches == 0,
+          f"{eval_launches} forward and {knn_mr.backward_launches} backward "
+          f"launches over one forward and 3 requests, expected 64 and 0")
     fwd_ms = cuda_ms(lambda: fn(model, x), 10, 2)
     log(f"model: {fwd_ms:.2f} ms/forward at batch 8, "
         f"{8e3 / fwd_ms:.1f} img/s (bf16)")
-    profile_forward(fn, model, x)
+    profile_device(lambda: fn(model, x), "forward")
     del model, x, logits
     torch.cuda.empty_cache()
 
     compare_fp32_paths()
 
-    # 5. result lines
-    main_rows = [r for r in rows if r["calls_per_forward"]]
-    per_fwd = {key: sum(r[key] * r["calls_per_forward"] for r in main_rows)
-               for key in ("ms", "plain_ms", "bound_ms")}
-    # the bound that holds for the larger part of the forward's bound_ms
-    by_ops = sum(r["bound_ms"] * r["calls_per_forward"] for r in main_rows
-                 if r["bound_by"] == "operations")
+    # 5. train: the main path, then the fp32 per-call check
+    train = train_phase()
+    compare_fp32_train()
+
+    # 6. result lines
+    fwd = per_step(rows, "calls_per_forward")
+    bwd = per_step(bwd_rows, "calls_per_step")
+    train_fwd, train_bwd = train["launches"]
     kernels = [{
         "name": "knn_mr_fused",
         "route": "cuda",
         "source": "gkgnet_tpu_torch/csrc/knn_mr.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:874",
-        "launches": main_path_launches,
+        # the eval path (one forward + 3 requests) and the train path
+        # (3 steps)
+        "launches": eval_launches + train_fwd,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per forward at batch 8: the sum over the 16 calls' shapes
-        "ms": per_fwd["ms"],
-        "plain_ms": per_fwd["plain_ms"],
-        "bound_ms": per_fwd["bound_ms"],
-        "bound_by": "operations" if by_ops > per_fwd["bound_ms"] / 2
-        else "bytes",
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
         "library_ms": None,  # no single PyTorch call computes kNN + mr
+    }, {
+        "name": "knn_mr_backward",
+        "route": "cuda",
+        "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
+        "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
+        "launches": train_bwd,
+        # largest |gy - exact fp64 sum| over the rows
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        # per train step at batch 8: the sum over the 16 calls' shapes
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the tie-split
+                             # VJP of gather + max
     }]
-    log(f"kernel knn_mr_fused: {main_path_launches} launches on the main "
-        f"path (one forward + 3 requests); checks passed: mr bitwise and "
-        f"fp64 order at {len(rows)} shapes, 16 fp32 calls on the model's "
-        f"own activations")
+    log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
+        f"(one forward + 3 requests) and {train_fwd} on the train path (3 "
+        f"steps); kernel knn_mr_backward: {train_bwd} on the train path; "
+        f"checks passed at {len(rows)} shapes each, 16 fp32 forward calls "
+        f"and 16 fp32 backward calls on the model's own activations")
     log(f"done: {time.perf_counter() - T0:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,1 +1,1 @@
-"""Model modules (eval forward of the main path)."""
+"""Model modules of the main path: backbone, head, losses."""

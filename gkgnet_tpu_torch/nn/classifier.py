@@ -2,8 +2,9 @@
 neck (counterpart: ``gkgnet_tpu/nn/classifier.py``).
 
 ``forward`` returns ``(cls_score (B, n_classes) fp32, edge_index)``, where
-the edge indices are those of the last label GCN. ``init_parameters`` fills
-the weights from a seeded ``torch.Generator`` with the JAX package's
+the edge indices are those of the last label GCN; ``loss`` is the head's
+dual loss and ``parse_losses`` sums it. ``init_parameters`` fills the
+weights from a seeded ``torch.Generator`` with the JAX package's
 initializer families.
 """
 
@@ -21,20 +22,43 @@ class GKGNetClassifier(nn.Module):
 
     def __init__(self, arch: str = "s", k: int = 9, k_label_gcn: int = 9,
                  num_group: int = 2, n_classes: int = 80, size: int = 576,
-                 num_gcn: int = 1, dtype: torch.dtype = torch.float32):
+                 num_gcn: int = 1, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone = GKGNet(arch=arch, k=k, k_label_gcn=k_label_gcn,
                                num_group=num_group, n_classes=n_classes,
-                               size=size, num_gcn=num_gcn, dtype=dtype)
+                               size=size, num_gcn=num_gcn,
+                               drop_path=drop_path, dtype=dtype)
         self.head = LabelQueryHead(n_classes, ARCH_SETTINGS[arch]["channels"][-1])
 
-    def forward(self, imgs: torch.Tensor):
-        """imgs (B, H, W, 3) NHWC -> (logits (B, n_classes), edge_index)."""
-        label_emb, gap, edge_index = self.backbone(imgs)
+    def forward(self, imgs: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """imgs (B, H, W, 3) NHWC -> (logits (B, n_classes), edge_index).
+        ``generator`` feeds the DropPath draws in train mode."""
+        label_emb, gap, edge_index = self.backbone(imgs, generator)
         return self.head(label_emb, gap), edge_index
+
+    def build_loss_head(self) -> LabelQueryHead:
+        """The head whose ``loss`` matches this classifier; the loss uses
+        none of its parameters."""
+        return self.head
+
+    def loss(self, cls_score: torch.Tensor, gt_label: torch.Tensor
+             ) -> dict[str, torch.Tensor]:
+        return self.head.loss(cls_score, gt_label)
 
     def predict(self, cls_score: torch.Tensor) -> torch.Tensor:
         return self.head.simple_test(cls_score)
+
+
+def parse_losses(losses: dict[str, torch.Tensor]
+                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Total loss = the sum of every mean value whose key contains 'loss';
+    the log holds each mean and the total under 'loss'."""
+    log_vars = {k: v.mean() for k, v in losses.items()}
+    total = sum(v for k, v in log_vars.items() if "loss" in k)
+    log_vars["loss"] = total
+    return total, log_vars
 
 
 @torch.no_grad()

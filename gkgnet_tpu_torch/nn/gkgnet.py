@@ -1,4 +1,4 @@
-"""GKGNet backbone, eval forward (counterpart: ``gkgnet_tpu/nn/gkgnet.py``).
+"""GKGNet backbone (counterpart: ``gkgnet_tpu/nn/gkgnet.py``).
 
 A 4-stage pyramid of Grapher+FFN blocks over a stride-4 patch grid, with a
 parallel label-embedding pathway: after the last block of every stage the
@@ -10,11 +10,14 @@ Module names follow the reference's mmcls state_dict: ``stem.convs.*``,
 a Grapher/FFN pair as ``.0``/``.1``), ``gcn_label.{stage}.{j}`` and
 ``ffn_label.{stage}.0``. The per-stage relative-position distance bias is
 computed once per model (numpy) and held as a non-persistent fp32 buffer,
-one table per stage shared by the blocks of the stage.
+one table per stage shared by the blocks of the stage. Stochastic depth
+grows linearly over the blocks, ``np.linspace(0, drop_path, n_blocks)``;
+the label blocks of stage i take the rate of the stage's first block.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,7 +48,8 @@ class GKGNet(nn.Module):
 
     def __init__(self, arch: str = "s", k: int = 9, k_label_gcn: int = 9,
                  num_group: int = 2, n_classes: int = 80, size: int = 576,
-                 num_gcn: int = 1, dtype: torch.dtype = torch.float32):
+                 num_gcn: int = 1, drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         opt = ARCH_SETTINGS[arch]
         blocks, channels = opt["blocks"], opt["channels"]
@@ -55,6 +59,7 @@ class GKGNet(nn.Module):
         self.n_classes = n_classes
         max_dilation = 49 // k
         hw = size // 4
+        dpr = np.linspace(0, drop_path, sum(blocks))
 
         self.stem = Stem(3, channels[0], act, dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, channels[0], hw, hw))
@@ -90,22 +95,28 @@ class GKGNet(nn.Module):
                         f"stage {i}: k*dilation={k * dilation} exceeds "
                         f"{n_targets} candidate nodes — increase `size` or "
                         f"reduce `k` (k=9 needs size>=224)")
+                rate = float(dpr[grapher_idx])
                 self.backbone.append(nn.Sequential(
                     Grapher(channels[i], k, dilation, conv, act, "batch",
-                            bias, stochastic, r_i, num_group, dtype=dtype),
-                    FFN(channels[i], channels[i] * 4, act, dtype)))
+                            bias, stochastic, r_i, num_group,
+                            drop_path=rate, dtype=dtype),
+                    FFN(channels[i], channels[i] * 4, act, rate, dtype)))
                 self._plan.append((i, True, j == blocks[i] - 1))
                 grapher_idx += 1
             n_label_gcn = num_gcn if i == len(blocks) - 1 else 1
+            label_rate = float(dpr[sum(blocks[:i])])
             self.gcn_label.append(nn.ModuleList(
                 GrapherLabel(channels[i], k_label_gcn, 1, "mr", act, "batch",
-                             bias, stochastic, num_group, dtype=dtype)
+                             bias, stochastic, num_group,
+                             drop_path=label_rate, dtype=dtype)
                 for _ in range(n_label_gcn)))
             if i < len(blocks) - 1:
                 self.ffn_label.append(nn.Sequential(
                     nn.Linear(channels[i], channels[i + 1])))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """``generator`` feeds the DropPath draws in train mode."""
         b = x.shape[0]
         label_emb = self.label_lt.weight.to(self.dtype)[None].expand(
             b, self.n_classes, -1)
@@ -118,10 +129,11 @@ class GKGNet(nn.Module):
                 x = module(x)
                 continue
             grapher, ffn = module
-            x = ffn(grapher(x, getattr(self, f"rel_pos_stage{stage}")))
+            x = grapher(x, getattr(self, f"rel_pos_stage{stage}"), generator)
+            x = ffn(x, generator)
             if ends_stage:
                 for gcn in self.gcn_label[stage]:
-                    label_emb, edge_index = gcn(label_emb, x)
+                    label_emb, edge_index = gcn(label_emb, x, generator)
                 if stage < len(self.ffn_label):
                     lin = self.ffn_label[stage][0]
                     label_emb = torch.nn.functional.linear(

@@ -1,6 +1,6 @@
 """Grapher blocks: dynamic k-NN graph convolution over the patch grid and the
-label->patch cross-graph, single-device 'mr' path (counterpart:
-``gkgnet_tpu/nn/grapher.py``).
+label->patch cross-graph, single-device 'mr' path, with DropPath residuals
+in train mode (counterpart: ``gkgnet_tpu/nn/grapher.py``).
 
 Group folding: with ``num_group=g`` the channel dim is split into g groups
 folded into the batch axis; each group builds its own k-NN edge set over its
@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gkgnet_tpu_torch.nn.layers import FFN, BasicConv, ConvNorm, avg_pool_nhwc
+from gkgnet_tpu_torch.nn.layers import (FFN, BasicConv, ConvNorm, DropPath,
+                                        avg_pool_nhwc)
 from gkgnet_tpu_torch.ops.aggregate import interleave_channels
 from gkgnet_tpu_torch.ops.knn_mr import knn_mr_fused
 
@@ -31,8 +32,9 @@ def _require_ported(conv: str, graph_builder: str, stochastic: bool) -> None:
             f"the off-path model features slice")
     if stochastic:
         raise NotImplementedError(
-            "stochastic dilation is train-time only; it comes with the "
-            "training slice")
+            "stochastic dilation is not ported (no arch uses it: every "
+            "ARCH_SETTINGS entry has use_stochastic=False); see ROADMAP.md, "
+            "queue 1, 'Off-path model features'")
 
 
 def fold_groups(x: torch.Tensor, g: int) -> torch.Tensor:
@@ -129,14 +131,14 @@ class LabelGraphConv(nn.Module):
 
 
 class Grapher(nn.Module):
-    """fc1 -> spatial graph conv -> fc2 with a residual. The per-stage
-    relative-position distance bias is passed in."""
+    """fc1 -> spatial graph conv -> fc2 with a DropPath residual. The
+    per-stage relative-position distance bias is passed in."""
 
     def __init__(self, in_channels: int, k: int = 9, dilation: int = 1,
                  conv: str = "mr", act: str = "relu",
                  norm: str | None = "batch", use_bias: bool = True,
                  stochastic: bool = False, r: int = 1, num_group: int = 2,
-                 graph_builder: str = "knn",
+                 graph_builder: str = "knn", drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = ConvNorm(in_channels, in_channels, dtype)
@@ -144,23 +146,24 @@ class Grapher(nn.Module):
             in_channels, in_channels * 2, k, dilation, conv, act, norm,
             use_bias, stochastic, r, num_group, graph_builder, dtype)
         self.fc2 = ConvNorm(in_channels * 2, in_channels, dtype)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, rel_pos: torch.Tensor | None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rel_pos: torch.Tensor | None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h, _ = self.graph_conv(self.fc1(x), rel_pos)
-        return self.fc2(h) + x
+        return self.drop_path(self.fc2(h), generator) + x
 
 
 class GrapherLabel(nn.Module):
-    """Label-token grapher: fc1 -> cross-graph conv -> fc2 -> residual ->
-    FFN (4x hidden). Returns the updated label embeddings and the
-    (group-folded) label->patch edge indices."""
+    """Label-token grapher: fc1 -> cross-graph conv -> fc2 -> DropPath
+    residual -> FFN (4x hidden, the same drop_path). Returns the updated
+    label embeddings and the (group-folded) label->patch edge indices."""
 
     def __init__(self, in_channels: int, k: int = 9, dilation: int = 1,
                  conv: str = "mr", act: str = "relu",
                  norm: str | None = "batch", use_bias: bool = True,
                  stochastic: bool = False, num_group: int = 2,
-                 graph_builder: str = "knn",
+                 graph_builder: str = "knn", drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = ConvNorm(in_channels, in_channels, dtype)
@@ -168,12 +171,14 @@ class GrapherLabel(nn.Module):
             in_channels, in_channels * 2, k, dilation, conv, act, norm,
             use_bias, stochastic, num_group, graph_builder, dtype)
         self.fc2 = ConvNorm(in_channels * 2, in_channels, dtype)
-        self.ffn = FFN(in_channels, in_channels * 4, act, dtype)
+        self.drop_path = DropPath(drop_path)
+        self.ffn = FFN(in_channels, in_channels * 4, act, drop_path, dtype)
 
-    def forward(self, labels: torch.Tensor, feats: torch.Tensor
+    def forward(self, labels: torch.Tensor, feats: torch.Tensor,
+                generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
         b, h, w, c = feats.shape
         x, edge_idx = self.graph_conv(self.fc1(labels),
                                       feats.reshape(b, h * w, c))
-        x = self.fc2(x) + labels
-        return self.ffn(x), edge_idx
+        x = self.drop_path(self.fc2(x), generator) + labels
+        return self.ffn(x, generator), edge_idx

@@ -1,5 +1,4 @@
-"""Basic layers, eval semantics, channel-last (counterpart:
-``gkgnet_tpu/nn/layers.py``).
+"""Basic layers, channel-last (counterpart: ``gkgnet_tpu/nn/layers.py``).
 
 Parameters are held in fp32 with the reference's mmcls names and torch
 layouts (conv weights ``(Cout, Cin/groups, kh, kw)``), and cast to the
@@ -7,13 +6,15 @@ compute dtype where they are used, as the JAX package does. Weights are
 created empty; ``gkgnet_tpu_torch.nn.classifier.init_parameters`` fills them
 from a seeded generator.
 
-  * ``BatchNorm``: running statistics, normalization computed in fp32 and
-    cast back to the compute dtype.
+  * ``BatchNorm``: normalization computed in fp32 and cast back to the
+    compute dtype; in train mode (``module.training``) with the batch
+    moments, updating the running statistics in place.
   * ``PointwiseConv``: 1x1 (grouped) convolution over the last axis as a
     matmul; ``BasicConv`` uses groups=4.
   * ``Activation``: exact-erf GELU (and relu).
   * ``Stem``/``Downsample``: 3x3 convolutions on NHWC tensors.
-  * ``DropPath`` is the identity in eval and is not a module here.
+  * ``DropPath``: per-sample stochastic depth on a residual branch, drawn
+    from a ``torch.Generator`` the caller passes in.
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Batch normalization over the last axis with running statistics."""
+    """Batch normalization over all axes but the last. In train mode it
+    normalizes with the biased batch variance ``mean(x^2) - mean(x)^2``
+    (clamped at 0, in fp32, as the JAX package computes it) and moves the
+    running statistics by momentum 0.1 towards the batch mean and the
+    unbiased batch variance; in eval mode it uses the running statistics."""
+
+    momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -39,9 +46,46 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps) * self.weight + self.bias
+        x32 = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(dim=axes)
+            var = torch.clamp(x32.square().mean(dim=axes) - mean.square(),
+                              min=0.0)
+            count = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (count / max(count - 1, 1))
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
         return y.to(self.dtype)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth: in train mode with ``rate > 0`` each
+    sample's branch is zeroed with probability ``rate`` and otherwise
+    scaled by ``1 / (1 - rate)``; the identity otherwise. The draws come
+    from the ``generator`` passed in (on x's device), never from the global
+    random state."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if generator is None:
+            raise ValueError("DropPath in train mode needs a generator")
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 class Activation(nn.Module):
@@ -119,17 +163,20 @@ class ConvNorm(nn.Sequential):
 
 
 class FFN(nn.Module):
-    """fc1 -> act -> fc2 with a residual (DropPath is the identity in eval)."""
+    """fc1 -> act -> fc2 with a DropPath residual."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 act: str = "relu", dtype: torch.dtype = torch.float32):
+                 act: str = "relu", drop_path: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = ConvNorm(in_features, hidden_features, dtype)
         self.act = Activation(act)
         self.fc2 = ConvNorm(hidden_features, in_features, dtype)
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.act(self.fc1(x))) + x
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.drop_path(self.fc2(self.act(self.fc1(x))), generator) + x
 
 
 class Conv3x3(nn.Module):

@@ -11,10 +11,20 @@
   * mr ``(BG, N, D)``: ``max_j(y[idx_j] - x)`` on the raw features in fp32,
     cast to the input type.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/knn_mr.cu`` (and raises if it cannot); on a CPU tensor it runs
-``knn_mr_reference``, the plain PyTorch version of the same function.
-``launches`` counts the kernel's launches.
+``knn_mr_fused`` is differentiable in x and y (an ``autograd.Function``);
+the graph build gets no gradient, as in the JAX package. Its backward, the
+port of ``gkgnet_tpu/ops/pallas/knn_mr.py::_bwd_pallas``, recomputes
+``rel_j = y[idx_j] - x`` in the input type from the saved idx, splits each
+channel's gradient equally among the tied maxima (``g / cnt``, rounded to
+the input type) and scatter-adds it into gy in fp32, rounded once; gx is
+``-g``. When y is x, autograd sums the two into the one input.
+
+On a CUDA tensor the wrappers launch the hand-written kernels in
+``csrc/knn_mr.cu`` (forward) and ``csrc/knn_mr_bwd.cu`` (backward), and
+raise if they cannot; on a CPU tensor they run ``knn_mr_reference`` and
+``knn_mr_backward_reference``, the plain PyTorch versions of the same
+functions. ``launches`` and ``backward_launches`` count the kernels'
+launches.
 """
 
 from __future__ import annotations
@@ -24,11 +34,12 @@ import ctypes
 import torch
 
 from gkgnet_tpu_torch.ops import _build
-from gkgnet_tpu_torch.ops.aggregate import max_relative
+from gkgnet_tpu_torch.ops.aggregate import gather_nodes, max_relative
 from gkgnet_tpu_torch.ops.knn import dilate_edges, knn_graph
 
-# Kernel launches since the last reset; the wrapper adds one per launch.
+# Kernel launches since the last reset; each wrapper adds one per launch.
 launches = 0
+backward_launches = 0
 
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -134,16 +145,150 @@ def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
     return idx, mr, xn, yn
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("knn_mr_bwd")
+    if lib.knn_mr_edge_grads.argtypes is None:
+        lib.knn_mr_edge_grads.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.knn_mr_edge_grads.restype = ctypes.c_int
+        lib.knn_mr_gather_targets.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
+        lib.knn_mr_gather_targets.restype = ctypes.c_int
+        lib.knn_mr_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.knn_mr_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_backward(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+                    g: torch.Tensor) -> None:
+    if x.dim() != 3 or y.dim() != 3 or y.shape[0] != x.shape[0] \
+            or y.shape[2] != x.shape[2]:
+        raise ValueError(f"x and y must be (BG, N, D) / (BG, M, D), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if x.dtype not in _DTYPES or y.dtype != x.dtype or g.dtype != x.dtype:
+        raise TypeError(f"x, y and g must share one of {_DTYPES}, got "
+                        f"{x.dtype}, {y.dtype} and {g.dtype}")
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    if idx.dtype != torch.int32 or idx.dim() != 3 \
+            or idx.shape[:2] != x.shape[:2] or idx.shape[2] < 1:
+        raise ValueError(f"idx must be int32 (BG, N, k) for x "
+                         f"{tuple(x.shape)}, got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+
+
+def edge_gradients_reference(x: torch.Tensor, y: torch.Tensor,
+                             idx: torch.Tensor, g: torch.Tensor
+                             ) -> torch.Tensor:
+    """The per-edge gradients ``(BG, N, k, D)`` in the input type:
+    ``g / cnt`` on the edges whose ``rel_j = y[idx_j] - x`` (in the input
+    type) equals the channel's max, 0 elsewhere and on a NaN max."""
+    rel = gather_nodes(y, idx) - x[:, :, None, :]
+    tie = rel == rel.amax(dim=2, keepdim=True)
+    cnt = tie.sum(dim=2, keepdim=True)
+    return torch.where(tie, g.float()[:, :, None, :] / cnt, 0.0).to(x.dtype)
+
+
+def _flat_targets(idx: torch.Tensor, m: int) -> torch.Tensor:
+    """idx (BG, N, k) -> flat target rows ``bg * M + idx`` (int64)."""
+    base = torch.arange(idx.shape[0], device=idx.device) * m
+    return (idx.long() + base[:, None, None]).reshape(-1)
+
+
+def knn_mr_backward_reference(x: torch.Tensor, y: torch.Tensor,
+                              idx: torch.Tensor, g: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward: ``(gx, gy)`` for the output gradient g of mr
+    (see the module docstring); gy is summed in fp32 and rounded once to
+    y's type."""
+    _check_backward(x, y, idx, g)
+    bg, _, d = x.shape
+    m = y.shape[1]
+    ge = edge_gradients_reference(x, y, idx, g)
+    gy = torch.zeros((bg * m, d), dtype=torch.float32, device=y.device)
+    gy.index_add_(0, _flat_targets(idx, m), ge.reshape(-1, d).float())
+    return -g, gy.reshape(bg, m, d).to(y.dtype)
+
+
+def launch_backward(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+                    g: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward CUDA kernels. ``idx`` is the forward's, with every
+    entry in [0, M). Returns ``(gx, gy, ge)``, where ge are the per-edge
+    gradients ``(BG, N, k, D)`` the kernel summed into gy."""
+    global backward_launches
+    _check_backward(x, y, idx, g)
+    for name, t in zip(("x", "y", "idx", "g"), (x, y, idx, g)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device} (CUDA), "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    bg, n, d = x.shape
+    m = y.shape[1]
+    k = idx.shape[2]
+    # the inverse edge list: edge ids sorted by (target, edge id); index
+    # bookkeeping only, the arithmetic is in the kernels
+    keys, order = torch.sort(_flat_targets(idx, m), stable=True)
+    first = torch.searchsorted(
+        keys, torch.arange(bg * m + 1, device=x.device))
+    gx = torch.empty_like(x)
+    gy = torch.empty_like(y)
+    ge = torch.empty((bg, n, k, d), dtype=x.dtype, device=x.device)
+    lib = _bwd_lib()
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.knn_mr_edge_grads(
+            x.data_ptr(), y.data_ptr(), idx.data_ptr(), g.data_ptr(),
+            gx.data_ptr(), ge.data_ptr(), bg, n, m, d, k, is_bf16, stream)
+        if err == 0:
+            err = lib.knn_mr_gather_targets(
+                ge.data_ptr(), order.data_ptr(), first.data_ptr(),
+                gy.data_ptr(), bg * m, d, is_bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"knn_mr backward kernel launch failed: "
+                           f"{lib.knn_mr_bwd_error_string(err).decode()} "
+                           f"({err})")
+    backward_launches += 1
+    return gx, gy, ge
+
+
+class _KnnMr(torch.autograd.Function):
+    """``knn_mr_fused`` with its backward: the kernels for CUDA tensors, the
+    plain versions for CPU tensors. No gradient for the graph build, the
+    bias, k or the dilation."""
+
+    @staticmethod
+    def forward(ctx, x, y, bias, k, dilation):
+        if x.device.type == "cpu":
+            idx, mr = knn_mr_reference(x, y, bias, k, dilation)
+        else:
+            idx, mr, _, _ = launch(x, y, bias, k, dilation)
+        ctx.save_for_backward(x, y, idx)
+        ctx.mark_non_differentiable(idx)
+        return idx, mr
+
+    @staticmethod
+    def backward(ctx, _, g):
+        x, y, idx = ctx.saved_tensors
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            gx, gy = knn_mr_backward_reference(x, y, idx, g)
+        else:
+            gx, gy, _ = launch_backward(x, y, idx, g)
+        return gx, gy, None, None, None
+
+
 def knn_mr_fused(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
                  k: int, dilation: int = 1
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused kNN graph + max-relative aggregate (see the module docstring).
-    Launches the CUDA kernel for CUDA tensors and runs the plain version
-    for CPU tensors."""
-    if x.device.type == "cpu":
-        return knn_mr_reference(x, y, bias, k, dilation)
-    idx, mr, _, _ = launch(x, y, bias, k, dilation)
-    return idx, mr
+    """Fused kNN graph + max-relative aggregate (see the module docstring),
+    differentiable in x and y. Launches the CUDA kernels for CUDA tensors
+    and runs the plain versions for CPU tensors."""
+    return _KnnMr.apply(x, y, bias, k, dilation)
 
 
 def ordering_gaps(xn: torch.Tensor, yn: torch.Tensor,
@@ -185,3 +330,33 @@ def ordering_gaps(xn: torch.Tensor, yn: torch.Tensor,
         got = d.gather(1, idx[b, n_of[sel]].long())
         gaps[sel] = (got - true).abs()
     return gaps
+
+
+def backward_gy_bound(ge: torch.Tensor, idx: torch.Tensor, m: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's summation contract, checked in fp64.
+
+    From the per-edge gradients ``ge (BG, N, k, D)`` (``launch_backward``
+    returns them) and ``idx``, returns ``(exact, bound)``, both
+    ``(BG, M, D)`` fp64: each target's exact sum and the bound that
+    ``|gy - exact|`` must meet. A sum of n terms taken in fp32 in any order
+    is off by at most ``gamma(n - 1) * sum|g_j|``, with
+    ``gamma(j) = j u / (1 - j u)`` and u = 2**-24; a bf16 gy adds its one
+    rounding: one bf16 spacing at ``|exact|`` and 2**-7 of that bound.
+    """
+    bg, _, _, d = ge.shape
+    flat = _flat_targets(idx, m)
+    rows = ge.reshape(-1, d).double()
+    exact = torch.zeros((bg * m, d), dtype=torch.float64, device=ge.device)
+    total = torch.zeros_like(exact)
+    exact.index_add_(0, flat, rows)
+    total.index_add_(0, flat, rows.abs())
+    ju = (torch.bincount(flat, minlength=bg * m).double()[:, None] - 1
+          ).clamp(min=0) * 2.0 ** -24
+    bound = ju / (1.0 - ju) * total
+    if ge.dtype == torch.bfloat16:
+        mag = exact.abs()
+        spacing = torch.where(
+            mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
+        bound = bound * (1.0 + 2.0 ** -7) + spacing
+    return exact.reshape(bg, m, d), bound.reshape(bg, m, d)

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from gkgnet_tpu_torch.nn.layers import BatchNorm
+
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "embedding": "weight", "mean": "running_mean", "var": "running_var"}
 _STEM = {"conv0": 0, "norm0": 1, "conv1": 3, "norm1": 4, "conv2": 6, "norm2": 7}
@@ -84,6 +86,29 @@ def torch_key(path: tuple[str, ...]) -> str:
     else:
         raise KeyError(f"unmapped path {path}")
     return ".".join(["backbone", *parts, _LEAF[leaf]])
+
+
+def jax_leaf_names(model: nn.Module) -> dict[str, str]:
+    """Parameter name -> the leaf name of the JAX variable it is loaded from
+    (the inverse of the last step of ``torch_key``): ``kernel``, ``bias``,
+    ``scale``, ``embedding``, ``pos_embed``, ``fc1_kernel`` or
+    ``fc1_bias``."""
+    names = {}
+    for mod_name, module in model.named_modules():
+        for p_name, _ in module.named_parameters(recurse=False):
+            key = f"{mod_name}.{p_name}" if mod_name else p_name
+            if key in ("head.fc1.weight", "head.fc1.bias"):
+                leaf = "fc1_kernel" if p_name == "weight" else "fc1_bias"
+            elif p_name == "pos_embed":
+                leaf = "pos_embed"
+            elif isinstance(module, BatchNorm):
+                leaf = {"weight": "scale", "bias": "bias"}[p_name]
+            elif isinstance(module, nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = {"weight": "kernel", "bias": "bias"}[p_name]
+            names[key] = leaf
+    return names
 
 
 def to_torch_layout(path: tuple[str, ...], value) -> np.ndarray:

@@ -243,9 +243,12 @@ def test_entry_needs_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, gkgnet_tpu_torch.entry, gkgnet_tpu_torch.utils.weights;"
+    code = ("import sys, gkgnet_tpu_torch.entry, gkgnet_tpu_torch.utils.weights,"
+            " gkgnet_tpu_torch.core.trainer, gkgnet_tpu_torch.core.optim,"
+            " gkgnet_tpu_torch.core.schedules, gkgnet_tpu_torch.nn.losses;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'gkgnet_tpu')]; print(bad); sys.exit(bool(bad))")
+            "('jax', 'flax', 'optax', 'gkgnet_tpu')]; print(bad); "
+            "sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

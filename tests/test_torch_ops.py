@@ -6,6 +6,7 @@ against the JAX package's Pallas kernel, run in interpret mode, and against
 its XLA path: idx bitwise, mr within 1e-5 in fp32.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -270,3 +271,217 @@ def test_ordering_gaps_flags_a_wrong_order():
     repeated[0, 0, 1] = repeated[0, 0, 0]
     with pytest.raises(ValueError):
         tknn_mr.ordering_gaps(xn, yn, bias, repeated, 2)
+
+
+# ------------------------------------ NaN rows: the plain version pinned
+
+
+def test_knn_mr_reference_nan_rows_match_jax():
+    """A query row of NaN and a target row of NaN: the plain version (and
+    the CUDA kernel held to it) gives what the JAX XLA path gives: in-range,
+    distinct idx, the NaN target column last, and mr NaN on the NaN query
+    row."""
+    rng = np.random.default_rng(12)
+    bg, n, m, d, k, dilation = 2, 12, 20, 6, 3, 2
+    x = rng.standard_normal((bg, n, d)).astype(np.float32)
+    y = rng.standard_normal((bg, m, d)).astype(np.float32)
+    x[0, 3] = np.nan
+    y[1, 0] = np.nan
+    idx, mr = tknn_mr.knn_mr_reference(_t(x), _t(y), None, k, dilation)
+    j_idx, j_mr = _jax_xla_path(jnp.asarray(x), jnp.asarray(y), None, k,
+                                dilation)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_allclose(mr.numpy(), np.asarray(j_mr), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_array_equal(idx[0, 3].numpy(), [0, 2, 4])
+    assert torch.isnan(mr[0, 3]).all()
+    assert not (idx[1] == 0).any()           # the NaN target is never chosen
+    assert torch.isfinite(mr[1]).all() and torch.isfinite(mr[0, :3]).all()
+
+
+# --------------------------------- knn_mr backward: the _bwd_pallas contract
+
+from gkgnet_tpu.ops.pallas.knn_mr import _bwd_pallas as j_bwd_pallas  # noqa: E402
+
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _bwd_inputs(bg, n, m, d, k, dtype, seed, ties=True):
+    """Seeded x, y, g in ``dtype`` and the plain kNN's idx of them; with
+    ``ties``, target rows 30 and 31 (and 5 and 6) are equal, so their
+    relative features tie exactly in the max."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bg, n, d)).astype(np.float32)
+    y = rng.standard_normal((bg, m, d))
+    if ties:
+        y[:, 31] = y[:, 30]
+        y[:, 6] = y[:, 5]
+    y = y.astype(np.float32)
+    g = rng.standard_normal((bg, n, d)).astype(np.float32)
+    tx, ty, tg = (_t(a).to(dtype) for a in (x, y, g))
+    idx, _ = tknn_mr.knn_mr_reference(tx, ty, None, k)
+    return tx, ty, idx, tg
+
+
+def _bf16_ulp(a):
+    """The bf16 spacing at |a| (float32 numpy in, float32 out)."""
+    a = np.abs(a.astype(np.float32))
+    exp = np.floor(np.log2(np.maximum(a, np.finfo(np.float32).tiny)))
+    return np.float32(2.0) ** (exp - 7)
+
+
+def _jax_tie_set(x, y, idx):
+    """rel == max(rel) with rel computed by the JAX package in the input
+    dtype: the indicator lax.reduce_max's VJP splits the gradient over."""
+    rel = jagg.gather_nodes(y, idx) - x[:, :, None, :]
+    return np.asarray(rel == jnp.max(rel, axis=2, keepdims=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_knn_mr_backward_reference_matches_bwd_pallas(dtype, self_knn):
+    """``knn_mr_backward_reference`` against the JAX package's Pallas
+    backward (interpret mode, one tile): gx bitwise, the tie sets equal,
+    gy within 1e-6 (fp32: the same sums in another order) or 1 bf16 ulp
+    (bf16: one rounding of an fp32 sum)."""
+    bg, n, m, d, k = 2, 48, 40, 8, 4
+    x, y, idx, g = _bwd_inputs(bg, n, m, d, k, dtype, seed=21)
+    if self_knn:
+        y = x.clone()
+        y[:, 31] = y[:, 30]
+        x = y
+        idx, _ = tknn_mr.knn_mr_reference(x, y, None, k)
+    gx, gy = tknn_mr.knn_mr_backward_reference(x, y, idx, g)
+    assert gx.dtype == dtype and gy.dtype == dtype and gy.shape == y.shape
+    jx, jy, jg = (jnp.asarray(a.float().numpy(), _JDT[dtype])
+                  for a in (x, y, g))
+    j_idx = jnp.asarray(idx.numpy())
+    j_gx, j_gy = j_bwd_pallas(jx, jy, j_idx, jg, k, n, True)
+    np.testing.assert_array_equal(gx.float().numpy(),
+                                  np.asarray(j_gx.astype(jnp.float32)))
+    ge = tknn_mr.edge_gradients_reference(x, y, idx, g)
+    ties = _jax_tie_set(jx, jy, j_idx)
+    assert ties.sum(axis=2).max() > 1, "the fixture has no tie"
+    np.testing.assert_array_equal((ge != 0).numpy(), ties & (g != 0).numpy()[
+        :, :, None, :])
+    got = gy.float().numpy()
+    ref = np.asarray(j_gy.astype(jnp.float32))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    else:
+        assert (np.abs(got - ref) <= _bf16_ulp(np.maximum(np.abs(got),
+                                                          np.abs(ref)))).all()
+
+
+def test_knn_mr_backward_reference_splits_ties_in_the_input_dtype():
+    """Two targets equal in bf16 but not in fp32 tie in the bf16 max: the
+    gradient is split between them, as the JAX kernel's bf16 comparison
+    does (autograd through the fp32 max would give all of it to one)."""
+    x = torch.zeros((1, 1, 1), dtype=torch.bfloat16)
+    y = torch.tensor([[[1.0], [1.0]]]).to(torch.bfloat16)
+    y[0, 1, 0] = torch.tensor(1.0 + 2 ** -9).to(torch.bfloat16)  # rounds to 1
+    idx = torch.tensor([[[0, 1]]], dtype=torch.int32)
+    g = torch.ones((1, 1, 1), dtype=torch.bfloat16)
+    _, gy = tknn_mr.knn_mr_backward_reference(x, y, idx, g)
+    assert gy.flatten().tolist() == [0.5, 0.5]
+    j_gx, j_gy = j_bwd_pallas(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(y.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(idx.numpy()),
+                              jnp.ones((1, 1, 1), jnp.bfloat16), 2, 1, True)
+    np.testing.assert_array_equal(np.asarray(j_gy.astype(jnp.float32)),
+                                  gy.float().numpy())
+
+
+def test_knn_mr_backward_reference_nan_rows():
+    """A NaN among a row's rels makes the max NaN and matches no rel, so
+    that row sends no gradient to y (as jnp.maximum and == do) and gx is
+    -g. A NaN query row is held against the Pallas backward; a NaN target
+    row only within the port, because the Pallas kernel gathers through a
+    one-hot matmul, where 0 * NaN spreads the NaN target over every row."""
+    x, y, idx, g = _bwd_inputs(1, 10, 16, 4, 3, torch.float32, seed=22,
+                               ties=False)
+    x[0, 2] = float("nan")
+    gx, gy = tknn_mr.knn_mr_backward_reference(x, y, idx, g)
+    assert (tknn_mr.edge_gradients_reference(x, y, idx, g)[0, 2] == 0).all()
+    assert torch.equal(gx, -g) and torch.isfinite(gy).all()
+    j_gx, j_gy = j_bwd_pallas(jnp.asarray(x.numpy()), jnp.asarray(y.numpy()),
+                              jnp.asarray(idx.numpy()), jnp.asarray(g.numpy()),
+                              3, 10, True)
+    np.testing.assert_array_equal(gx.numpy(), np.asarray(j_gx))
+    np.testing.assert_allclose(gy.numpy(), np.asarray(j_gy), rtol=1e-6,
+                               atol=1e-6)
+    x[0, 2] = 0.0
+    before = tknn_mr.edge_gradients_reference(x, y, idx, g)
+    target = idx[0, 4, 0]
+    y[0, target] = float("nan")
+    _, gy = tknn_mr.knn_mr_backward_reference(x, y, idx, g)
+    ge = tknn_mr.edge_gradients_reference(x, y, idx, g)
+    hit = (idx[0] == target).any(-1)
+    assert (ge[0, hit] == 0).all() and torch.isfinite(gy).all()
+    assert torch.equal(ge[0, ~hit], before[0, ~hit]) and (~hit).any()
+
+
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_knn_mr_fused_autograd_matches_jax_grad(self_knn):
+    """torch.autograd through the port's ``knn_mr_fused`` against jax.grad
+    through the JAX package's (interpret mode): the same gradients within
+    1e-5. With y = x the two parts sum into the one input."""
+    bg, n, m, d, k, dilation = 1, 24, 16, 6, 3, 2
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((bg, n, d)).astype(np.float32)
+    y = x if self_knn else rng.standard_normal((bg, m, d)).astype(np.float32)
+    bias = (rng.standard_normal((n, x.shape[1] if self_knn else m)) * 0.1
+            ).astype(np.float32)
+    w = rng.standard_normal((bg, n, d)).astype(np.float32)
+
+    def j_loss(x_, y_):
+        _, mr = j_knn_mr_fused(x_, x_ if self_knn else y_,
+                               jnp.asarray(bias), k, dilation, 8, True)
+        return jnp.sum(mr * mr * jnp.asarray(w))
+
+    j_gx, j_gy = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(x),
+                                                  jnp.asarray(y))
+    tx = _t(x).requires_grad_()
+    ty = tx if self_knn else _t(y).requires_grad_()
+    _, mr = tknn_mr.knn_mr_fused(tx, ty, _t(bias), k, dilation)
+    (mr * mr * _t(w)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(j_gx),
+                               rtol=1e-5, atol=1e-5)
+    if not self_knn:
+        np.testing.assert_allclose(ty.grad.numpy(), np.asarray(j_gy),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_knn_mr_fused_graph_build_gets_no_gradient():
+    """Only the gather + max-relative is differentiated: the bias gets no
+    gradient and idx is not differentiable; on the CPU no kernel runs."""
+    x, y, _, _ = _bwd_inputs(1, 10, 16, 4, 3, torch.float32, seed=23,
+                             ties=False)
+    x.requires_grad_()
+    y.requires_grad_()
+    bias = torch.zeros((10, 16), requires_grad=True)
+    before = (tknn_mr.launches, tknn_mr.backward_launches)
+    idx, mr = tknn_mr.knn_mr_fused(x, y, bias, 3)
+    assert not idx.requires_grad
+    mr.sum().backward()
+    assert bias.grad is None
+    assert torch.equal(x.grad, -torch.ones_like(x))
+    assert (tknn_mr.launches, tknn_mr.backward_launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_backward_gy_bound_holds_plain_and_flags_a_wrong_sum(dtype):
+    """The fp64 oracle that holds the backward kernel's gy: the plain
+    version's gy is within it, a gy with one edge's gradient dropped is
+    not."""
+    x, y, idx, g = _bwd_inputs(2, 48, 40, 8, 4, dtype, seed=24)
+    _, gy = tknn_mr.knn_mr_backward_reference(x, y, idx, g)
+    ge = tknn_mr.edge_gradients_reference(x, y, idx, g)
+    exact, bound = tknn_mr.backward_gy_bound(ge, idx, 40)
+    assert exact.dtype == torch.float64 and exact.shape == (2, 40, 8)
+    assert ((gy.double() - exact).abs() <= bound).all()
+    wrong = gy.double()
+    wrong[0, idx[0, 0, 0]] -= ge[0, 0, 0].double()
+    assert ((wrong - exact).abs() > bound).any()
