@@ -26,6 +26,15 @@ Phases (each prints its elapsed seconds):
      (f) gy within backward_gy_bound of the fp64 sum of those gradients
          (the fp32 summation bound; in bf16 plus one rounding);
      (g) a second launch bitwise equal (no atomics), and the times;
+     the forward rows also hold knn_topk(xn, yn, k*d)[..., ::d] bitwise to
+     knn_mr's idx on knn_mr's own normalized rows (the same selection
+     helpers and arithmetic). knn_topk (knn_graph's kernel) at every shape of this slice's
+     path (bf16, BG=8 for the 9 blocks without groups, BG=16 for the 3
+     stochastic 'mr' blocks, plus one fp32 row): the fp64 ordering oracle,
+     every returned distance within its fp32 bound of the fp64 one, idx
+     equal to the plain version's except at oracle near-ties (counted), two
+     launches bitwise equal, tie and NaN fixtures bitwise the plain
+     version's; kernel, plain and the two-call PyTorch route's times;
   4. eval: entry(device="cuda", batch=8) in bf16: 16 kernel launches per
      forward, finite (8, 80) logits; 3 requests through predict(); then
      ms/forward and a profile of device time by kernel; then batch 1 in
@@ -40,8 +49,18 @@ Phases (each prints its elapsed seconds):
      a profile; then one step at batch 2 in fp32: each of the 16 backward
      calls held against the plain version on the step's own activations,
      and the kernel path's loss printed beside the plain path's and beside
-     the kernel path's on images moved by one ulp;
-  6. the kernels line, nvidia-smi's line, and the result line.
+     the kernel path's on images moved by one ulp; neither path launches
+     knn_topk;
+  6. the Grapher path (this slice): per aggregator (edge, sage, gin, gat)
+     the 5 Grapher and 4 GrapherLabel blocks of GKGNet-S@576 without
+     channel groups, at batch 8 in bf16, in eval and in a train-mode
+     forward + backward: 9 knn_topk launches and no knn_mr launch each,
+     finite outputs and gradients, ms per block; the 3 'mr' Graphers with
+     stochastic dilation (epsilon 0.2) in train (3 knn_topk launches, no
+     knn_mr) and eval (the fused knn_mr route); then at batch 2 in fp32
+     every knn_topk call held to the plain version on the blocks' own
+     activations;
+  7. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -67,10 +86,12 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
-from gkgnet_tpu_torch.ops import _build, knn_mr  # noqa: E402
+from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
 from gkgnet_tpu_torch.ops.aggregate import max_relative  # noqa: E402
-from gkgnet_tpu_torch.ops.knn import l2_normalize  # noqa: E402
+from gkgnet_tpu_torch.ops.knn import (knn_topk_reference,  # noqa: E402
+                                      l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
+from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 BG = 16                   # batch 8 x 2 channel groups
 ORACLE_TOL = 1e-4         # ~2x the worst fp32 accumulation error at D=320
@@ -96,6 +117,45 @@ ROWS = [
     ("stage3_d2_fp32", 1296, 1296, 200, 9, 2, (400, 1296, 1), 0, "fp32",
      "self"),
 ]
+
+
+# knn_topk at the shapes of this slice's path: (name, N, M, D, k, bias table
+#  or None, BG, calls per aggregator pass (the 9 g=1 blocks of one
+#  aggregator) or per stochastic pass (3 'mr' blocks, 2 groups), dtype,
+#  targets). k is the graph conv's k * dilation.
+TOPK_ROWS = [
+    ("grapher1", 20736, 1296, 80, 9, (80, 20736, 4), 8, "agg", "bf16",
+     "pooled"),
+    ("grapher2", 5184, 1296, 160, 9, (160, 5184, 2), 8, "agg", "bf16",
+     "pooled"),
+    ("grapher3_d2", 1296, 1296, 400, 18, (400, 1296, 1), 8, "agg", "bf16",
+     "self"),
+    ("grapher3_d3", 1296, 1296, 400, 27, (400, 1296, 1), 8, "agg", "bf16",
+     "self"),
+    ("grapher4_d3", 324, 324, 640, 27, (640, 324, 1), 8, "agg", "bf16",
+     "self"),
+    ("label1", 80, 20736, 80, 9, None, 8, "agg", "bf16", "labels"),
+    ("label2", 80, 5184, 160, 9, None, 8, "agg", "bf16", "labels"),
+    ("label3", 80, 1296, 400, 9, None, 8, "agg", "bf16", "labels"),
+    ("label4", 80, 324, 640, 9, None, 8, "agg", "bf16", "labels"),
+    ("stochastic3_d2", 1296, 1296, 200, 18, (400, 1296, 1), 16, "stoch",
+     "bf16", "self"),
+    ("stochastic3_d3", 1296, 1296, 200, 27, (400, 1296, 1), 16, "stoch",
+     "bf16", "self"),
+    ("stochastic4_d3", 324, 324, 320, 27, (640, 324, 1), 16, "stoch",
+     "bf16", "self"),
+    ("grapher3_d2_fp32", 1296, 1296, 400, 18, (400, 1296, 1), 8, None,
+     "fp32", "self"),
+]
+# The slice's path at GKGNet-S@576 widths, batch 8: (stage, C, grid side,
+# r, dilation) of the Grapher blocks, (stage, C, grid side) of the
+# GrapherLabel blocks, and the stochastic 'mr' Graphers.
+GRAPHER_BLOCKS = [(1, 80, 144, 4, 1), (2, 160, 72, 2, 1), (3, 400, 36, 1, 2),
+                  (3, 400, 36, 1, 3), (4, 640, 18, 1, 3)]
+LABEL_BLOCKS = [(1, 80, 144), (2, 160, 72), (3, 400, 36), (4, 640, 18)]
+STOCHASTIC_BLOCKS = [(3, 400, 36, 1, 2), (3, 400, 36, 1, 3),
+                     (4, 640, 18, 1, 3)]
+AGGREGATORS = ("edge", "sage", "gin", "gat")
 
 
 def log(msg: str) -> None:
@@ -134,7 +194,8 @@ def print_ptxas_summary(compiler_log: str) -> None:
     name = None
     for line in compiler_log.splitlines():
         fn = re.search(r"Compiling entry function '_Z\w*?(knn_mr_kernel|"
-                       r"l2norm_rows|edge_grads|gather_targets)"
+                       r"knn_topk_kernel|l2norm_rows|row_sq|edge_grads|"
+                       r"gather_targets)"
                        r"I(13__nv_bfloat16|f)(?:Li(\d+))?", line)
         if fn:
             dtype = "bf16" if fn.group(2) != "f" else "fp32"
@@ -146,7 +207,8 @@ def print_ptxas_summary(compiler_log: str) -> None:
         print(f"  ptxas {name}: {'; '.join(parts)}", flush=True)
 
 
-OUR_KERNELS = ("knn_mr_kernel", "l2norm_rows", "edge_grads", "gather_targets")
+OUR_KERNELS = ("knn_mr_kernel", "l2norm_rows", "edge_grads", "gather_targets",
+               "knn_topk_kernel", "row_sq")
 
 
 def profile_device(run, unit: str, iters: int = 3) -> None:
@@ -276,6 +338,12 @@ def kernel_rows() -> list[dict]:
         worst = gaps.max().item()
         check(violations == 0, f"{name}: {violations} slots off the fp64 "
               f"order by more than {ORACLE_TOL} (worst {worst:.3e})")
+        # knn_topk on the kernel's own normalized rows, every d-th: the
+        # same selection and arithmetic give bitwise knn_mr's idx
+        t_idx = knn_topk.launch(xn, yn, k=k * dil, bias=bias)[..., ::dil]
+        check(torch.equal(t_idx, idx), f"{name}: knn_topk(xn, yn, k*d)"
+              f"[..., ::d] differs from knn_mr's idx")
+        del t_idx
         # (c) agreement with the plain version's own idx (not asserted)
         idx_p, _ = knn_mr.knn_mr_reference(x, y, bias, k, dil)
         same = (idx_p == idx).all(-1).float().mean().item()
@@ -396,6 +464,332 @@ def backward_rows() -> list[dict]:
     return results
 
 
+def topk_value_bounds(xn: torch.Tensor, yn: torch.Tensor,
+                      bias: torch.Tensor | None, idx: torch.Tensor,
+                      rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """For the flat query ``rows`` (into BG*N) and their selected columns
+    ``idx``: the fp64 distances (bias included) and the bound an fp32
+    computation of them meets, gamma(D + 3) * (x_sq + 2 sum|x_e y_e| + y_sq
+    + |bias|) with gamma(j) = j u / (1 - j u), u = 2**-24: D products
+    summed, then three more roundings. Both (rows, k) fp64."""
+    bg, n, d = xn.shape
+    k = idx.shape[-1]
+    b_of, n_of = rows // n, rows % n
+    q = xn.reshape(bg * n, d)[rows].double()                    # (R, D)
+    cols = idx.reshape(bg * n, k)[rows].long()                  # (R, k)
+    t = yn.double()[b_of[:, None], cols]                        # (R, k, D)
+    prod = q[:, None, :] * t
+    exact = (q * q).sum(-1)[:, None] - 2.0 * prod.sum(-1) + (t * t).sum(-1)
+    scale = (q * q).sum(-1)[:, None] + 2.0 * prod.abs().sum(-1) \
+        + (t * t).sum(-1)
+    if bias is not None:
+        b = (bias[b_of, n_of] if bias.dim() == 3 else bias[n_of]).double()
+        bsel = b.gather(1, cols)
+        exact = exact + bsel
+        scale = scale + bsel.abs()
+    ju = (d + 3) * 2.0 ** -24
+    return exact, ju / (1.0 - ju) * scale
+
+
+def check_topk(name: str, xn, yn, bias, idx, vals, rows=None,
+               max_flip_share: float | None = None) -> dict:
+    """A knn_topk result held to its contract on finite inputs: (1) the
+    fp64 ordering oracle (each slot's fp64 distance within ORACLE_TOL of
+    the true rank's) on ``rows`` (all by default) and on every row whose
+    idx differs from the plain version's, where the plain idx must pass it
+    too: a row may differ only at a near-tie, which fp32 sums taken in
+    another order decide otherwise (with ``max_flip_share``, at most that
+    share of the rows); (2) each returned distance within its fp32 bound of
+    the fp64 distance. Returns the counts."""
+    bg, n, _ = xn.shape
+    plain = knn_topk_reference(xn, yn, k=idx.shape[-1], bias=bias)
+    diff = (plain != idx).any(-1).reshape(-1).nonzero().squeeze(1)
+    flips = diff.numel()
+    check(max_flip_share is None or flips <= max_flip_share * bg * n,
+          f"{name}: idx differs from the plain version's on {flips} of "
+          f"{bg * n} rows")
+    if rows is None:
+        rows = torch.arange(bg * n, device=xn.device)
+    rows = torch.unique(torch.cat([rows, diff]))
+    worst = 0.0
+    for got in (idx, plain):
+        gaps = knn_mr.ordering_gaps(xn, yn, bias, got, 1, rows)
+        worst = max(worst, gaps.max().item())
+        check(worst <= ORACLE_TOL, f"{name}: a slot off the fp64 order by "
+              f"{worst:.3e} (> {ORACLE_TOL})")
+        if not flips:
+            break
+    max_err = 0.0
+    if vals is not None:
+        for part in rows.split(8192):
+            exact, bound = topk_value_bounds(
+                xn, yn, bias, idx, part)
+            err = (vals.reshape(bg * n, -1)[part].double() - exact).abs()
+            over = int((err > bound).sum())
+            check(over == 0, f"{name}: {over} distances off the fp64 ones "
+                  f"beyond the fp32 bound (worst {err.max().item():.3e})")
+            max_err = max(max_err, err.max().item())
+    return dict(flips=flips, oracle_rows=rows.numel(), oracle_worst_gap=worst,
+                max_abs_err=max_err)
+
+
+def topk_fixture(x: torch.Tensor, y: torch.Tensor, self_knn: bool
+                 ) -> list[tuple[int, int]]:
+    """Exact ties and NaN rows for a knn_topk call without bias, on fp32
+    x and y: ``tie_fixture``'s tied targets (rows 0-3 of y equal along
+    query 0's direction, or rows 0-3 of x equal when y is x), a NaN query
+    row (group 0, row 10) and a NaN target row (group 1, row 5; with y = x
+    a NaN query row as well). Returns the (group, row) of the queries whose
+    idx must equal the plain version's bitwise."""
+    tie_fixture(x, y if not self_knn else x)
+    x[0, 10] = float("nan")
+    (x if self_knn else y)[1, 5] = float("nan")
+    rows = [(0, 0), (0, 10)] + ([(0, 1), (0, 2), (0, 3), (1, 5)]
+                                if self_knn else [])
+    return rows
+
+
+def topk_rows() -> list[dict]:
+    """Phase 3, knn_topk: every shape of this slice's path against the plain
+    version. Returns one dict per row."""
+    results = []
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for (name, n, m, d, k, table, bg, pass_, dt, targets) in TOPK_ROWS:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        self_knn = targets == "self"
+        x = torch.randn((bg, n, d), generator=gen, device="cuda")
+        y = x if self_knn else torch.randn((bg, m, d), generator=gen,
+                                           device="cuda")
+        xn = l2_normalize(x.to(dtype))
+        yn = xn if self_knn else l2_normalize(y.to(dtype))
+        bias = None if table is None else torch.from_numpy(
+            get_relative_pos_table(*table)).cuda()
+        check(bias is None or tuple(bias.shape) == (n, m), f"{name} bias")
+
+        idx, vals = knn_topk.launch(xn, yn, k=k, bias=bias,
+                                    return_values=True)
+        torch.cuda.synchronize()
+        check(idx.shape == (bg, n, k) and idx.dtype == torch.int32
+              and vals.shape == (bg, n, k), f"{name}: output shapes")
+        total = bg * n
+        rows = None if total <= ORACLE_ROWS else torch.randperm(
+            total, generator=gen, device="cuda")[:ORACLE_ROWS]
+        stats = check_topk(name, xn, yn, bias, idx, vals, rows)
+        again = knn_topk.launch(xn, yn, k=k, bias=bias, return_values=True)
+        check(torch.equal(again[0], idx) and torch.equal(again[1], vals),
+              f"{name}: two launches differ")
+        del again
+        # exact ties and NaN rows (no bias: a bias would break the ties)
+        fx = x.clone()
+        fy = fx if self_knn else y.clone()
+        fixed = topk_fixture(fx, fy, self_knn)
+        fxn = l2_normalize(fx.to(dtype))
+        fyn = fxn if self_knn else l2_normalize(fy.to(dtype))
+        f_idx, f_vals = knn_topk.launch(fxn, fyn, k=k, return_values=True)
+        p_idx, p_vals = knn_topk_reference(fxn, fyn, k=k,
+                                           return_values=True)
+        for g_, r_ in fixed:
+            check(torch.equal(f_idx[g_, r_], p_idx[g_, r_]), f"{name}: "
+                  f"fixture row ({g_}, {r_}): {f_idx[g_, r_].tolist()} vs "
+                  f"plain {p_idx[g_, r_].tolist()}")
+        check(f_idx[0, 0, :4].tolist() == [0, 1, 2, 3],
+              f"{name}: tied targets not in column order")
+        check(bool(torch.isnan(f_vals[0, 10]).all())
+              and f_idx[0, 10].tolist() == list(range(k)),
+              f"{name}: the NaN query row")
+        finite = torch.isfinite(fxn[1]).all(-1)
+        check(not bool((f_idx[1][finite] == 5).any()), f"{name}: the NaN "
+              f"target row was chosen")
+        del fx, fy, fxn, fyn, f_idx, f_vals, p_idx, p_vals
+        # times: the kernel, the plain version, and the two-call PyTorch
+        # route (fp32 baddbmm + topk: no single PyTorch call computes it)
+        iters = 20 if n * m < 10**7 else 10
+        ms = cuda_ms(lambda: knn_topk.launch(xn, yn, k=k, bias=bias), iters,
+                     3)
+        plain_ms = cuda_ms(
+            lambda: knn_topk_reference(xn, yn, k=k, bias=bias), 3, 1)
+        x32, y32 = xn.float(), yn.float()
+        base = (x32 * x32).sum(-1)[:, :, None] \
+            + (y32 * y32).sum(-1)[:, None, :]
+        if bias is not None:
+            base = base + bias
+        two_call_ms = cuda_ms(lambda: torch.topk(torch.baddbmm(
+            base, x32, y32.transpose(1, 2), alpha=-2.0), k, largest=False),
+            3, 1)
+        del x32, y32, base
+        nbytes = (xn.nbytes + (0 if self_knn else yn.nbytes)
+                  + (0 if bias is None else bias.nbytes) + idx.nbytes)
+        flops = 2.0 * bg * n * m * d
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dt] * 1e3
+        row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
+                   smem_bytes=knn_topk.shared_memory_bytes(d),
+                   calls_per_pass=1 if pass_ == "agg" else 0,
+                   calls_per_stochastic_pass=1 if pass_ == "stoch" else 0,
+                   ms=ms, plain_ms=plain_ms, two_call_ms=two_call_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   **stats)
+        print("topk_row " + json.dumps(row), flush=True)
+        results.append(row)
+        del x, y, xn, yn, bias, idx, vals
+        torch.cuda.empty_cache()
+    return results
+
+
+def make_blocks(conv: str, dtype: torch.dtype, batch: int, seed: int
+                ) -> list[tuple[str, torch.nn.Module, tuple]]:
+    """This slice's blocks for one aggregator at GKGNet-S@576 widths: the 5
+    Graphers and 4 GrapherLabels without channel groups (drop_path 0.1,
+    seeded weights and inputs, each Grapher with its stage's relative-
+    position table), or, for conv 'stochastic', the 3 'mr' Graphers with
+    stochastic dilation (epsilon 0.2, 2 groups). Returns (name, module,
+    inputs) on the card."""
+    wgen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    blocks = []
+    specs = STOCHASTIC_BLOCKS if conv == "stochastic" else GRAPHER_BLOCKS
+    for stage, c, side, r, dil in specs:
+        if conv == "stochastic":
+            m = grapher.Grapher(c, 9, dil, "mr", "gelu", r=r, stochastic=True,
+                                epsilon=0.2, num_group=2, drop_path=0.1,
+                                dtype=dtype)
+        else:
+            m = grapher.Grapher(c, 9, dil, conv, "gelu", r=r, drop_path=0.1,
+                                use_multi_group=False, dtype=dtype)
+        x = torch.randn((batch, side, side, c), generator=gen,
+                        device="cuda").to(dtype)
+        bias = torch.from_numpy(get_relative_pos_table(
+            c, side * side, r)).cuda()
+        blocks.append((f"grapher{stage}_d{dil}", m, (x, bias)))
+    if conv != "stochastic":
+        for stage, c, side in LABEL_BLOCKS:
+            m = grapher.GrapherLabel(c, 9, conv=conv, act="gelu",
+                                     drop_path=0.1, use_multi_group=False,
+                                     dtype=dtype)
+            labels = torch.randn((batch, 80, c), generator=gen,
+                                 device="cuda").to(dtype)
+            feats = torch.randn((batch, side, side, c), generator=gen,
+                                device="cuda").to(dtype)
+            blocks.append((f"label{stage}", m, (labels, feats)))
+    for _, m, _ in blocks:
+        init_block_parameters(m, wgen)
+        m.cuda()
+    return blocks
+
+
+def run_block(module, inputs, train: bool, gen) -> torch.Tensor:
+    """One pass of a block: the eval forward, or a train-mode forward and
+    the backward of a scalar loss. Returns the output."""
+    module.train(train)
+    with torch.set_grad_enabled(train):
+        out = module(*inputs, gen)
+        out = out[0] if isinstance(out, tuple) else out
+        if train:
+            module.zero_grad(set_to_none=True)
+            out.float().square().mean().backward()
+    return out
+
+
+def counted_pass(blocks, train: bool, gen) -> tuple[int, int, int]:
+    """Every block once with the launch counts set to 0 just before; checks
+    finite outputs and gradients; returns the counts read just after:
+    (knn_topk, knn_mr forward, knn_mr backward)."""
+    knn_topk.launches = 0
+    knn_mr.launches = 0
+    knn_mr.backward_launches = 0
+    for name, m, inputs in blocks:
+        out = run_block(m, inputs, train, gen)
+        check(bool(torch.isfinite(out).all()), f"{name}: output not finite")
+        if train:
+            bad = [k for k, p in m.named_parameters()
+                   if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            check(not bad, f"{name}: missing or non-finite gradients "
+                  f"{bad[:4]}")
+    torch.cuda.synchronize()
+    return knn_topk.launches, knn_mr.launches, knn_mr.backward_launches
+
+
+def grapher_phase() -> dict:
+    """Phase 6: this slice's path. Per aggregator, the 9 blocks in eval and
+    in train (9 knn_topk launches and no knn_mr launch each), then ms per
+    block; then the stochastic 'mr' blocks in train (3 knn_topk, no knn_mr)
+    and in eval (the fused route: 3 knn_mr, no knn_topk). Returns the
+    launches and the times."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    launches = 0
+    times = {}
+    for conv in AGGREGATORS + ("stochastic",):
+        blocks = make_blocks(conv, torch.bfloat16, 8, seed=10)
+        n = len(blocks)
+        for train in (False, True):
+            counts = counted_pass(blocks, train, gen)
+            if conv == "stochastic" and not train:
+                want = (0, n, 0)
+            else:
+                want = (n, 0, 0)
+            check(counts == want, f"{conv} {'train' if train else 'eval'}: "
+                  f"launches (knn_topk, knn_mr, knn_mr backward) {counts}, "
+                  f"expected {want}")
+            if conv != "stochastic" or train:
+                launches += counts[0]
+        for name, m, inputs in blocks:
+            eval_ms = cuda_ms(lambda: run_block(m, inputs, False, gen), 3, 1)
+            train_ms = cuda_ms(lambda: run_block(m, inputs, True, gen), 2, 1)
+            times[f"{conv}/{name}"] = (eval_ms, train_ms)
+            print(f"  block {conv:10s} {name:12s}: eval {eval_ms:8.3f} ms, "
+                  f"train fwd+bwd {train_ms:8.3f} ms", flush=True)
+        mine = [t for key, t in times.items() if key.startswith(conv + "/")]
+        route = ("train: knn_topk; eval: the fused knn_mr route"
+                 if conv == "stochastic" else "knn_topk in eval and train")
+        log(f"grapher path {conv}: passed, {n} blocks ({route}); "
+            f"{sum(t[0] for t in mine):.2f} ms eval, "
+            f"{sum(t[1] for t in mine):.2f} ms train fwd+bwd in all")
+        del blocks
+        torch.cuda.empty_cache()
+    return dict(launches=launches, times=times)
+
+
+def compare_fp32_grapher() -> None:
+    """This slice's blocks at batch 2 in fp32 (TF32 off): every knn_topk
+    call held to the plain version on the block's own activations
+    (check_topk), by patching ``knn_topk.launch``, which ``knn_graph`` looks
+    up at call time: the 9 blocks of each aggregator in eval, and the 3
+    stochastic 'mr' blocks in train."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    calls = []
+    kernel = knn_topk.launch
+
+    def recording(x, y, *, k, bias=None, return_values=False):
+        out = kernel(x, y, k=k, bias=bias, return_values=True)
+        calls.append((x, y, bias, out))
+        return out if return_values else out[0]
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    knn_topk.launch = recording
+    try:
+        for conv in AGGREGATORS + ("stochastic",):
+            for _, m, inputs in make_blocks(conv, torch.float32, 2, seed=11):
+                with torch.no_grad():
+                    m.train(conv == "stochastic")
+                    m(*inputs, gen)
+    finally:
+        knn_topk.launch = kernel
+    check(len(calls) == 9 * len(AGGREGATORS) + 3,
+          f"{len(calls)} knn_topk calls, expected {9 * len(AGGREGATORS) + 3}")
+    flips = worst = 0
+    for i, (x, y, bias, (idx, vals)) in enumerate(calls):
+        stats = check_topk(f"fp32 call {i}", x, y, bias, idx, vals,
+                           max_flip_share=FLIP_SHARE)
+        flips += stats["flips"]
+        worst = max(worst, stats["oracle_worst_gap"])
+    log(f"grapher fp32 batch 2: {len(calls)} knn_topk calls held to the plain "
+        f"version on the blocks' own activations: {flips} rows differ in all "
+        f"(near-ties, each within the fp64 oracle), worst fp64 gap "
+        f"{worst:.2e}")
+
+
 def train_phase() -> dict:
     """Phase 5: the training step's main path, 3 steps at batch 8 in bf16,
     then its time, memory and profile. Returns its launch counts and
@@ -409,6 +803,7 @@ def train_phase() -> dict:
               if "running" in k}
     knn_mr.launches = 0
     knn_mr.backward_launches = 0
+    knn_topk.launches = 0
     for i in range(3):
         f0, b0 = knn_mr.launches, knn_mr.backward_launches
         t = time.perf_counter()
@@ -425,6 +820,8 @@ def train_phase() -> dict:
         log(f"train step {i}: {step_s * 1e3:.1f} ms host wall; " + ", ".join(
             f"{k} {v:.6g}" for k, v in values.items()))
     launches = (knn_mr.launches, knn_mr.backward_launches)
+    check(knn_topk.launches == 0, f"{knn_topk.launches} knn_topk launches "
+          f"in 3 train steps, expected 0")
     unmoved = [k for k, v in model.named_parameters()
                if torch.equal(v.detach(), p0[k])]
     check(not unmoved, f"parameters that did not move: {unmoved[:5]}")
@@ -558,13 +955,14 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda load: load(), (knn_mr._lib, knn_mr._bwd_lib)))
-    for name in ("knn_mr", "knn_mr_bwd"):
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda load: load(),
+                      (knn_mr._lib, knn_mr._bwd_lib, knn_topk._lib)))
+    for name in ("knn_mr", "knn_mr_bwd", "knn_topk"):
         seconds, compiler_log = _build.build_info[name]
         log(f"build: {name}.cu in {seconds:.1f} s")
         print_ptxas_summary(compiler_log)
-    log(f"build: both kernels built and loaded in "
+    log(f"build: the three kernels built and loaded in "
         f"{time.perf_counter() - t:.1f} s")
 
     # 3. kernels vs plain at every main-path shape
@@ -574,16 +972,22 @@ def main() -> int:
     bwd_rows = backward_rows()
     log("kernels: every backward row passed (e) gx and the tie sets, (f) gy "
         "against the fp64 sums and (g) determinism")
+    t_rows = topk_rows()
+    log("kernels: every knn_topk row passed the fp64 oracle, the value bound, "
+        "the plain idx up to near-ties, determinism and the tie and NaN "
+        "fixtures")
 
     # 4. eval: the main path, then requests
     fn, (model, x) = entry(device="cuda", batch=8)
     log("model: GKGNet-S@576 bf16, batch 8, built")
     knn_mr.launches = 0
     knn_mr.backward_launches = 0
+    knn_topk.launches = 0
     logits = fn(model, x)
     torch.cuda.synchronize()
-    check(knn_mr.launches == 16,
-          f"{knn_mr.launches} kernel launches in one forward, expected 16")
+    check(knn_mr.launches == 16 and knn_topk.launches == 0,
+          f"{knn_mr.launches} knn_mr and {knn_topk.launches} knn_topk "
+          f"launches in one forward, expected 16 and 0")
     check(logits.shape == (8, 80) and bool(torch.isfinite(logits).all()),
           f"logits {tuple(logits.shape)} finite={torch.isfinite(logits).all()}")
     for i in range(3):
@@ -613,9 +1017,14 @@ def main() -> int:
     train = train_phase()
     compare_fp32_train()
 
-    # 6. result lines
+    # 6. this slice's path: the Grapher blocks through knn_topk
+    graph = grapher_phase()
+    compare_fp32_grapher()
+
+    # 7. result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
+    topk = per_step(t_rows, "calls_per_pass")
     train_fwd, train_bwd = train["launches"]
     kernels = [{
         "name": "knn_mr_fused",
@@ -647,12 +1056,31 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": None,  # no single PyTorch call computes the tie-split
                              # VJP of gather + max
+    }, {
+        "name": "knn_topk",
+        "route": "cuda",
+        "source": "gkgnet_tpu_torch/csrc/knn_topk.cu",
+        "replaces": "gkgnet_tpu/ops/pallas/knn_topk.py:140",
+        # the Grapher path: 4 aggregators x 9 blocks x (eval + train) and
+        # the 3 stochastic 'mr' blocks in train
+        "launches": graph["launches"],
+        # largest |distance - fp64 distance| over the rows' checked values
+        "max_abs_err": max(r["max_abs_err"] for r in t_rows),
+        # per aggregator pass at batch 8: the sum over the 9 blocks' calls
+        "ms": topk["ms"],
+        "plain_ms": topk["plain_ms"],
+        "bound_ms": topk["bound_ms"],
+        "bound_by": topk["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes distance +
+                             # top-k (the rows print the two-call route)
     }]
     log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
         f"(one forward + 3 requests) and {train_fwd} on the train path (3 "
         f"steps); kernel knn_mr_backward: {train_bwd} on the train path; "
         f"checks passed at {len(rows)} shapes each, 16 fp32 forward calls "
-        f"and 16 fp32 backward calls on the model's own activations")
+        f"and 16 fp32 backward calls on the model's own activations; kernel "
+        f"knn_topk: {graph['launches']} launches on the Grapher path, checks "
+        f"passed at {len(t_rows)} shapes and on the blocks' fp32 calls")
     log(f"done: {time.perf_counter() - T0:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

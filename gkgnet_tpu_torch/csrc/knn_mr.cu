@@ -36,6 +36,13 @@
 //      rounds 0, d, 2d, ... are kept. Last, the lanes gather the raw target
 //      rows of the kept columns and write max_j(y_j - x) in fp32, rounded
 //      once to the input type.
+//   The selection helpers (the register lists, their lexicographic order,
+//   select_nan_columns) are knn_select.cuh's, shared with knn_topk.cu,
+//   whose scan and merge repeat this kernel's arithmetic, so that
+//   knn_topk(xn, yn, k*d)[..., ::d] is bitwise this kernel's idx. The scan
+//   and merge stay written out here: moved into shared functions they
+//   compiled to other code (122 and 178 registers for lists of 32 and 64,
+//   not 115 and 171) and a 1 % slower stage-1 call on an H100 80GB HBM3.
 //
 // NaN distances (a NaN query row, a NaN target row, a NaN bias entry) come
 // after every number, +inf included, and among themselves in column order:
@@ -51,45 +58,22 @@
 // nothing and do not synchronize; knn_mr_forward returns
 // cudaGetLastError() after the launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
-#include <cmath>
+#include "knn_select.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;          // query rows per block (one warp each)
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;          // target rows per shared-memory tile
-constexpr int kTileP = kTile + 1;  // padded stride: conflict-free transpose
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Lexicographic (distance, column) order: the lower column wins a tie.
-// False whenever a distance is NaN.
-__device__ __forceinline__ bool lex_less(float d1, int c1, float d2, int c2) {
-  return d1 < d2 || (d1 == d2 && c1 < c2);
-}
+using knn_select::from_f32;
+using knn_select::insert;
+using knn_select::kdm_bucket;
+using knn_select::kFull;
+using knn_select::kThreads;
+using knn_select::kTile;
+using knn_select::kTileP;
+using knn_select::kWarps;
+using knn_select::lex_less;
+using knn_select::select_nan_columns;
+using knn_select::to_f32;
+using knn_select::warp_sum;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -130,58 +114,6 @@ l2norm_rows(const T* __restrict__ x, T* __restrict__ xn,
   }
   s2 = warp_sum(s2);
   if (lane == 0) *sq = s2;
-}
-
-// Insert (dv, cv) into the lane's sorted list, dropping its last entry.
-// Fully unrolled over constant indices, so the list stays in registers.
-template <int KDM>
-__device__ __forceinline__ void insert(float (&ld)[KDM], int (&lc)[KDM],
-                                       float dv, int cv) {
-  if (!lex_less(dv, cv, ld[KDM - 1], lc[KDM - 1])) return;
-#pragma unroll
-  for (int p = 0; p < KDM; ++p) {
-    if (lex_less(dv, cv, ld[p], lc[p])) {
-      const float td = ld[p];
-      const int tc = lc[p];
-      ld[p] = dv;
-      lc[p] = cv;
-      dv = td;
-      cv = tc;
-    }
-  }
-}
-
-// The merge found the lists empty at rank r < k*d: the row has r numbers
-// among its distances. Ranks r..k*d-1 are its NaN distances in column
-// order; find them by computing each column's distance anew, 32 columns at
-// a time, exactly as the scan did (the same fp32 products in the same
-// order), and keep ranks 0, d, 2d, ... as the merge does.
-template <typename T>
-__device__ void select_nan_columns(int r, int kd, int dilation,
-                                   const float* xw, float xq,
-                                   const T* __restrict__ yn_b,
-                                   const float* __restrict__ ysq_b,
-                                   const float* brow, int m, int d, int lane,
-                                   int* sel_w) {
-  for (int j0 = 0; j0 < m && r < kd; j0 += 32) {
-    const int j = j0 + lane;
-    bool is_nan = false;
-    if (j < m) {
-      float acc = 0.f;
-      for (int e = 0; e < d; ++e) {
-        acc = fmaf(xw[e], to_f32(yn_b[(long long)j * d + e]), acc);
-      }
-      float dist = xq - 2.f * acc + ysq_b[j];
-      if (brow != nullptr) dist += brow[j];
-      is_nan = dist != dist;
-    }
-    unsigned mask = __ballot_sync(kFull, is_nan);  // warp-uniform
-    for (; mask != 0 && r < kd; ++r) {
-      const int bit = __ffs(mask) - 1;
-      mask &= mask - 1;
-      if (lane == 0 && r % dilation == 0) sel_w[r / dilation] = j0 + bit;
-    }
-  }
 }
 
 // bias_mode: 0 none, 1 shared (N, M), 2 batched (BG, N, M); fp32.
@@ -308,11 +240,6 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
     mr[qrow * d + c] = from_f32<T>(best);
   }
   for (int s = lane; s < k; s += 32) idx[qrow * k + s] = sel_w[s];
-}
-
-// The register-list length a k*d takes: the template instantiations.
-int kdm_bucket(int kd) {
-  return kd <= 8 ? 8 : kd <= 16 ? 16 : kd <= 32 ? 32 : kd <= 64 ? 64 : 0;
 }
 
 size_t main_smem_bytes(int d, int kdm) {

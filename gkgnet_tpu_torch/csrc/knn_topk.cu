@@ -1,0 +1,355 @@
+// Fused squared-distance + top-k for Hopper (sm_90a): for every query row
+// of x the k target rows of y with the smallest x_sq - 2 <x, y> + y_sq
+// (+ bias), in ascending (distance, column) order, the lowest column first
+// among equal distances, and optionally those distances.
+//
+// Replaces the TPU kernel gkgnet_tpu/ops/pallas/knn_topk.py::knn_topk
+// (pallas_call at :211 with a bias, :223 without; bodies _knn_kernel_* and
+// _topk_from_dist :60). The function is ported, not the blocks: the TPU
+// kernel holds a (T, M) fp32 distance block in VMEM and takes k rounds of a
+// masked argmin over it. Here each query row keeps its candidates in
+// registers, so no distance is ever stored.
+//
+// The rows arrive L2-normalized (knn_graph does it); x_sq and y_sq are the
+// fp32 sums of squares of the rows as given. NaN distances come after every
+// number, +inf included, in column order, as in the plain version's
+// torch.sort (not the TPU kernel's, whose masked argmin loses a row that
+// holds a NaN).
+//
+// What bounds it on this card. At the slice's largest call (a stage-1
+// Grapher at batch 8 without channel groups: BG=8, N=20736, M=1296, D=80,
+// k=9, bf16) the bytes it must move are ~142 MB, most of it the 107 MB fp32
+// bias (0.04 ms at 3.35 TB/s), and the distance products are 34 GFLOP
+// (0.035 ms on bf16 tensor cores). Like knn_mr.cu, whose selection helpers
+// it shares (knn_select.cuh), this first design computes the products on the
+// fp32 CUDA cores from shared memory, so shared-memory loads and fp32 issue
+// bound it, far above either bound. What the design does about the bytes:
+// the grid's fastest axis is the batch-group axis, so the blocks that read
+// the same bias rows for different groups run together and the bias is
+// served from L2; each block reads the target set once for its kWarps rows.
+//
+// Design (one warp per query row, kWarps rows per block):
+//   1. row_sq: one warp per row of x and of y, the fp32 sum of squares in
+//      lane-strided fmaf order and a butterfly sum: the arithmetic of
+//      knn_mr.cu's l2norm_rows on its rounded rows, so on knn_mr's own
+//      normalized rows both kernels see bitwise the same x_sq and y_sq.
+//   2. knn_topk_kernel: scan_targets walks the targets in tiles of kTile
+//      rows, staged transposed in shared memory as fp32; each lane computes
+//      the distances of its 2 columns of the tile and keeps a sorted
+//      register list of its best KDM >= k pairs; merge_lists takes k rounds
+//      of a warp lexicographic min over the lanes' list heads and writes
+//      the row's k nearest in order, with their distances, straight to idx
+//      and vals. Both repeat knn_mr.cu's scan and merge line for line, with
+//      dilation 1 (knn_mr.cu says why they are not shared functions). For
+//      lists of 8 and 16 the rare NaN tail is a real call (nan_tail, not
+//      inlined): on an H100 80GB HBM3 that took the stage-1 Grapher call
+//      from 6.95 to 6.51 ms and label 1 from 1.99 to 1.42 ms, while for
+//      lists of 32 it made the stage-3 calls 2.8 -> 4.2 ms, so there the
+//      tail stays inlined.
+// The target tile is d * 65 fp32 values: at D = 640 a block takes 187 KB of
+// dynamic shared memory (opted in above 48 KB; 227 KB is the card's limit,
+// so D <= 795).
+//
+// Launch discipline: both kernels run on the caller's stream, allocate
+// nothing and do not synchronize; knn_topk_forward returns
+// cudaGetLastError() after the launches.
+
+#include "knn_select.cuh"
+
+namespace {
+
+using knn_select::insert;
+using knn_select::kdm_bucket;
+using knn_select::kFull;
+using knn_select::kThreads;
+using knn_select::kTile;
+using knn_select::kTileP;
+using knn_select::kWarps;
+using knn_select::lex_less;
+using knn_select::select_nan_columns;
+using knn_select::to_f32;
+using knn_select::warp_sum;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+row_sq(const T* __restrict__ x, float* __restrict__ xsq, long long rows_x,
+       const T* __restrict__ y, float* __restrict__ ysq, long long rows_y,
+       int d) {
+  const long long row =
+      (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const T* src;
+  float* sq;
+  if (row < rows_x) {
+    src = x + row * d;
+    sq = xsq + row;
+  } else if (row < rows_x + rows_y) {
+    const long long r = row - rows_x;
+    src = y + r * d;
+    sq = ysq + r;
+  } else {
+    return;  // whole warp: this kernel has no block-wide barrier
+  }
+  float s2 = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float f = to_f32(src[c]);
+    s2 = fmaf(f, f, s2);
+  }
+  s2 = warp_sum(s2);
+  if (lane == 0) *sq = s2;
+}
+
+// The block walks the targets of its batch-group in tiles of kTile rows,
+// staged transposed in shared memory as fp32; each active warp keeps its
+// row's best KDM (distance, column) pairs, per lane, in ld/lc (ascending).
+// Every thread of the block calls it: it holds the block's barriers. The
+// arithmetic is knn_mr_kernel's scan, line for line.
+template <typename T, int KDM>
+__device__ __forceinline__ void scan_targets(
+    const float* xw, float xq, const T* __restrict__ y_b,
+    const float* __restrict__ ysq_b, const float* brow, int m, int d,
+    bool active, float* ys, float* ysq_s, int lane, float (&ld)[KDM],
+    int (&lc)[KDM]) {
+#pragma unroll
+  for (int p = 0; p < KDM; ++p) {
+    ld[p] = INFINITY;
+    lc[p] = INT_MAX;
+  }
+  for (int j0 = 0; j0 < m; j0 += kTile) {
+    const int tw = min(kTile, m - j0);
+    __syncthreads();  // the previous tile (and xw on the first pass) done
+    const T* src = y_b + (long long)j0 * d;
+    for (int t = threadIdx.x; t < tw * d; t += kThreads) {
+      const int jj = t / d;
+      const int e = t - jj * d;
+      ys[e * kTileP + jj] = to_f32(src[t]);
+    }
+    for (int t = threadIdx.x; t < tw; t += kThreads) ysq_s[t] = ysq_b[j0 + t];
+    __syncthreads();
+    if (active) {
+      const int c0 = lane;
+      const int c1 = lane + 32;
+      float acc0 = 0.f;
+      float acc1 = 0.f;
+#pragma unroll 4
+      for (int e = 0; e < d; ++e) {
+        const float xv = xw[e];
+        acc0 = fmaf(xv, ys[e * kTileP + c0], acc0);
+        acc1 = fmaf(xv, ys[e * kTileP + c1], acc1);
+      }
+      // columns at or past tw read stale shared memory and are dropped here
+      if (c0 < tw) {
+        float dist = xq - 2.f * acc0 + ysq_s[c0];
+        if (brow != nullptr) dist += brow[j0 + c0];
+        insert<KDM>(ld, lc, dist, j0 + c0);
+      }
+      if (c1 < tw) {
+        float dist = xq - 2.f * acc1 + ysq_s[c1];
+        if (brow != nullptr) dist += brow[j0 + c1];
+        insert<KDM>(ld, lc, dist, j0 + c1);
+      }
+    }
+  }
+}
+
+// The ranks r..k-1 of a row whose distances ran out of numbers: its NaN
+// columns in column order, with NaN values.
+template <typename T>
+__device__ __forceinline__ void nan_tail(int r, int k, const float* xw,
+                                         float xq, const T* __restrict__ y_b,
+                                         const float* __restrict__ ysq_b,
+                                         const float* brow, int m, int d,
+                                         int lane, int* idx_w,
+                                         float* val_w) {
+  select_nan_columns<T>(r, k, 1, xw, xq, y_b, ysq_b, brow, m, d, lane, idx_w);
+  if (val_w != nullptr) {
+    for (int s = r + lane; s < k; s += 32) val_w[s] = NAN;
+  }
+}
+
+template <typename T>
+__device__ __noinline__ void nan_tail_call(int r, int k, const float* xw,
+                                           float xq, const T* y_b,
+                                           const float* ysq_b,
+                                           const float* brow, int m, int d,
+                                           int lane, int* idx_w,
+                                           float* val_w) {
+  nan_tail<T>(r, k, xw, xq, y_b, ysq_b, brow, m, d, lane, idx_w, val_w);
+}
+
+// Warp merge: k rounds of a lexicographic min over the lanes' list heads
+// give the row's k nearest in order; lane 0 writes them to idx_w and,
+// unless val_w is nullptr, their distances to val_w (NaN for the ranks of
+// NaN distances, which nan_tail finds). The arithmetic is
+// knn_mr_kernel's merge, line for line, with dilation 1.
+template <typename T, int KDM>
+__device__ __forceinline__ void merge_lists(
+    float (&ld)[KDM], int (&lc)[KDM], int k, const float* xw, float xq,
+    const T* __restrict__ y_b, const float* __restrict__ ysq_b,
+    const float* brow, int m, int d, int lane, int* idx_w, float* val_w) {
+  for (int r = 0; r < k; ++r) {
+    float bd = ld[0];
+    int bc = lc[0];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float od = __shfl_xor_sync(kFull, bd, o);
+      const int oc = __shfl_xor_sync(kFull, bc, o);
+      if (lex_less(od, oc, bd, bc)) {
+        bd = od;
+        bc = oc;
+      }
+    }
+    if (bc == INT_MAX) {  // warp-uniform: every list is empty
+      if constexpr (KDM <= 16) {
+        nan_tail_call<T>(r, k, xw, xq, y_b, ysq_b, brow, m, d, lane, idx_w,
+                         val_w);
+      } else {
+        nan_tail<T>(r, k, xw, xq, y_b, ysq_b, brow, m, d, lane, idx_w,
+                    val_w);
+      }
+      return;
+    }
+    if (lc[0] == bc) {  // the owning lane pops its head
+#pragma unroll
+      for (int p = 0; p < KDM - 1; ++p) {
+        ld[p] = ld[p + 1];
+        lc[p] = lc[p + 1];
+      }
+      ld[KDM - 1] = INFINITY;
+      lc[KDM - 1] = INT_MAX;
+    }
+    if (lane == 0) {
+      idx_w[r] = bc;
+      if (val_w != nullptr) val_w[r] = bd;
+    }
+  }
+}
+
+// bias_mode: 0 none, 1 shared (N, M), 2 batched (BG, N, M); fp32.
+// vals: nullptr, or (BG, N, k) fp32 for the selected distances.
+template <typename T, int KDM>
+__global__ void __launch_bounds__(kThreads)
+knn_topk_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                const float* __restrict__ xsq, const float* __restrict__ ysq,
+                const float* __restrict__ bias, int bias_mode,
+                int* __restrict__ idx, float* __restrict__ vals, int n, int m,
+                int d, int k) {
+  extern __shared__ float smem[];
+  float* ys = smem;                       // [d][kTileP] target tile, fp32
+  float* xs = ys + d * kTileP;            // [kWarps][d] queries
+  float* ysq_s = xs + kWarps * d;         // [kTile]
+
+  const int bg = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.y * kWarps + warp;
+  const bool active = row < n;  // warp-uniform
+  const long long qrow = (long long)bg * n + (active ? row : 0);
+  const T* y_b = y + (long long)bg * m * d;
+  const float* ysq_b = ysq + (long long)bg * m;
+
+  float* xw = xs + warp * d;
+  for (int c = lane; c < d; c += 32) xw[c] = to_f32(x[qrow * d + c]);
+  const float xq = xsq[qrow];
+  const float* brow = nullptr;
+  if (bias_mode != 0 && active) {
+    const long long brow_idx = (bias_mode == 2 ? (long long)bg * n : 0) + row;
+    brow = bias + brow_idx * m;
+  }
+
+  float ld[KDM];
+  int lc[KDM];
+  scan_targets<T, KDM>(xw, xq, y_b, ysq_b, brow, m, d, active, ys, ysq_s,
+                       lane, ld, lc);
+  if (!active) return;  // no block-wide barrier follows
+  merge_lists<T, KDM>(ld, lc, k, xw, xq, y_b, ysq_b, brow, m, d, lane,
+                      idx + qrow * k,
+                      vals != nullptr ? vals + qrow * k : nullptr);
+}
+
+size_t main_smem_bytes(int d) {
+  return sizeof(float) * ((size_t)d * kTileP + (size_t)kWarps * d + kTile);
+}
+
+template <typename T, int KDM>
+cudaError_t launch_main(const void* x, const void* y, const void* xsq,
+                        const void* ysq, const void* bias, int bias_mode,
+                        void* idx, void* vals, int bg, int n, int m, int d,
+                        int k, cudaStream_t stream) {
+  const size_t smem = main_smem_bytes(d);
+  if (smem > 48 * 1024) {  // above the default dynamic limit: opt in
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_topk_kernel<T, KDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(bg, (n + kWarps - 1) / kWarps);
+  knn_topk_kernel<T, KDM><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const float*>(xsq), static_cast<const float*>(ysq),
+      static_cast<const float*>(bias), bias_mode, static_cast<int*>(idx),
+      static_cast<float*>(vals), n, m, d, k);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t forward(const void* x, const void* y, const void* bias,
+                    void* xsq, void* ysq, void* idx, void* vals, int bg,
+                    int n, int m, int d, int k, int bias_mode, int y_is_x,
+                    cudaStream_t stream) {
+  const long long rows_x = (long long)bg * n;
+  const long long rows_y = y_is_x ? 0 : (long long)bg * m;
+  const long long blocks = (rows_x + rows_y + kWarps - 1) / kWarps;
+  row_sq<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<float*>(xsq), rows_x,
+      static_cast<const T*>(y), static_cast<float*>(ysq), rows_y, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const void* ysqp = y_is_x ? xsq : ysq;
+  switch (kdm_bucket(k)) {
+    case 8:
+      return launch_main<T, 8>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
+                               bg, n, m, d, k, stream);
+    case 16:
+      return launch_main<T, 16>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
+                                bg, n, m, d, k, stream);
+    case 32:
+      return launch_main<T, 32>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
+                                bg, n, m, d, k, stream);
+    case 64:
+      return launch_main<T, 64>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
+                                bg, n, m, d, k, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// x (bg, n, d), y (bg, m, d) rows of one type (is_bf16: bfloat16, else
+// float32), contiguous (y may be x: y_is_x); bias fp32 per bias_mode;
+// xsq (bg, n) and ysq (bg, m) fp32 scratch (ysq unused when y_is_x);
+// outputs idx (bg, n, k) int32 and, unless vals is null, vals (bg, n, k)
+// fp32. Requires 1 <= k <= min(m, 64). Returns a cudaError_t code.
+int knn_topk_forward(const void* x, const void* y, const void* bias,
+                     void* xsq, void* ysq, void* idx, void* vals, int bg,
+                     int n, int m, int d, int k, int bias_mode, int is_bf16,
+                     int y_is_x, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return forward<__nv_bfloat16>(x, y, bias, xsq, ysq, idx, vals, bg, n, m,
+                                  d, k, bias_mode, y_is_x, s);
+  return forward<float>(x, y, bias, xsq, ysq, idx, vals, bg, n, m, d, k,
+                        bias_mode, y_is_x, s);
+}
+
+// Dynamic shared memory of one main-kernel block at row width d.
+long long knn_topk_smem_bytes(int d) { return (long long)main_smem_bytes(d); }
+
+const char* knn_topk_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

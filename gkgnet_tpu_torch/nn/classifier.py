@@ -15,7 +15,7 @@ from torch import nn
 
 from gkgnet_tpu_torch.nn.gkgnet import ARCH_SETTINGS, GKGNet
 from gkgnet_tpu_torch.nn.heads import LabelQueryHead
-from gkgnet_tpu_torch.nn.layers import Conv3x3, PointwiseConv
+from gkgnet_tpu_torch.utils.weights import init_block_parameters
 
 
 class GKGNetClassifier(nn.Module):
@@ -66,11 +66,7 @@ def init_parameters(model: GKGNetClassifier, generator: torch.Generator) -> None
     """Seeded init: kaiming-normal (fan_in) convolutions, normal(1.0) label
     embeddings, lecun-normal label projections, normal(0.01) head; zero
     biases, unit BN scales and running variances, zero pos_embed."""
-    for module in model.modules():
-        if isinstance(module, (PointwiseConv, Conv3x3)):
-            fan_in = module.weight[0].numel()
-            module.weight.normal_(0.0, (2.0 / fan_in) ** 0.5,
-                                  generator=generator)
+    init_block_parameters(model, generator)
     model.backbone.label_lt.weight.normal_(0.0, 1.0, generator=generator)
     for seq in model.backbone.ffn_label:
         lin = seq[0]

@@ -54,7 +54,7 @@ class GKGNet(nn.Module):
         opt = ARCH_SETTINGS[arch]
         blocks, channels = opt["blocks"], opt["channels"]
         act, conv, bias = opt["act"], opt["conv"], opt["bias"]
-        stochastic = opt["use_stochastic"]
+        stochastic, epsilon = opt["use_stochastic"], opt["epsilon"]
         self.dtype = dtype
         self.n_classes = n_classes
         max_dilation = 49 // k
@@ -98,8 +98,8 @@ class GKGNet(nn.Module):
                 rate = float(dpr[grapher_idx])
                 self.backbone.append(nn.Sequential(
                     Grapher(channels[i], k, dilation, conv, act, "batch",
-                            bias, stochastic, r_i, num_group,
-                            drop_path=rate, dtype=dtype),
+                            bias, stochastic, epsilon, r_i, drop_path=rate,
+                            num_group=num_group, dtype=dtype),
                     FFN(channels[i], channels[i] * 4, act, rate, dtype)))
                 self._plan.append((i, True, j == blocks[i] - 1))
                 grapher_idx += 1
@@ -107,8 +107,8 @@ class GKGNet(nn.Module):
             label_rate = float(dpr[sum(blocks[:i])])
             self.gcn_label.append(nn.ModuleList(
                 GrapherLabel(channels[i], k_label_gcn, 1, "mr", act, "batch",
-                             bias, stochastic, num_group,
-                             drop_path=label_rate, dtype=dtype)
+                             bias, stochastic, epsilon, drop_path=label_rate,
+                             num_group=num_group, dtype=dtype)
                 for _ in range(n_label_gcn)))
             if i < len(blocks) - 1:
                 self.ffn_label.append(nn.Sequential(

@@ -2,8 +2,9 @@
 plain C interface, and load them with ``ctypes``.
 
 Each source under ``gkgnet_tpu_torch/csrc`` becomes ``build/<name>-<hash>.so``
-at the repository root, where the hash covers the source and the flags: a
-changed source is rebuilt, an unchanged one is loaded as it is. The library
+at the repository root, where the hash covers the source, every header it
+includes by ``#include "..."`` (recursively) and the flags: a changed source
+or header is rebuilt, an unchanged one is loaded as it is. The library
 is compiled under a temporary name and renamed into place, so an
 interrupted build leaves nothing that a later run would load. No PyTorch
 headers are compiled and nothing waits on a lock.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,10 +52,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and the headers it includes with quotes, found
+    recursively relative to the including file, each once, in the order
+    first reached."""
+    files: list[str] = []
+    todo = [os.path.join(CSRC_DIR, f"{name}.cu")]
+    while todo:
+        path = os.path.normpath(todo.pop(0))
+        if path in files:
+            continue
+        files.append(path)
+        with open(path, "rb") as f:
+            for inc in _LOCAL_INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path),
+                                         inc.decode()))
+    return files
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

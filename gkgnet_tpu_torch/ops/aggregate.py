@@ -4,6 +4,8 @@
   * ``gather_nodes``: ``y (B, M, C)`` gathered with ``idx (B, N, k)`` into
     ``(B, N, k, C)``.
   * ``max_relative``: ``max_k(y[idx] - x)``, the 'mr' aggregation.
+  * ``sum_neighbors`` / ``max_neighbors``: the sum / max of ``y[idx]`` over
+    the k neighbours (the gin and sage aggregations).
   * ``interleave_channels``: ``[x_0, m_0, x_1, m_1, ...]``, the channel
     order of the reference's concat, which the grouped 1x1 conv after it
     depends on.
@@ -42,3 +44,16 @@ def max_relative(x: torch.Tensor, idx: torch.Tensor,
     src = x if y is None else y
     rel = gather_nodes(src.float(), idx) - x.float()[:, :, None, :]
     return torch.amax(rel, dim=2).to(x.dtype)
+
+
+def sum_neighbors(x: torch.Tensor, idx: torch.Tensor,
+                  y: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum_k y[idx]`` per query node (y = x when ``None``), in the input
+    type: ``(B, N, C)``."""
+    return torch.sum(gather_nodes(x if y is None else y, idx), dim=2)
+
+
+def max_neighbors(x: torch.Tensor, idx: torch.Tensor,
+                  y: torch.Tensor | None = None) -> torch.Tensor:
+    """``max_k y[idx]`` per query node (y = x when ``None``): ``(B, N, C)``."""
+    return torch.amax(gather_nodes(x if y is None else y, idx), dim=2)

@@ -1,5 +1,4 @@
-"""Dynamic k-NN graph construction in plain PyTorch (counterpart:
-``gkgnet_tpu/ops/knn.py``, deterministic mode only).
+"""Dynamic k-NN graph construction (counterpart: ``gkgnet_tpu/ops/knn.py``).
 
 Contract:
   * features are L2-normalized in fp32 along the channel dim and rounded
@@ -9,18 +8,23 @@ Contract:
     table),
   * neighbours are the ``k`` smallest distances in ascending order, the
     lowest target index first among equal distances (the order
-    ``lax.top_k`` gives); a stable sort guarantees it where ``torch.topk``
-    leaves the tie order unspecified,
-  * dilation keeps every d-th of the ``k * d`` candidates.
+    ``lax.top_k`` gives; a stable sort guarantees it where ``torch.topk``
+    leaves the tie order unspecified), NaN distances last in column order,
+  * dilation keeps every d-th of the ``k * d`` candidates, or, in training
+    with stochastic dilation, with probability epsilon the first k of a
+    random permutation of them.
 
-Node tensors are channel-last ``(B, N, C)``. These functions are the plain
-versions the graph-conv kernel is held against; nothing here launches a
-hand-written kernel.
+Node tensors are channel-last ``(B, N, C)``. ``knn_topk_reference`` is the
+plain version of the CUDA kernel behind ``ops.knn_topk.launch``;
+``knn_graph`` normalizes and then takes the kernel for CUDA tensors and the
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
+
+from gkgnet_tpu_torch.ops import knn_topk
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -42,6 +46,23 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x_sq - 2.0 * inner + y_sq.transpose(1, 2)
 
 
+def knn_topk_reference(x: torch.Tensor, y: torch.Tensor, *, k: int,
+                       bias: torch.Tensor | None = None,
+                       return_values: bool = False):
+    """Plain version of the kernel: for already-normalized queries
+    ``(BG, N, D)`` and targets ``(BG, M, D)``, the ``k`` targets with the
+    smallest fp32 distance (+ bias ``(N, M)`` or ``(BG, N, M)``) by a stable
+    sort: the lowest index first among ties, NaN last. Returns idx
+    ``(BG, N, k)`` int32, or ``(idx, vals)`` with the fp32 distances."""
+    knn_topk.check_inputs(x, y, bias, k)
+    dist = pairwise_sqdist(x, y)
+    if bias is not None:
+        dist = dist + bias.float()
+    vals, order = torch.sort(dist, dim=-1, stable=True)
+    idx = order[..., :k].to(torch.int32)
+    return (idx, vals[..., :k].contiguous()) if return_values else idx
+
+
 def knn_graph(
     x: torch.Tensor,
     y: torch.Tensor | None = None,
@@ -50,7 +71,7 @@ def knn_graph(
     bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """For every query node the indices of its ``k`` nearest targets, on
-    L2-normalized features.
+    L2-normalized features; no gradient flows through it.
 
     Args:
       x: query nodes ``(B, N, C)``.
@@ -59,19 +80,41 @@ def knn_graph(
       bias: optional additive distance bias ``(N, M)`` or ``(B, N, M)``.
 
     Returns:
-      ``(B, N, k)`` int32 indices into the target set.
+      ``(B, N, k)`` int32 indices into the target set: from the CUDA kernel
+      for CUDA tensors, from ``knn_topk_reference`` for CPU tensors.
     """
-    x = l2_normalize(x)
-    y = x if y is None else l2_normalize(y)
-    dist = pairwise_sqdist(x, y)
-    if bias is not None:
-        dist = dist + bias.float()
-    _, order = torch.sort(dist, dim=-1, stable=True)
-    return order[..., :k].to(torch.int32)
+    x = l2_normalize(x.detach())
+    y = x if y is None else l2_normalize(y.detach())
+    if x.device.type == "cpu":
+        return knn_topk_reference(x, y, k=k, bias=bias)
+    return knn_topk.launch(x, y, k=k, bias=bias)
 
 
-def dilate_edges(idx: torch.Tensor, *, dilation: int) -> torch.Tensor:
-    """Keep every d-th of the ``k * d`` neighbour candidates."""
-    if dilation <= 1:
+def dilate_edges(idx: torch.Tensor, *, dilation: int,
+                 stochastic: bool = False, epsilon: float = 0.0,
+                 generator: torch.Generator | None = None,
+                 training: bool = False) -> torch.Tensor:
+    """Subsample ``k * d`` neighbour candidates ``(..., k*d)`` to ``k``.
+
+    Deterministic mode keeps every d-th candidate. Stochastic mode, in
+    training only and with ``epsilon > 0``: one draw from ``generator``
+    decides for the whole call; with probability ``epsilon`` it takes the
+    candidates at the first k positions of one random permutation of the
+    k*d instead (the same positions for every row). Raises without a
+    generator there, as the JAX package raises without an rng key.
+    """
+    if dilation <= 1 and not (stochastic and training):
         return idx
-    return idx[..., ::dilation]
+    kd = idx.shape[-1]
+    k = kd // max(dilation, 1)
+    strided = idx[..., ::dilation]
+    if not (stochastic and training and epsilon > 0.0):
+        return strided
+    if generator is None:
+        raise ValueError("stochastic dilation at train time needs a "
+                         "generator")
+    gate = torch.rand((), generator=generator, device=generator.device)
+    perm = torch.randperm(kd, generator=generator, device=generator.device)
+    randsel = idx[..., perm[:k].to(idx.device)]
+    # no host sync: both candidates exist and the draw picks on the device
+    return torch.where(gate.to(idx.device) < epsilon, randsel, strided)

@@ -35,7 +35,8 @@ import torch
 
 from gkgnet_tpu_torch.ops import _build
 from gkgnet_tpu_torch.ops.aggregate import gather_nodes, max_relative
-from gkgnet_tpu_torch.ops.knn import dilate_edges, knn_graph
+from gkgnet_tpu_torch.ops.knn import (dilate_edges, knn_topk_reference,
+                                      l2_normalize)
 
 # Kernel launches since the last reset; each wrapper adds one per launch.
 launches = 0
@@ -91,10 +92,12 @@ def _check(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
 def knn_mr_reference(x: torch.Tensor, y: torch.Tensor,
                      bias: torch.Tensor | None, k: int,
                      dilation: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: ``knn_graph`` + ``dilate_edges`` +
-    ``max_relative``, the path the JAX package takes without its kernel."""
+    """Plain PyTorch version: ``l2_normalize`` + ``knn_topk_reference`` +
+    ``dilate_edges`` + ``max_relative``, the path the JAX package takes
+    without its kernel (never a kernel, whatever the device)."""
     _check(x, y, bias, k, dilation)
-    idx = knn_graph(x, y, k=k * dilation, bias=bias)
+    idx = knn_topk_reference(l2_normalize(x), l2_normalize(y),
+                             k=k * dilation, bias=bias)
     idx = dilate_edges(idx, dilation=dilation)
     return idx, max_relative(x, idx, y)
 

@@ -15,6 +15,13 @@ transforms:
   * pos_embed    (1, H, W, C)           -> (1, C, H, W)
   * BatchNorm    scale/bias, mean/var   -> weight/bias, running_mean/var
   * head fc1_kernel (C_cls, Cin)        -> head.fc1.weight as it is
+  * aggregator leaves: ``gconv/{nn,nn1,nn2}`` (BasicConv) ->
+    ``graph_conv.gconv.{nn,nn1,nn2}.<i>``, the gat attention ``gconv/a``
+    (a 1x1 conv) -> ``graph_conv.gconv.a``, the gin ``gconv/eps`` (1,) ->
+    ``graph_conv.gconv.eps`` as it is
+
+``init_block_parameters(module, generator)`` is the seeded init of any
+module of the port (a standalone Grapher as well as the classifier).
 """
 
 from __future__ import annotations
@@ -26,10 +33,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from gkgnet_tpu_torch.nn.layers import BatchNorm
+from gkgnet_tpu_torch.nn.layers import BatchNorm, Conv3x3, PointwiseConv
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
-         "embedding": "weight", "mean": "running_mean", "var": "running_var"}
+         "embedding": "weight", "mean": "running_mean", "var": "running_var",
+         "eps": "eps"}
 _STEM = {"conv0": 0, "norm0": 1, "conv1": 3, "norm1": 4, "conv2": 6, "norm2": 7}
 _CONV_NORM = {"conv": "0", "norm": "1"}
 
@@ -46,8 +54,10 @@ def _block_path(p: list[str]) -> list[str]:
     """Path inside a Grapher, GrapherLabel or FFN -> mmcls sub-keys."""
     if p[0] in ("fc1", "fc2"):                    # ConvNorm
         return [p[0], _CONV_NORM[p[1]]]
-    if p[0] == "graph_conv":                      # gconv.nn: BasicConv
-        m = re.fullmatch(r"(conv|norm)(\d+)", p[3])
+    if p[0] == "graph_conv":
+        if len(p) == 2 or p[2] == "a":            # gin eps, gat attention
+            return p[:3]
+        m = re.fullmatch(r"(conv|norm)(\d+)", p[3])  # gconv.nn*: BasicConv
         idx = 3 * int(m.group(2)) + (0 if m.group(1) == "conv" else 1)
         return ["graph_conv", "gconv", p[2], str(idx)]
     if p[0] == "ffn":                             # FFN inside GrapherLabel
@@ -91,7 +101,7 @@ def torch_key(path: tuple[str, ...]) -> str:
 def jax_leaf_names(model: nn.Module) -> dict[str, str]:
     """Parameter name -> the leaf name of the JAX variable it is loaded from
     (the inverse of the last step of ``torch_key``): ``kernel``, ``bias``,
-    ``scale``, ``embedding``, ``pos_embed``, ``fc1_kernel`` or
+    ``scale``, ``embedding``, ``pos_embed``, ``eps``, ``fc1_kernel`` or
     ``fc1_bias``."""
     names = {}
     for mod_name, module in model.named_modules():
@@ -99,8 +109,8 @@ def jax_leaf_names(model: nn.Module) -> dict[str, str]:
             key = f"{mod_name}.{p_name}" if mod_name else p_name
             if key in ("head.fc1.weight", "head.fc1.bias"):
                 leaf = "fc1_kernel" if p_name == "weight" else "fc1_bias"
-            elif p_name == "pos_embed":
-                leaf = "pos_embed"
+            elif p_name in ("pos_embed", "eps"):
+                leaf = p_name
             elif isinstance(module, BatchNorm):
                 leaf = {"weight": "scale", "bias": "bias"}[p_name]
             elif isinstance(module, nn.Embedding):
@@ -142,3 +152,16 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Fill ``model``'s parameters and buffers from the JAX tree. Every key
     must match in name and shape (``load_state_dict(strict=True)``)."""
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
+
+
+@torch.no_grad()
+def init_block_parameters(module: nn.Module,
+                          generator: torch.Generator) -> None:
+    """Seeded init of the convolutions of ``module`` and its children, in
+    module order: kaiming-normal (fan_in) weights. Biases stay zero, BN
+    scales and running variances one, the gin ``eps`` zero, as created."""
+    for sub in module.modules():
+        if isinstance(sub, (PointwiseConv, Conv3x3)):
+            fan_in = sub.weight[0].numel()
+            sub.weight.normal_(0.0, (2.0 / fan_in) ** 0.5,
+                               generator=generator)

@@ -17,14 +17,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import tie_fixture  # noqa: E402
+from chip_smoke import check_topk, tie_fixture, topk_fixture  # noqa: E402
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
                                            make_train_step)
 from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier, init_parameters  # noqa: E402
-from gkgnet_tpu_torch.ops import knn_mr  # noqa: E402
+from gkgnet_tpu_torch.nn import grapher  # noqa: E402
+from gkgnet_tpu_torch.ops import knn_mr, knn_topk  # noqa: E402
 from gkgnet_tpu_torch.ops.aggregate import max_relative  # noqa: E402
-from gkgnet_tpu_torch.ops.knn import l2_normalize  # noqa: E402
+from gkgnet_tpu_torch.ops.knn import (knn_graph,  # noqa: E402
+                                      knn_topk_reference, l2_normalize)
+from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
+from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -313,3 +317,206 @@ def test_train_step_on_card_matches_cpu(cuda):
     for key, v in cpu_stats.items():
         bound = max(1e-4 * v.abs().max().item(), 1e-6)
         assert (stats[key] - v).abs().max().item() <= bound, key
+
+
+# ------------------------------------------------ knn_topk (knn_graph's kernel)
+
+
+@pytest.mark.parametrize("bg,n,m,d,k,bias_kind,dtype", [
+    (2, 100, 70, 12, 4, "shared", torch.float32),     # ragged N and M
+    (3, 64, None, 40, 9, "shared", torch.bfloat16),   # self-kNN
+    (2, 37, 300, 200, 18, "batched", torch.bfloat16),
+    (2, 80, 1500, 80, 9, None, torch.bfloat16),       # label-like: M >> N
+    (1, 33, 130, 7, 35, None, torch.float32),         # 64-lists
+    (2, 20, 64, 3, 64, None, torch.float32),          # k == M == 64
+    (2, 40, 90, 640, 27, "shared", torch.bfloat16),   # D = 640: 187 KB smem
+    (1, 50, 60, 16, 5, None, torch.float16),          # cast to fp32
+])
+def test_topk_kernel_matches_plain(cuda, bg, n, m, d, k, bias_kind, dtype):
+    """The kernel against ``knn_topk_reference`` on normalized rows: the
+    fp64 ordering oracle, idx equal to the plain version's except at
+    oracle near-ties, each returned distance within its fp32 bound of the
+    fp64 one (``chip_smoke.check_topk``); idx alone equals idx with values;
+    one launch counted per call."""
+    x, y, bias = _inputs(bg, n, m, d, bias_kind, torch.float32)
+    self_knn = y is x
+    xn = l2_normalize(x.to(cuda)).to(dtype)
+    yn = xn if self_knn else l2_normalize(y.to(cuda)).to(dtype)
+    bias = None if bias is None else bias.to(cuda)
+    before = knn_topk.launches
+    idx, vals = knn_topk.launch(xn, yn, k=k, bias=bias, return_values=True)
+    torch.cuda.synchronize()
+    assert knn_topk.launches == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (bg, n, k)
+    assert vals.dtype == torch.float32 and vals.shape == (bg, n, k)
+    stats = check_topk("card", xn, yn, bias, idx, vals)
+    assert stats["oracle_worst_gap"] <= ORACLE_TOL
+    assert torch.equal(knn_topk.launch(xn, yn, k=k, bias=bias), idx)
+
+
+def _normalized_pair(x, y):
+    xn = l2_normalize(x)
+    return xn, (xn if y is x else l2_normalize(y))
+
+
+@pytest.mark.parametrize("make,bitwise", [
+    (_duplicated_rows, True), (_quantized, False), (_constant(1), True),
+    (_lane_collision, True),
+], ids=["duplicated_rows", "quantized", "constant", "lane_collision"])
+def test_topk_kernel_tie_fixtures_match_plain(cuda, make, bitwise):
+    """Ties and near-collisions: the fp64 oracle, the plain idx up to
+    near-ties and each distance within its fp32 bound (``check_topk``);
+    where the tied distances are bitwise equal in both versions (equal
+    rows) or the fixture stresses the lanes' lists (lane_collision), idx
+    bitwise the plain version's: the lowest column wins every tie. The
+    quantized rows tie in exact arithmetic only: each version's fp32 sums
+    (the kernel's lane-strided y_sq, the plain version's blocked products)
+    round some tied pairs apart, each in its own way."""
+    x, y, k, dilation = make()
+    xn, yn = _normalized_pair(x, y)
+    kd = k * dilation
+    idx, vals = knn_topk.launch(xn.to(cuda), yn.to(cuda), k=kd,
+                                return_values=True)
+    check_topk("fixture", xn.to(cuda), yn.to(cuda), None, idx, vals)
+    if bitwise:
+        assert torch.equal(idx.cpu(), knn_topk_reference(xn, yn, k=kd))
+
+
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_topk_kernel_nan_rows_match_plain(cuda, dtype, self_knn):
+    """NaN distances order after every number in column order: a NaN query
+    row selects columns 0..k-1 with NaN values, a NaN target row is never
+    selected; the fixture's tied and NaN rows equal the plain version's
+    bitwise (``chip_smoke.topk_fixture``)."""
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((2, 40, 6), generator=g)
+    y = x if self_knn else torch.randn((2, 96, 6), generator=g)
+    rows = topk_fixture(x, y, self_knn)
+    xn = l2_normalize(x.to(dtype))
+    yn = xn if self_knn else l2_normalize(y.to(dtype))
+    k = 7
+    ref_idx, ref_vals = knn_topk_reference(xn, yn, k=k, return_values=True)
+    idx, vals = knn_topk.launch(xn.to(cuda), yn.to(cuda), k=k,
+                                return_values=True)
+    idx, vals = idx.cpu(), vals.cpu()
+    for b, r in rows:
+        assert torch.equal(idx[b, r], ref_idx[b, r]), (b, r)
+    assert idx[0, 10].tolist() == list(range(k))
+    assert torch.isnan(vals[0, 10]).all()
+    finite = torch.isfinite(xn[1]).all(-1)
+    assert not (idx[1][finite] == 5).any()
+    assert idx[0, 0, :4].tolist() == [0, 1, 2, 3]
+
+
+@pytest.mark.parametrize("case", ["not_contiguous", "bias_on_cpu",
+                                  "k_over_64", "k_over_m", "too_wide"])
+def test_topk_kernel_rejects_bad_inputs(cuda, case):
+    x = torch.randn((2, 16, 8), device=cuda)
+    y = torch.randn((2, 100, 8), device=cuda)
+    bias = torch.zeros((16, 100), device=cuda)
+    k = 3
+    if case == "not_contiguous":
+        x = torch.randn((2, 8, 16), device=cuda).transpose(1, 2)
+    elif case == "bias_on_cpu":
+        bias = bias.cpu()
+    elif case == "k_over_64":
+        k = 65
+    elif case == "k_over_m":
+        k = 101
+    else:
+        x = torch.randn((2, 16, 800), device=cuda)
+        y = torch.randn((2, 100, 800), device=cuda)
+    before = knn_topk.launches
+    with pytest.raises(ValueError):
+        knn_topk.launch(x, y, k=k, bias=bias)
+    assert knn_topk.launches == before
+
+
+def _block_edges(block, args):
+    """The graph of a block's graph conv in eval mode."""
+    with torch.no_grad():
+        h = block.fc1(args[0])
+        if isinstance(block, grapher.Grapher):
+            return block.graph_conv(h, args[1])[1]
+        b, hh, w, c = args[1].shape
+        return block.graph_conv(h, args[1].reshape(b, hh * w, c))[1]
+
+
+@pytest.mark.parametrize("conv", ["edge", "sage", "gin", "gat"])
+def test_aggregator_blocks_on_card_match_cpu(cuda, conv):
+    """A Grapher (r=2, with its relative-position table) and a GrapherLabel
+    with each aggregator, in fp32 (TF32 off): the card (knn_topk, one launch
+    per graph conv, no knn_mr) against the CPU (the plain version). The
+    eval graphs equal (asserted, so what is compared is the aggregators);
+    the eval output, the train-mode output and every gradient of a scalar
+    loss within 1e-4 of their largest value (the same sums in other
+    orders)."""
+    c, side = 16, 8
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn((2, side, side, c), generator=gen)
+    labels = torch.randn((2, 6, c), generator=gen)
+    bias = torch.from_numpy(get_relative_pos_table(c, side * side, 2))
+    makers = (
+        (lambda: grapher.Grapher(c, 4, 1, conv, "gelu", r=2,
+                                 use_multi_group=False), (x, bias)),
+        (lambda: grapher.GrapherLabel(c, 4, conv=conv, act="gelu",
+                                      use_multi_group=False), (labels, x)))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for make, inputs in makers:
+            results = []
+            for device in ("cpu", cuda):
+                block = make()
+                init_block_parameters(block, torch.Generator().manual_seed(3))
+                block.to(device).eval()
+                args = [a.to(device) for a in inputs]
+                before = (knn_topk.launches, knn_mr.launches)
+                edges = _block_edges(block, args)
+                with torch.no_grad():
+                    out_eval = block(*args)
+                out = block.train()(*args)
+                out_eval, out = (o[0] if isinstance(o, tuple) else o
+                                 for o in (out_eval, out))
+                out.square().sum().backward()
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                    assert knn_topk.launches - before[0] == 3
+                    assert knn_mr.launches == before[1]
+                results.append((edges.cpu(), out_eval.cpu(),
+                                out.detach().cpu(),
+                                {k: p.grad.cpu()
+                                 for k, p in block.named_parameters()}))
+            (i0, e0, t0, g0), (i1, e1, t1, g1) = results
+            assert torch.equal(i0, i1)
+            for got, ref in ((e1, e0), (t1, t0)):
+                assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+            # a leaf that is zero in exact arithmetic (a bias before a
+            # train-mode BN) holds rounding noise on both sides
+            noise = 1e-5 * max(g.abs().max().item() for g in g0.values())
+            for key, ref in g0.items():
+                scale = ref.abs().max().item()
+                if scale <= noise:
+                    assert g1[key].abs().max().item() <= noise, key
+                    continue
+                assert (g1[key] - ref).abs().max() <= 1e-4 * scale, key
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_knn_graph_on_card_launches_the_kernel(cuda):
+    """knn_graph on CUDA tensors normalizes and launches the kernel once;
+    the result equals the plain version's on the same normalized rows
+    (seeded rows without near-ties at this size, asserted by the oracle in
+    the kernel tests)."""
+    g = torch.Generator().manual_seed(22)
+    x = torch.randn((2, 30, 8), generator=g)
+    y = torch.randn((2, 50, 8), generator=g)
+    before = knn_topk.launches
+    idx = knn_graph(x.to(cuda), y.to(cuda), k=6)
+    torch.cuda.synchronize()
+    assert knn_topk.launches == before + 1
+    ref = knn_topk_reference(l2_normalize(x), l2_normalize(y), k=6)
+    assert torch.equal(idx.cpu(), ref)
