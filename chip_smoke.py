@@ -60,7 +60,30 @@ Phases (each prints its elapsed seconds):
      knn_mr) and eval (the fused knn_mr route); then at batch 2 in fp32
      every knn_topk call held to the plain version on the blocks' own
      activations;
-  7. the kernels line, nvidia-smi's line, and the result line.
+  7. the grouped path (GKGNET_GROUPED=1 for this phase only): entry() at
+     batch 8 in bf16 with phase 4's seed: 16 grouped knn_mr launches and no
+     folded one per forward, logits bitwise phase 4's; 3 requests (64
+     grouped launches in all); ms/forward beside the default route's in
+     turns (default, grouped, grouped, default) and a profile; at each of
+     the forward's 16 calls, on its own activations at batch 8 in bf16 and
+     at batch 2 in fp32, the grouped kernel's idx and mr bitwise fold ->
+     the folded kernel -> unfold, and held to the plain version
+     (knn_mr_grouped_reference): mr bitwise where idx agrees, every idx
+     difference a near-tie by the fp64 oracle on both sides, at most
+     FLIP_SHARE of the forward's (row, group) pairs; per bf16 call the
+     grouped, folded-route and plain ms and the bound; then 3 train steps at batch 8 (16 grouped
+     forward and 16 backward launches each, no folded one), the step-1
+     loss bitwise phase 5's and the step-1 gradients held to phase 5's per
+     parameter, ms/step and peak memory;
+  8. the phases (gkgnet_tpu_torch/tools/exp_kernel_phases.py) at the
+     tool's geometry (BG 16, N 20736, M 1296, D 40, K 9, bf16): the four
+     phase kernels timed (each launched on that run), then each checksum
+     held to its plain version: dist and gfix within the fp32 summation
+     bound, sel -inf, selg within its bound of the fp64 checksum of
+     knn_mr.launch's own idx on the same rows; ms, plain ms and bound per
+     phase, and the fp64 ordering oracle of the kernel's and the plain
+     version's idx;
+  9. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -87,10 +110,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
-from gkgnet_tpu_torch.ops.aggregate import max_relative  # noqa: E402
+from gkgnet_tpu_torch.ops.aggregate import (fold_groups,  # noqa: E402
+                                            max_relative, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (knn_topk_reference,  # noqa: E402
                                       l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
+from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
 from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 BG = 16                   # batch 8 x 2 channel groups
@@ -196,11 +221,16 @@ def print_ptxas_summary(compiler_log: str) -> None:
         fn = re.search(r"Compiling entry function '_Z\w*?(knn_mr_kernel|"
                        r"knn_topk_kernel|l2norm_rows|row_sq|edge_grads|"
                        r"gather_targets)"
-                       r"I(13__nv_bfloat16|f)(?:Li(\d+))?", line)
+                       r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb([01])E)?"
+                       r"(?:Li(\d+)E)?", line)
         if fn:
             dtype = "bf16" if fn.group(2) != "f" else "fp32"
-            name = f"{fn.group(1)}<{dtype}" + (
-                f", KDM={fn.group(3)}>" if fn.group(3) else ">")
+            phase = int(fn.group(5) or 0)  # knn_mr_kernel's: 0 the forward
+            name = f"{fn.group(1)}<{dtype}" + "".join(
+                part for part, on in (
+                    (f", KDM={fn.group(3)}", fn.group(3)),
+                    (", grouped", fn.group(4) == "1"),
+                    (f", {phases.PHASES[phase - 1]}", phase)) if on) + ">"
         elif name and ("spill" in line or "registers" in line):
             lines.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     for name, parts in lines.items():
@@ -802,6 +832,7 @@ def train_phase() -> dict:
     stats0 = {k: v.clone() for k, v in model.state_dict().items()
               if "running" in k}
     knn_mr.launches = 0
+    knn_mr.grouped_launches = 0
     knn_mr.backward_launches = 0
     knn_topk.launches = 0
     for i in range(3):
@@ -814,14 +845,18 @@ def train_phase() -> dict:
         check(fwd == 16 and bwd == 16, f"train step {i}: {fwd} forward and "
               f"{bwd} backward launches, expected 16 and 16")
         values = {k: float(v) for k, v in logs.items()}
+        if i == 0:  # phase 7 holds the grouped route's first step to these
+            step1 = (values["loss"], {k: p.grad.detach().clone() for k, p in
+                                      model.named_parameters()})
         for key in ("loss", "bce_loss", "asy_loss", "grad_norm"):
             check(math.isfinite(values[key]),
                   f"train step {i}: {key} = {values[key]}")
         log(f"train step {i}: {step_s * 1e3:.1f} ms host wall; " + ", ".join(
             f"{k} {v:.6g}" for k, v in values.items()))
     launches = (knn_mr.launches, knn_mr.backward_launches)
-    check(knn_topk.launches == 0, f"{knn_topk.launches} knn_topk launches "
-          f"in 3 train steps, expected 0")
+    check(knn_topk.launches == 0 and knn_mr.grouped_launches == 0,
+          f"{knn_topk.launches} knn_topk and {knn_mr.grouped_launches} "
+          f"grouped launches in 3 train steps, expected 0")
     unmoved = [k for k, v in model.named_parameters()
                if torch.equal(v.detach(), p0[k])]
     check(not unmoved, f"parameters that did not move: {unmoved[:5]}")
@@ -852,7 +887,8 @@ def train_phase() -> dict:
     profile_device(lambda: fn(state, batch), "step", iters=2)
     del fn, state, batch, model, p0, stats0, sd
     torch.cuda.empty_cache()
-    return dict(launches=launches, step_ms=step_ms, peak_bytes=peak)
+    return dict(launches=launches, step_ms=step_ms, peak_bytes=peak,
+                step1=step1)
 
 
 def compare_fp32_train() -> None:
@@ -928,6 +964,337 @@ def compare_fp32_train() -> None:
         f"(rel diff {rel('grad_norm', moved):.3e})")
 
 
+GRAD_REL_TOL = 2.0 ** -6   # grouped vs default step-1 gradients where not
+                           # bitwise; PERF.md section 6 states the reason
+
+
+def record_grouped_calls(fn, model, x) -> list[tuple]:
+    """The 16 ``knn_mr_fused_grouped`` calls of one forward ``fn(model, x)``
+    on the grouped route: ``(args, (idx, mr))`` each, recorded by patching
+    the name the Grapher convs call."""
+    calls = []
+    kernel_op = grapher.knn_mr_fused_grouped
+
+    def recording(*args):
+        out = kernel_op(*args)
+        calls.append((args, out))
+        return out
+
+    grapher.knn_mr_fused_grouped = recording
+    try:
+        fn(model, x)
+        torch.cuda.synchronize()
+    finally:
+        grapher.knn_mr_fused_grouped = kernel_op
+    check(len(calls) == 16, f"{len(calls)} grouped calls, expected 16")
+    return calls
+
+
+def folded_route(x, y, bias, k, dil, g):
+    """fold -> the folded kernel -> unfold, on unfolded rows: idx
+    ``(B, N, g, k)``, mr ``(B, N, g*D)``; with y = x one fold serves both."""
+    b, n, _ = x.shape
+    xf = fold_groups(x, g)
+    yf = xf if y is x else fold_groups(y, g)
+    idx, mr, _, _ = knn_mr.launch(xf, yf, bias, k, dil)
+    return (idx.reshape(b, g, n, k).permute(0, 2, 1, 3),
+            unfold_groups(mr, g))
+
+
+def check_grouped_calls(calls, label: str, timed: bool) -> list[dict]:
+    """Each recorded call's grouped output held on its own rows to
+    (a) fold -> the folded kernel -> unfold, bitwise, and (b) the plain
+    version ``knn_mr_grouped_reference``: mr bitwise wherever idx agrees;
+    the fp64 oracle on the kernel's idx at every (row, group) pair whose idx
+    differs and at ORACLE_ROWS more; on the plain idx at every pair that
+    differs, on the plain version's own normalized rows, so that each
+    difference is a near-tie that fp32 rounding may decide either way; and
+    idx equal on all but FLIP_SHARE of the pairs of the 16 calls. The share
+    holds for the forward, not for each call as in ``compare_fp32_paths``:
+    a label call of 1280 pairs would allow one flip, and label 4 in bf16
+    has two, where the kernel's idx is the exact fp64 order.
+    With ``timed``, the grouped kernel's, the folded route's (the copies
+    and the folded kernel), the folded kernel's alone on the folded rows and
+    the plain version's ms, and the bound (the folded row's bytes and
+    operations). Returns one dict per call, with the largest |mr - plain mr|
+    on the pairs whose idx agrees."""
+    rows = []
+    flips_all = pairs_all = 0
+    for i, ((x, y, bias, k, dil, g), (idx, mr)) in enumerate(calls):
+        b, n, c = x.shape
+        m, d = y.shape[1], c // g
+        ref_idx, ref_mr = folded_route(x, y, bias, k, dil, g)
+        check(torch.equal(idx, ref_idx) and torch.equal(mr, ref_mr),
+              f"{label} call {i}: the grouped kernel differs from fold -> "
+              f"kernel -> unfold")
+        idx_p, mr_p = knn_mr.knn_mr_grouped_reference(x, y, bias, k, dil, g)
+        same = (idx_p == idx).all(-1)  # (B, N, g)
+        flips = int((~same).sum())
+        mr_s = mr.reshape(b, n, g, d)[same]
+        mr_ps = mr_p.reshape(b, n, g, d)[same]
+        err = ((mr_s.float() - mr_ps.float()).abs().max().item()
+               if mr_s.numel() else math.nan)  # nan: no pair agrees
+        # the oracle on the folded layout: flat row (b * g + gi) * N + i
+        idx_k, _, xn, yn = knn_mr.launch_grouped(x, y, bias, k, dil, g)
+        check(torch.equal(idx_k, idx), f"{label} call {i}: a second launch "
+              f"gave another idx")
+        gen = torch.Generator(device=x.device).manual_seed(i)
+        flipped = (~same).permute(0, 2, 1).reshape(-1).nonzero().squeeze(1)
+        checked = torch.cat([flipped, torch.randperm(
+            b * g * n, generator=gen, device=x.device)[:ORACLE_ROWS]])
+        gap = knn_mr.ordering_gaps(
+            xn, yn, bias, idx.permute(0, 2, 1, 3).reshape(b * g, n, k), dil,
+            checked).max().item()
+        gap_p = 0.0
+        if flips:
+            xp = l2_normalize(fold_groups(x, g))
+            yp = xp if y is x else l2_normalize(fold_groups(y, g))
+            gap_p = knn_mr.ordering_gaps(
+                xp, yp, bias, idx_p.permute(0, 2, 1, 3).reshape(b * g, n, k),
+                dil, flipped).max().item()
+            del xp, yp
+        print(f"  grouped {label} call {i:2d}: N={n:5d} M={m:5d} D={d:3d} "
+              f"k*d={k * dil:2d}: idx differs from the plain version's on "
+              f"{flips}/{same.numel()} (row, group) pairs; worst fp64 gap "
+              f"{gap:.2e} (the plain idx there {gap_p:.2e}); max|mr - plain| "
+              f"where idx agrees {err:.3e}", flush=True)
+        check(gap <= ORACLE_TOL and gap_p <= ORACLE_TOL, f"{label} call {i}: "
+              f"fp64 gap {gap:.2e}, of the plain idx {gap_p:.2e}")
+        flips_all += flips
+        pairs_all += same.numel()
+        check(torch.equal(mr_s, mr_ps), f"{label} call {i}: mr differs from "
+              f"the plain version's where idx agrees")
+        row = dict(call=i, dtype=label, B=b, groups=g, N=n, M=m, D=d,
+                   kd=k * dil, max_abs_err=err, plain_idx_flips=flips,
+                   oracle_gap=gap, plain_oracle_gap=gap_p)
+        del idx_p, mr_p, mr_s, mr_ps, idx_k, xn, yn
+        if timed:
+            iters = 20 if n * m < 10**7 else 10
+            row["ms"] = cuda_ms(lambda: knn_mr.launch_grouped(
+                x, y, bias, k, dil, g), iters, 3)
+            row["folded_ms"] = cuda_ms(lambda: folded_route(
+                x, y, bias, k, dil, g), iters, 3)
+            xf = fold_groups(x, g)
+            yf = xf if y is x else fold_groups(y, g)
+            row["folded_kernel_ms"] = cuda_ms(lambda: knn_mr.launch(
+                xf, yf, bias, k, dil), iters, 3)
+            del xf, yf
+            row["plain_ms"] = cuda_ms(lambda: knn_mr.knn_mr_grouped_reference(
+                x, y, bias, k, dil, g), 3, 1)
+            nbytes = (x.nbytes + (0 if y is x else y.nbytes)
+                      + (0 if bias is None else bias.nbytes)
+                      + idx.nbytes + mr.nbytes)
+            flops = 2.0 * b * n * m * c
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
+            row.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       calls_per_forward=1)
+            print("grouped_row " + json.dumps(row), flush=True)
+        rows.append(row)
+    log(f"grouped {label}: idx differs from the plain version's on "
+        f"{flips_all}/{pairs_all} (row, group) pairs of the 16 calls")
+    check(flips_all <= FLIP_SHARE * pairs_all, f"{label}: {flips_all} (row, "
+          f"group) pairs differ from the plain idx")
+    return rows
+
+
+def grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
+    """Phase 7: the grouped path, with GKGNET_GROUPED=1 for this phase only.
+    Returns its launch counts, times and per-call rows."""
+    saved = os.environ.get("GKGNET_GROUPED")
+    os.environ["GKGNET_GROUPED"] = "1"
+    try:
+        return _grouped_phase(ref_logits, ref_step1)
+    finally:
+        if saved is None:
+            del os.environ["GKGNET_GROUPED"]
+        else:
+            os.environ["GKGNET_GROUPED"] = saved
+
+
+def _grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
+    fn, (model, x) = entry(device="cuda", batch=8)
+    log("grouped: GKGNet-S@576 bf16, batch 8, GKGNET_GROUPED=1, built")
+    knn_mr.launches = knn_mr.grouped_launches = 0
+    knn_mr.backward_launches = knn_topk.launches = 0
+    logits = fn(model, x)
+    torch.cuda.synchronize()
+    counts = (knn_mr.grouped_launches, knn_mr.launches, knn_topk.launches)
+    check(counts == (16, 0, 0), f"grouped: (grouped, folded, knn_topk) "
+          f"launches {counts} in one forward, expected (16, 0, 0)")
+    check(torch.equal(logits.cpu(), ref_logits), "grouped: the logits are "
+          "not bitwise the default route's")
+    for i in range(3):
+        images = torch.randn((8, 576, 576, 3),
+                             generator=torch.Generator().manual_seed(100 + i))
+        scores = predict(model, images.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        check(scores.shape == (8, 80) and bool(torch.isfinite(scores).all()),
+              f"grouped request {i}: scores {tuple(scores.shape)}")
+    eval_launches = knn_mr.grouped_launches
+    check(eval_launches == 64 and knn_mr.launches == 0
+          and knn_mr.backward_launches == 0,
+          f"grouped: {eval_launches} grouped, {knn_mr.launches} folded and "
+          f"{knn_mr.backward_launches} backward launches over one forward "
+          f"and 3 requests, expected 64, 0 and 0")
+    log("grouped eval: 16 grouped launches per forward, 64 over one forward "
+        "and 3 requests, no folded one; logits bitwise the default route's")
+    fwd_ms = {}
+    for turn, flag in enumerate(("0", "1", "1", "0")):
+        os.environ["GKGNET_GROUPED"] = flag
+        fwd_ms[turn] = (flag, cuda_ms(lambda: fn(model, x), 10, 2))
+    os.environ["GKGNET_GROUPED"] = "1"
+    default = [ms for flag, ms in fwd_ms.values() if flag == "0"]
+    grouped = [ms for flag, ms in fwd_ms.values() if flag == "1"]
+    log(f"grouped eval: {grouped[0]:.2f} and {grouped[1]:.2f} ms/forward at "
+        f"batch 8 (bf16); the default route in the same turns "
+        f"{default[0]:.2f} and {default[1]:.2f} (default, grouped, grouped, "
+        f"default)")
+    profile_device(lambda: fn(model, x), "grouped forward")
+    rows = check_grouped_calls(record_grouped_calls(fn, model, x), "bf16",
+                               timed=True)
+    del fn, model, x, logits
+    torch.cuda.empty_cache()
+    fn, (model, x) = entry(device="cuda", batch=2, dtype=torch.float32)
+    fp32_rows = check_grouped_calls(record_grouped_calls(fn, model, x),
+                                    "fp32", timed=False)
+    log("grouped: the 16 calls of the forward bitwise fold -> kernel -> "
+        "unfold and held to the plain version (near-tie flips only, mr "
+        "bitwise where idx agrees) on their own activations, bf16 batch 8 "
+        "and fp32 batch 2")
+    del fn, model, x
+    torch.cuda.empty_cache()
+
+    fn, (state, batch) = train_entry(device="cuda", batch=8)
+    model = state.model
+    knn_mr.launches = knn_mr.grouped_launches = 0
+    knn_mr.backward_launches = knn_topk.launches = 0
+    ref_loss, ref_grads = ref_step1
+    for i in range(3):
+        before = (knn_mr.grouped_launches, knn_mr.backward_launches)
+        state, logs = fn(state, batch)
+        torch.cuda.synchronize()
+        fwd = knn_mr.grouped_launches - before[0]
+        bwd = knn_mr.backward_launches - before[1]
+        check(fwd == 16 and bwd == 16 and knn_mr.launches == 0,
+              f"grouped train step {i}: {fwd} grouped, {bwd} backward and "
+              f"{knn_mr.launches} folded launches, expected 16, 16 and 0")
+        values = {k: float(v) for k, v in logs.items()}
+        for key in ("loss", "grad_norm"):
+            check(math.isfinite(values[key]),
+                  f"grouped train step {i}: {key} = {values[key]}")
+        if i == 0:
+            check(values["loss"] == ref_loss, f"grouped train step 0: loss "
+                  f"{values['loss']!r}, the default route's {ref_loss!r}")
+            worst, bitwise = 0.0, 0
+            for key, p in model.named_parameters():
+                ref = ref_grads[key]
+                if torch.equal(p.grad, ref):
+                    bitwise += 1
+                    continue
+                rel = ((p.grad - ref).abs().max()
+                       / ref.abs().max().clamp(min=1e-30)).item()
+                print(f"  grouped step-1 gradient {key}: max|diff| / "
+                      f"max|grad| {rel:.3e}", flush=True)
+                worst = max(worst, rel)
+                check(rel <= GRAD_REL_TOL, f"grouped step-1 gradient {key}: "
+                      f"{rel:.3e} of its largest entry")
+            log(f"grouped train step 0: loss bitwise the default route's; "
+                f"{bitwise} of {len(ref_grads)} gradients bitwise, the rest "
+                f"within {worst:.3e} of their largest entry")
+        log(f"grouped train step {i}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in values.items()))
+    train_launches = (knn_mr.grouped_launches, knn_mr.backward_launches)
+    torch.cuda.reset_peak_memory_stats()
+    iters = 5
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / iters
+    peak = torch.cuda.max_memory_allocated()
+    log(f"grouped train: {step_ms:.2f} ms/step at batch 8 (bf16, mean of "
+        f"{iters} steps, host clock with synchronize); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    del fn, state, batch, model
+    torch.cuda.empty_cache()
+    return dict(eval_launches=eval_launches, train_launches=train_launches,
+                rows=rows, fp32_rows=fp32_rows, fwd_ms=fwd_ms,
+                step_ms=step_ms)
+
+
+def phases_phase() -> dict:
+    """Phase 8: the four phase kernels at the tool's geometry: timed (each
+    launched on that run), then each held to its plain version. Returns the
+    launches, the times and the largest error."""
+    x, y = phases.seeded_inputs("cuda")
+    k = phases.K
+    phases.launches = 0
+    times = phases.time_phases(x, y, k, iters=10, warmup=2)
+    torch.cuda.synchronize()
+    launches = phases.launches
+    check(launches == 4 * 12, f"{launches} phase launches, expected 48")
+    # the least time of every phase: the distance products at the bf16
+    # tensor-core peak (x and y read once, one float written per row, move
+    # far less)
+    nbytes = x.nbytes + y.nbytes + 4 * x.shape[0] * x.shape[1]
+    t_ops = 2.0 * x.shape[0] * x.shape[1] * y.shape[1] * x.shape[2] \
+        / PEAK_FLOPS["bf16"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    exact_d, bound_d = phases.dist_bound(x, y)
+    kernel_idx = knn_mr.launch(x, y, None, k)[0]
+    worst = 0.0
+    rows = {}
+    for phase in phases.PHASES:
+        got = phases.launch(phase, x, y, k).double()
+        plain = phases.phase_reference(phase, x, y, k).double()
+        if phase == "sel":
+            check(bool((got == -math.inf).all() and (plain == -math.inf).all()),
+                  "sel: the checksums are not -inf")
+            err = 0.0
+        else:
+            if phase == "dist":
+                exact, bound = exact_d, bound_d
+            else:
+                cols = (phases.fixed_columns(x, k) if phase == "gfix"
+                        else kernel_idx)
+                exact, bound = phases.gather_bound(x, y, cols)
+            over = int(((got - exact).abs() > bound).sum())
+            check(over == 0, f"{phase}: {over} checksums off the fp64 ones "
+                  f"beyond the fp32 bound")
+            if phase != "selg":  # selg's plain selection may flip near-ties
+                over = int(((got - plain).abs() > 2 * bound).sum())
+                check(over == 0, f"{phase}: {over} checksums off the plain "
+                      f"version's beyond twice the bound")
+            err = (got - plain).abs().max().item()
+            worst = max(worst, (got - exact).abs().max().item())
+        plain_ms = cuda_ms(lambda: phases.phase_reference(phase, x, y, k),
+                           3, 1)
+        rows[phase] = dict(ms=times[phase], plain_ms=plain_ms,
+                           bound_ms=max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes", max_abs_err_vs_plain=err)
+        print(f"phase_row {json.dumps(dict(phase=phase, **rows[phase]))}",
+              flush=True)
+    blocks = x.shape[0] * ((x.shape[1] + 7) // 8)
+    log("phases: " + ", ".join(
+        f"{p} {r['ms']:.3f} ms ({r['ms'] / blocks * 1e3:.4f} us per 8-row "
+        f"block)" for p, r in rows.items())
+        + f"; split of selg: scan {times['dist']:.3f} ms, selection "
+        f"{times['sel'] - times['dist']:.3f} ms, gather "
+        f"{times['gfix'] - times['dist']:.3f} ms")
+    xs, ys = x[:2, :2048].contiguous(), y[:2].contiguous()
+    for name, (differ, n_rows, gap) in phases.oracle(xs, ys, k).items():
+        log(f"phases oracle[{name}]: order-mismatch rows {differ}/{n_rows}, "
+            f"max fp64 gap {gap:.3e}")
+        check(gap <= ORACLE_TOL, f"oracle[{name}]: fp64 gap {gap:.3e}")
+    del x, y, exact_d, bound_d, kernel_idx
+    torch.cuda.empty_cache()
+    return dict(launches=launches, rows=rows, max_abs_err=worst)
+
+
 def per_step(rows: list[dict], calls_key: str) -> dict:
     """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
     and the bound that holds for the larger part of that bound_ms."""
@@ -956,13 +1323,13 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda load: load(),
-                      (knn_mr._lib, knn_mr._bwd_lib, knn_topk._lib)))
+        list(pool.map(lambda load: load(), (knn_mr._lib, knn_mr._bwd_lib,
+                                            knn_topk._lib)))
     for name in ("knn_mr", "knn_mr_bwd", "knn_topk"):
         seconds, compiler_log = _build.build_info[name]
         log(f"build: {name}.cu in {seconds:.1f} s")
         print_ptxas_summary(compiler_log)
-    log(f"build: the three kernels built and loaded in "
+    log(f"build: the three sources built and loaded in "
         f"{time.perf_counter() - t:.1f} s")
 
     # 3. kernels vs plain at every main-path shape
@@ -981,13 +1348,17 @@ def main() -> int:
     fn, (model, x) = entry(device="cuda", batch=8)
     log("model: GKGNet-S@576 bf16, batch 8, built")
     knn_mr.launches = 0
+    knn_mr.grouped_launches = 0
     knn_mr.backward_launches = 0
     knn_topk.launches = 0
     logits = fn(model, x)
     torch.cuda.synchronize()
-    check(knn_mr.launches == 16 and knn_topk.launches == 0,
-          f"{knn_mr.launches} knn_mr and {knn_topk.launches} knn_topk "
-          f"launches in one forward, expected 16 and 0")
+    check(knn_mr.launches == 16 and knn_topk.launches == 0
+          and knn_mr.grouped_launches == 0,
+          f"{knn_mr.launches} knn_mr, {knn_mr.grouped_launches} grouped and "
+          f"{knn_topk.launches} knn_topk launches in one forward, expected "
+          f"16, 0 and 0")
+    ref_logits = logits.cpu()
     check(logits.shape == (8, 80) and bool(torch.isfinite(logits).all()),
           f"logits {tuple(logits.shape)} finite={torch.isfinite(logits).all()}")
     for i in range(3):
@@ -1001,7 +1372,8 @@ def main() -> int:
         log(f"request {i}: scores {tuple(scores.shape)} in "
             f"[{float(scores.min()):.4f}, {float(scores.max()):.4f}]")
     eval_launches = knn_mr.launches
-    check(eval_launches == 64 and knn_mr.backward_launches == 0,
+    check(eval_launches == 64 and knn_mr.backward_launches == 0
+          and knn_mr.grouped_launches == 0,
           f"{eval_launches} forward and {knn_mr.backward_launches} backward "
           f"launches over one forward and 3 requests, expected 64 and 0")
     fwd_ms = cuda_ms(lambda: fn(model, x), 10, 2)
@@ -1021,10 +1393,15 @@ def main() -> int:
     graph = grapher_phase()
     compare_fp32_grapher()
 
-    # 7. result lines
+    # 7. the grouped path; 8. the phases
+    grouped = grouped_phase(ref_logits, train.pop("step1"))
+    phase = phases_phase()
+
+    # 9. result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
     topk = per_step(t_rows, "calls_per_pass")
+    g_fwd = per_step(grouped["rows"], "calls_per_forward")
     train_fwd, train_bwd = train["launches"]
     kernels = [{
         "name": "knn_mr_fused",
@@ -1073,6 +1450,42 @@ def main() -> int:
         "bound_by": topk["bound_by"],
         "library_ms": None,  # no single PyTorch call computes distance +
                              # top-k (the rows print the two-call route)
+    }, {
+        "name": "knn_mr_fused_grouped",
+        "route": "cuda",
+        "source": "gkgnet_tpu_torch/csrc/knn_mr.cu",
+        "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1167",
+        # the grouped path: eval (one forward + 3 requests) and train (3
+        # steps)
+        "launches": grouped["eval_launches"] + grouped["train_launches"][0],
+        # largest |mr - the plain version's mr| over the 16 calls in bf16
+        # and in fp32, on the (row, group) pairs whose idx agrees with the
+        # plain idx (the rest are near-tie flips, held to the fp64 oracle)
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           grouped["rows"] + grouped["fp32_rows"]),
+        # per forward at batch 8: the sum over the 16 calls
+        "ms": g_fwd["ms"],
+        "plain_ms": g_fwd["plain_ms"],
+        "bound_ms": g_fwd["bound_ms"],
+        "bound_by": g_fwd["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes kNN + mr
+    }, {
+        "name": "exp_kernel_phases",
+        "route": "cuda",
+        # the phases are instantiations of the knn_mr forward kernel
+        "source": "gkgnet_tpu_torch/csrc/knn_mr.cu",
+        "replaces": "tools/exp_kernel_phases.py:108",
+        # the tool's timing run: 4 phases x (2 warmup + 10 timed)
+        "launches": phase["launches"],
+        # largest |checksum - fp64 checksum| over dist, gfix and selg
+        "max_abs_err": phase["max_abs_err"],
+        # one launch of each of the four phases, summed
+        "ms": sum(r["ms"] for r in phase["rows"].values()),
+        "plain_ms": sum(r["plain_ms"] for r in phase["rows"].values()),
+        "bound_ms": sum(r["bound_ms"] for r in phase["rows"].values()),
+        "bound_by": phase["rows"]["selg"]["bound_by"],
+        "library_ms": None,  # a phase is a piece of a kernel: no PyTorch
+                             # call computes its checksum
     }]
     log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
         f"(one forward + 3 requests) and {train_fwd} on the train path (3 "
@@ -1080,7 +1493,13 @@ def main() -> int:
         f"checks passed at {len(rows)} shapes each, 16 fp32 forward calls "
         f"and 16 fp32 backward calls on the model's own activations; kernel "
         f"knn_topk: {graph['launches']} launches on the Grapher path, checks "
-        f"passed at {len(t_rows)} shapes and on the blocks' fp32 calls")
+        f"passed at {len(t_rows)} shapes and on the blocks' fp32 calls; "
+        f"kernel knn_mr_fused_grouped: {grouped['eval_launches']} launches "
+        f"on the grouped eval path and {grouped['train_launches'][0]} on its "
+        f"train path, bitwise the folded route and held to the plain "
+        f"version at the 16 calls in bf16 and fp32; kernel "
+        f"exp_kernel_phases: {phase['launches']} launches on the tool's "
+        f"run, every phase held to its plain version")
     log(f"done: {time.perf_counter() - T0:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

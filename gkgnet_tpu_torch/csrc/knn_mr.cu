@@ -11,6 +11,19 @@
 // each query row keeps its candidates in registers and the gather is a
 // direct indexed load.
 //
+// knn_mr_forward_grouped replaces the fold-aware TPU kernel
+// knn_mr.py::knn_mr_fused_grouped (:1167; the same pallas_call with
+// groups > 1, whose static per-group loop over full-channel blocks answers
+// Mosaic's block-shape rule). Here a group is a pointer offset and a row
+// stride: the kGrouped instantiation normalizes each group's D channels of
+// the unfolded (B, N, g*D) rows into the same folded scratch, runs the
+// same scan and merge on it, and gathers and writes the unfolded rows, so
+// its idx and mr are bitwise those of fold -> knn_mr_forward -> unfold and
+// the (B, N, C) <-> (B*g, N, C/g) copies around the call never exist. The
+// flag is a template parameter, so the folded instantiation compiles to
+// the code it had without it; the grouped one writes its scan's loop with
+// the loads ahead of the products (see there).
+//
 // What bounds it on this card. At the main path's largest call (stage 1,
 // BG=16, N=20736, M=1296, D=40, bf16) the bytes it must move are ~174 MB,
 // most of it the 107 MB fp32 bias (0.05 ms at 3.35 TB/s), and the distance
@@ -54,9 +67,33 @@
 // NaN ones. (Ordering NaN inside the comparison instead cost 6 % to 45 %
 // of the kernel's time at stage 1, by variant, on an H100 80GB HBM3.)
 //
-// Launch discipline: both kernels run on the caller's stream, allocate
-// nothing and do not synchronize; knn_mr_forward returns
-// cudaGetLastError() after the launches.
+// knn_phase runs the phase-isolated pieces of this same kernel for the tool
+// gkgnet_tpu_torch/tools/exp_kernel_phases.py, which replaces the TPU tool
+// tools/exp_kernel_phases.py::make (:108; bodies k_dist :57, k_sel :63).
+// The phase is a template parameter of knn_mr_kernel (kPhase; the forward
+// is kForward), so the split times the scan, the merge and the gather the
+// model runs, not a copy of them. Each phase writes one fp32 checksum per
+// query row, (BG, N, 1), as the TPU kernels define it:
+//   dist  the row sum of the fp32 distances x_sq - 2 <x, y> + y_sq from the
+//         rounded normalized rows (the contract of _dist :37-54);
+//   sel   distances, then the k merge rounds, no gather:
+//         sum_D(acc) + sum(idx) with acc left at its initial value. That
+//         value is -inf, as on the TPU, so the checksum is -inf whatever the
+//         indices; it is a kernel argument (acc_init) from the host, so
+//         that the compiler cannot prove -inf + sum(idx) == -inf and
+//         delete the selection;
+//   gfix  distances, then the gathers of the fixed columns 7 + j, no
+//         selection: sum_D max_j(y[7 + j] - x) + sum_j (7 + j). The row sum
+//         of the distances is added times dist_weight (0 from the host), so
+//         that the scan stays alive as the TPU's scratch store keeps it;
+//   selg  the whole forward: sum_D max_j(y[idx_j] - x) + sum(idx), the max
+//         in fp32 before any rounding to the input type.
+// The phases run without bias and dilation (the tool's geometry has
+// neither), folded, with lists of 8 or 16.
+//
+// Launch discipline: the kernels run on the caller's stream, allocate
+// nothing and do not synchronize; knn_mr_forward, knn_mr_forward_grouped
+// and knn_phase return cudaGetLastError() after the launches.
 
 #include "knn_select.cuh"
 
@@ -75,12 +112,30 @@ using knn_select::select_nan_columns;
 using knn_select::to_f32;
 using knn_select::warp_sum;
 
-template <typename T>
+// The raw row that folded row r = (bg, i) of a grouped call reads: the
+// unfolded (B, R, g*D) rows are rows of D in (b, i, gi) order, and
+// bg = b * g + gi.
+__device__ __forceinline__ long long grouped_row(long long r, int rows,
+                                                 int groups) {
+  const long long bg = r / rows;
+  const long long i = r - bg * rows;
+  const long long b = bg / groups;
+  return (b * rows + i) * groups + (bg - b * groups);
+}
+
+// One warp per row of x and of y: fp32 norm of the raw row, divide by
+// max(norm, 1e-12), round to the input type (the contract of
+// gkgnet_tpu/ops/knn.py l2_normalize), then the fp32 sum of squares of the
+// rounded row. Written to scratch the caller owns, folded (BG, N, D) and
+// (BG, M, D). kGrouped: x and y are unfolded (B, N, g*D) and (B, M, g*D),
+// and each group's D channels are normalized on their own.
+template <typename T, bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
 l2norm_rows(const T* __restrict__ x, T* __restrict__ xn,
             float* __restrict__ xsq, long long rows_x,
             const T* __restrict__ y, T* __restrict__ yn,
-            float* __restrict__ ysq, long long rows_y, int d) {
+            float* __restrict__ ysq, long long rows_y, int d, int n, int m,
+            int groups) {
   const long long row =
       (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -88,12 +143,12 @@ l2norm_rows(const T* __restrict__ x, T* __restrict__ xn,
   T* dst;
   float* sq;
   if (row < rows_x) {
-    src = x + row * d;
+    src = x + (kGrouped ? grouped_row(row, n, groups) : row) * d;
     dst = xn + row * d;
     sq = xsq + row;
   } else if (row < rows_x + rows_y) {
     const long long r = row - rows_x;
-    src = y + r * d;
+    src = y + (kGrouped ? grouped_row(r, m, groups) : r) * d;
     dst = yn + r * d;
     sq = ysq + r;
   } else {
@@ -116,15 +171,36 @@ l2norm_rows(const T* __restrict__ x, T* __restrict__ xn,
   if (lane == 0) *sq = s2;
 }
 
+// kPhase: the forward (idx and mr), or one of the phase tool's pieces,
+// which write one checksum per query row to out (see the top of the file).
+constexpr int kForward = 0;
+constexpr int kDist = 1;
+constexpr int kSel = 2;
+constexpr int kGfix = 3;
+constexpr int kSelg = 4;
+constexpr int kFixedColumn = 7;  // gfix gathers columns 7, 8, ..., 6 + k
+
 // bias_mode: 0 none, 1 shared (N, M), 2 batched (BG, N, M); fp32.
-template <typename T, int KDM>
+// kGrouped: x, y and mr are unfolded (B, N, g*D) / (B, M, g*D) and idx is
+// (B, N, g, k); xn/yn and their squares are the folded scratch all the
+// same, so only the epilogue's reads of the raw rows and its writes move.
+// The phases' arguments (acc_init, dist_weight, out) come last, so the
+// forward's parameters keep their offsets.
+template <typename T, int KDM, bool kGrouped, int kPhase>
 __global__ void __launch_bounds__(kThreads)
 knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
               const T* __restrict__ xn, const T* __restrict__ yn,
               const float* __restrict__ xsq, const float* __restrict__ ysq,
               const float* __restrict__ bias, int bias_mode,
               int* __restrict__ idx, T* __restrict__ mr,
-              int n, int m, int d, int k, int dilation) {
+              int n, int m, int d, int k, int dilation, int groups,
+              float acc_init, float dist_weight, float* __restrict__ out) {
+  static_assert(kPhase == kForward || !kGrouped, "phases run folded");
+  constexpr bool kSelect =
+      kPhase == kForward || kPhase == kSel || kPhase == kSelg;
+  constexpr bool kGather =
+      kPhase == kForward || kPhase == kGfix || kPhase == kSelg;
+  constexpr bool kSumDist = kPhase == kDist || kPhase == kGfix;
   extern __shared__ float smem[];
   float* ys = smem;                       // [d][kTileP] target tile, fp32
   float* xs = ys + d * kTileP;            // [kWarps][d] normalized queries
@@ -139,6 +215,13 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
   const long long qrow = (long long)bg * n + (active ? row : 0);
   const T* yn_b = yn + (long long)bg * m * d;
   const float* ysq_b = ysq + (long long)bg * m;
+  // the output row of x and mr (of d) and of idx (of k): a grouped call's
+  // group gi of batch b writes channels [gi*D, (gi+1)*D) of rows of g*D
+  long long orow = qrow;
+  if constexpr (kGrouped) {
+    const int b = bg / groups;
+    orow = ((long long)b * n + row) * groups + (bg - b * groups);
+  }
 
   float* xw = xs + warp * d;
   for (int c = lane; c < d; c += 32) xw[c] = to_f32(xn[qrow * d + c]);
@@ -156,6 +239,7 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
     ld[p] = INFINITY;
     lc[p] = INT_MAX;
   }
+  float dsum = 0.f;  // dist, gfix: this lane's distances, in column order
 
   for (int j0 = 0; j0 < m; j0 += kTile) {
     const int tw = min(kTile, m - j0);
@@ -173,73 +257,140 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
       const int c1 = lane + 32;
       float acc0 = 0.f;
       float acc1 = 0.f;
+      if constexpr (kGrouped) {
+        // The same sums in the same order, with each step's shared-memory
+        // loads written ahead of its products. Written as the loop below,
+        // this instantiation compiled to a schedule that interleaves them
+        // and took longer than fold + folded kernel + unfold together at
+        // the main path's shapes (stage 3: 2.74 against 2.22 ms); written
+        // so, it takes 1-16 % less than the folded kernel alone
+        // (chip_smoke.py phase 7; H100 80GB HBM3, 700 W).
+        int e = 0;
+        for (; e + 4 <= d; e += 4) {
+          float xv[4], a[4], b[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            xv[u] = xw[e + u];
+            a[u] = ys[(e + u) * kTileP + c0];
+            b[u] = ys[(e + u) * kTileP + c1];
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc0 = fmaf(xv[u], a[u], acc0);
+            acc1 = fmaf(xv[u], b[u], acc1);
+          }
+        }
+        for (; e < d; ++e) {
+          const float xv = xw[e];
+          acc0 = fmaf(xv, ys[e * kTileP + c0], acc0);
+          acc1 = fmaf(xv, ys[e * kTileP + c1], acc1);
+        }
+      } else {
 #pragma unroll 4
-      for (int e = 0; e < d; ++e) {
-        const float xv = xw[e];
-        acc0 = fmaf(xv, ys[e * kTileP + c0], acc0);
-        acc1 = fmaf(xv, ys[e * kTileP + c1], acc1);
+        for (int e = 0; e < d; ++e) {
+          const float xv = xw[e];
+          acc0 = fmaf(xv, ys[e * kTileP + c0], acc0);
+          acc1 = fmaf(xv, ys[e * kTileP + c1], acc1);
+        }
       }
       // columns at or past tw read stale shared memory and are dropped here
       if (c0 < tw) {
         float dist = xq - 2.f * acc0 + ysq_s[c0];
         if (brow != nullptr) dist += brow[j0 + c0];
-        insert<KDM>(ld, lc, dist, j0 + c0);
+        if constexpr (kSumDist) dsum += dist;
+        if constexpr (kSelect) insert<KDM>(ld, lc, dist, j0 + c0);
       }
       if (c1 < tw) {
         float dist = xq - 2.f * acc1 + ysq_s[c1];
         if (brow != nullptr) dist += brow[j0 + c1];
-        insert<KDM>(ld, lc, dist, j0 + c1);
+        if constexpr (kSumDist) dsum += dist;
+        if constexpr (kSelect) insert<KDM>(ld, lc, dist, j0 + c1);
       }
     }
   }
   if (!active) return;  // no block-wide barrier follows
 
-  // Warp merge: k*d rounds of a lexicographic min over the list heads.
-  const int kd = k * dilation;
+  if constexpr (kPhase == kDist) {
+    dsum = warp_sum(dsum);
+    if (lane == 0) out[qrow] = dsum;
+    return;
+  }
+
   int* sel_w = sel + warp * KDM;
-  for (int r = 0; r < kd; ++r) {
-    float bd = ld[0];
-    int bc = lc[0];
+  if constexpr (kSelect) {
+    // Warp merge: k*d rounds of a lexicographic min over the list heads.
+    const int kd = k * dilation;
+    for (int r = 0; r < kd; ++r) {
+      float bd = ld[0];
+      int bc = lc[0];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float od = __shfl_xor_sync(kFull, bd, o);
-      const int oc = __shfl_xor_sync(kFull, bc, o);
-      if (lex_less(od, oc, bd, bc)) {
-        bd = od;
-        bc = oc;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float od = __shfl_xor_sync(kFull, bd, o);
+        const int oc = __shfl_xor_sync(kFull, bc, o);
+        if (lex_less(od, oc, bd, bc)) {
+          bd = od;
+          bc = oc;
+        }
       }
-    }
-    if (bc == INT_MAX) {  // warp-uniform: every list is empty
-      select_nan_columns<T>(r, kd, dilation, xw, xq, yn_b, ysq_b, brow, m,
-                            d, lane, sel_w);
-      break;
-    }
-    if (lc[0] == bc) {  // the owning lane pops its head
+      if (bc == INT_MAX) {  // warp-uniform: every list is empty
+        select_nan_columns<T>(r, kd, dilation, xw, xq, yn_b, ysq_b, brow, m,
+                              d, lane, sel_w);
+        break;
+      }
+      if (lc[0] == bc) {  // the owning lane pops its head
 #pragma unroll
-      for (int p = 0; p < KDM - 1; ++p) {
-        ld[p] = ld[p + 1];
-        lc[p] = lc[p + 1];
+        for (int p = 0; p < KDM - 1; ++p) {
+          ld[p] = ld[p + 1];
+          lc[p] = lc[p + 1];
+        }
+        ld[KDM - 1] = INFINITY;
+        lc[KDM - 1] = INT_MAX;
       }
-      ld[KDM - 1] = INFINITY;
-      lc[KDM - 1] = INT_MAX;
+      if (lane == 0 && r % dilation == 0) sel_w[r / dilation] = bc;
     }
-    if (lane == 0 && r % dilation == 0) sel_w[r / dilation] = bc;
+  } else {
+    for (int s = lane; s < k; s += 32) sel_w[s] = kFixedColumn + s;
   }
   __syncwarp();
 
-  // Gather the raw target rows and take max(y_j - x) in fp32.
-  const T* x_row = x + qrow * d;
+  // Gather the raw target rows and take max(y_j - x) in fp32; a grouped
+  // call's targets are rows of g*D too.
   const T* y_b = y + (long long)bg * m * d;
-  for (int c = lane; c < d; c += 32) {
-    const float xv = to_f32(x_row[c]);
-    float best = -INFINITY;
-    for (int s = 0; s < k; ++s) {
-      const float v = to_f32(y_b[(long long)sel_w[s] * d + c]) - xv;
-      best = (v > best || v != v) ? v : best;  // NaN propagates, as amax
-    }
-    mr[qrow * d + c] = from_f32<T>(best);
+  int ystride = d;
+  if constexpr (kGrouped) {
+    const int b = bg / groups;
+    const int gi = bg - b * groups;
+    y_b = y + (long long)b * m * groups * d + (long long)gi * d;
+    ystride = groups * d;
   }
-  for (int s = lane; s < k; s += 32) idx[qrow * k + s] = sel_w[s];
+  const T* x_row = x + orow * d;
+  float part = 0.f;  // the phases: this lane's channels of sum_D(acc)
+  if constexpr (kGather) {
+    for (int c = lane; c < d; c += 32) {
+      const float xv = to_f32(x_row[c]);
+      float best = -INFINITY;
+      for (int s = 0; s < k; ++s) {
+        const float v = to_f32(y_b[(long long)sel_w[s] * ystride + c]) - xv;
+        best = (v > best || v != v) ? v : best;  // NaN propagates, as amax
+      }
+      if constexpr (kPhase == kForward) {
+        mr[orow * d + c] = from_f32<T>(best);
+      } else {
+        part += best;
+      }
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) part += acc_init;
+  }
+  if constexpr (kPhase == kForward) {
+    for (int s = lane; s < k; s += 32) idx[orow * k + s] = sel_w[s];
+  } else {
+    int isum = 0;
+    for (int s = 0; s < k; ++s) isum += sel_w[s];
+    float res = warp_sum(part) + (float)isum;
+    if constexpr (kSumDist) res += warp_sum(dsum) * dist_weight;
+    if (lane == 0) out[qrow] = res;
+  }
 }
 
 size_t main_smem_bytes(int d, int kdm) {
@@ -247,59 +398,122 @@ size_t main_smem_bytes(int d, int kdm) {
          sizeof(int) * (size_t)kWarps * kdm;
 }
 
-template <typename T, int KDM>
+template <typename T, int KDM, bool kGrouped, int kPhase = kForward>
 cudaError_t launch_main(const void* x, const void* y, const void* xn,
                         const void* yn, const void* xsq, const void* ysq,
                         const void* bias, int bias_mode, void* idx, void* mr,
                         int bg, int n, int m, int d, int k, int dilation,
-                        cudaStream_t stream) {
+                        int groups, cudaStream_t stream,
+                        float acc_init = 0.f, float dist_weight = 0.f,
+                        void* out = nullptr) {
   const size_t smem = main_smem_bytes(d, KDM);
   if (smem > 48 * 1024) {  // above the default dynamic limit: opt in
     cudaError_t err = cudaFuncSetAttribute(
-        knn_mr_kernel<T, KDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        knn_mr_kernel<T, KDM, kGrouped, kPhase>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(bg, (n + kWarps - 1) / kWarps);
-  knn_mr_kernel<T, KDM><<<grid, kThreads, smem, stream>>>(
+  knn_mr_kernel<T, KDM, kGrouped, kPhase><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(xn), static_cast<const T*>(yn),
       static_cast<const float*>(xsq), static_cast<const float*>(ysq),
       static_cast<const float*>(bias), bias_mode, static_cast<int*>(idx),
-      static_cast<T*>(mr), n, m, d, k, dilation);
+      static_cast<T*>(mr), n, m, d, k, dilation, groups, acc_init,
+      dist_weight, static_cast<float*>(out));
   return cudaGetLastError();
 }
 
-template <typename T>
+// bg is the folded batch B * groups; d the channels of one group.
+template <typename T, bool kGrouped>
 cudaError_t forward(const void* x, const void* y, const void* bias,
                     void* xn, void* yn, void* xsq, void* ysq, void* idx,
                     void* mr, int bg, int n, int m, int d, int k,
-                    int dilation, int bias_mode, int y_is_x,
+                    int dilation, int bias_mode, int y_is_x, int groups,
                     cudaStream_t stream) {
   const long long rows_x = (long long)bg * n;
   const long long rows_y = y_is_x ? 0 : (long long)bg * m;
   const long long blocks = (rows_x + rows_y + kWarps - 1) / kWarps;
-  l2norm_rows<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  l2norm_rows<T, kGrouped><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(xn),
       static_cast<float*>(xsq), rows_x, static_cast<const T*>(y),
-      static_cast<T*>(yn), static_cast<float*>(ysq), rows_y, d);
+      static_cast<T*>(yn), static_cast<float*>(ysq), rows_y, d, n, m,
+      groups);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const void* ynp = y_is_x ? xn : yn;
   const void* ysqp = y_is_x ? xsq : ysq;
   switch (kdm_bucket(k * dilation)) {
     case 8:
-      return launch_main<T, 8>(x, y, xn, ynp, xsq, ysqp, bias, bias_mode,
-                               idx, mr, bg, n, m, d, k, dilation, stream);
+      return launch_main<T, 8, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+                                         bias_mode, idx, mr, bg, n, m, d, k,
+                                         dilation, groups, stream);
     case 16:
-      return launch_main<T, 16>(x, y, xn, ynp, xsq, ysqp, bias, bias_mode,
-                                idx, mr, bg, n, m, d, k, dilation, stream);
+      return launch_main<T, 16, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+                                          bias_mode, idx, mr, bg, n, m, d, k,
+                                          dilation, groups, stream);
     case 32:
-      return launch_main<T, 32>(x, y, xn, ynp, xsq, ysqp, bias, bias_mode,
-                                idx, mr, bg, n, m, d, k, dilation, stream);
+      return launch_main<T, 32, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+                                          bias_mode, idx, mr, bg, n, m, d, k,
+                                          dilation, groups, stream);
     case 64:
-      return launch_main<T, 64>(x, y, xn, ynp, xsq, ysqp, bias, bias_mode,
-                                idx, mr, bg, n, m, d, k, dilation, stream);
+      return launch_main<T, 64, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+                                          bias_mode, idx, mr, bg, n, m, d, k,
+                                          dilation, groups, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int KDM>
+cudaError_t launch_phase(int phase, const void* x, const void* y,
+                         const void* xn, const void* yn, const void* xsq,
+                         const void* ysq, void* out, int bg, int n, int m,
+                         int d, int k, cudaStream_t stream) {
+  const float acc_init = -INFINITY;  // acc's initial value, as on the TPU
+  const float dist_weight = 0.f;     // gfix: keeps the scan, adds nothing
+  switch (phase) {
+    case kDist:
+      return launch_main<T, KDM, false, kDist>(
+          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
+          k, 1, 1, stream, acc_init, dist_weight, out);
+    case kSel:
+      return launch_main<T, KDM, false, kSel>(
+          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
+          k, 1, 1, stream, acc_init, dist_weight, out);
+    case kGfix:
+      return launch_main<T, KDM, false, kGfix>(
+          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
+          k, 1, 1, stream, acc_init, dist_weight, out);
+    case kSelg:
+      return launch_main<T, KDM, false, kSelg>(
+          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
+          k, 1, 1, stream, acc_init, dist_weight, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t run_phase(int phase, const void* x, const void* y, void* xn,
+                      void* yn, void* xsq, void* ysq, void* out, int bg,
+                      int n, int m, int d, int k, cudaStream_t stream) {
+  const long long rows_x = (long long)bg * n;
+  const long long rows_y = (long long)bg * m;
+  const long long blocks = (rows_x + rows_y + kWarps - 1) / kWarps;
+  l2norm_rows<T, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(xn),
+      static_cast<float*>(xsq), rows_x, static_cast<const T*>(y),
+      static_cast<T*>(yn), static_cast<float*>(ysq), rows_y, d, n, m, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  switch (kdm_bucket(k)) {
+    case 8:
+      return launch_phase<T, 8>(phase, x, y, xn, yn, xsq, ysq, out, bg, n, m,
+                                d, k, stream);
+    case 16:
+      return launch_phase<T, 16>(phase, x, y, xn, yn, xsq, ysq, out, bg, n,
+                                 m, d, k, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -320,10 +534,54 @@ int knn_mr_forward(const void* x, const void* y, const void* bias, void* xn,
                    int bias_mode, int is_bf16, int y_is_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return forward<__nv_bfloat16>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg,
-                                  n, m, d, k, dilation, bias_mode, y_is_x, s);
-  return forward<float>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n, m, d,
-                        k, dilation, bias_mode, y_is_x, s);
+    return forward<__nv_bfloat16, false>(x, y, bias, xn, yn, xsq, ysq, idx,
+                                         mr, bg, n, m, d, k, dilation,
+                                         bias_mode, y_is_x, 1, s);
+  return forward<float, false>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n,
+                               m, d, k, dilation, bias_mode, y_is_x, 1, s);
+}
+
+// The fold-aware forward: x (b, n, groups*d), y (b, m, groups*d) unfolded,
+// contiguous; group gi is channels [gi*d, (gi+1)*d) of every row. bias
+// none (bias_mode 0) or shared (n, m) (bias_mode 1). xn/xsq and yn/ysq are
+// folded scratch, (b*groups, n, d)/(b*groups, n) and (b*groups, m, d)/
+// (b*groups, m); outputs idx (b, n, groups, k) int32 and mr
+// (b, n, groups*d) of the input type: bitwise the folded forward's on the
+// folded rows, unfolded. Returns a cudaError_t code.
+int knn_mr_forward_grouped(const void* x, const void* y, const void* bias,
+                           void* xn, void* yn, void* xsq, void* ysq,
+                           void* idx, void* mr, int b, int groups, int n,
+                           int m, int d, int k, int dilation, int bias_mode,
+                           int is_bf16, int y_is_x, void* stream) {
+  if (bias_mode == 2 || groups < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bg = b * groups;
+  if (is_bf16)
+    return forward<__nv_bfloat16, true>(x, y, bias, xn, yn, xsq, ysq, idx,
+                                        mr, bg, n, m, d, k, dilation,
+                                        bias_mode, y_is_x, groups, s);
+  return forward<float, true>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n,
+                              m, d, k, dilation, bias_mode, y_is_x, groups,
+                              s);
+}
+
+// The phase tool's pieces of the forward. phase: 0 dist, 1 sel, 2 gfix,
+// 3 selg. x (bg, n, d), y (bg, m, d) raw rows of one type (is_bf16:
+// bfloat16, else float32), contiguous; xn/xsq (bg, n, d)/(bg, n) and
+// yn/ysq (bg, m, d)/(bg, m) scratch; out (bg, n) fp32 checksums. Requires
+// 1 <= k <= min(m, 16), and m >= 7 + k for gfix. Returns a cudaError_t
+// code.
+int knn_phase(int phase, const void* x, const void* y, void* xn, void* yn,
+              void* xsq, void* ysq, void* out, int bg, int n, int m, int d,
+              int k, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (phase + 1 == kGfix && m < kFixedColumn + k)
+    return cudaErrorInvalidValue;
+  if (is_bf16)
+    return run_phase<__nv_bfloat16>(phase + 1, x, y, xn, yn, xsq, ysq, out,
+                                    bg, n, m, d, k, s);
+  return run_phase<float>(phase + 1, x, y, xn, yn, xsq, ysq, out, bg, n, m,
+                          d, k, s);
 }
 
 // Dynamic shared memory of one main-kernel block at row width d and k*d

@@ -8,10 +8,16 @@ C/g-dim features. After the aggregate the groups are unfolded and, for 'mr'
 and 'gat', the centre and aggregate features are channel-interleaved before
 the grouped 1x1 conv.
 
-Two routes, chosen as the JAX package chooses them:
+Three routes, chosen as the JAX package chooses them:
   * the 'mr' aggregator outside stochastic training goes through
     ``knn_mr_fused``: the fused CUDA kernel for CUDA tensors, its plain
     version for CPU tensors;
+  * with ``GKGNET_GROUPED=1`` in the environment and channel groups
+    (``num_group > 1``), that 'mr' route goes through
+    ``knn_mr_fused_grouped`` on the unfolded nodes instead: the same
+    numbers without the fold and unfold copies around the call (the
+    group-strided CUDA kernel for CUDA tensors); the edge indices still
+    come back in the folded ``(B*g, N, k)`` layout;
   * every other aggregator ('edge', 'sage', 'gin', 'gat'), and 'mr' with
     stochastic dilation in training (epsilon > 0), builds the graph with
     ``knn_graph`` (the knn_topk CUDA kernel for CUDA tensors), subsamples
@@ -21,17 +27,27 @@ Two routes, chosen as the JAX package chooses them:
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
 from gkgnet_tpu_torch.nn.layers import (FFN, BasicConv, ConvNorm, DropPath,
                                         PointwiseConv, avg_pool_nhwc)
-from gkgnet_tpu_torch.ops.aggregate import (gather_nodes, interleave_channels,
-                                            max_relative, sum_neighbors)
+from gkgnet_tpu_torch.ops.aggregate import (fold_groups, gather_nodes,
+                                            interleave_channels, max_relative,
+                                            sum_neighbors, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import dilate_edges, knn_graph
-from gkgnet_tpu_torch.ops.knn_mr import knn_mr_fused
+from gkgnet_tpu_torch.ops.knn_mr import knn_mr_fused, knn_mr_fused_grouped
 
 CONVS = ("mr", "edge", "sage", "gin", "gat")
+
+
+def _grouped_enabled() -> bool:
+    """The fold-aware grouped route is opt-in (``GKGNET_GROUPED=1``), read
+    at every call, as the JAX package reads it; the default is the fold +
+    folded-kernel route."""
+    return os.environ.get("GKGNET_GROUPED", "0") == "1"
 
 
 def _require_ported(graph_builder: str) -> None:
@@ -39,25 +55,6 @@ def _require_ported(graph_builder: str) -> None:
         raise NotImplementedError(
             f"graph_builder='{graph_builder}' (perturbed top-k) comes with "
             f"the off-path model features slice")
-
-
-def fold_groups(x: torch.Tensor, g: int) -> torch.Tensor:
-    """(B, N, C) -> (B*g, N, C/g), contiguous; group i holds channels
-    [i*C/g, (i+1)*C/g)."""
-    b, n, c = x.shape
-    # at batch 1 the reshape can return a strided view; the kernel takes
-    # contiguous rows only
-    return x.reshape(b, n, g, c // g).permute(0, 2, 1, 3).reshape(
-        b * g, n, c // g).contiguous()
-
-
-def unfold_groups(x: torch.Tensor, g: int) -> torch.Tensor:
-    """(B*g, N, D) -> (B, N, g*D), the inverse of ``fold_groups``."""
-    if g == 1:
-        return x
-    bg, n, d = x.shape
-    return x.reshape(bg // g, g, n, d).permute(0, 2, 1, 3).reshape(
-        bg // g, n, g * d)
 
 
 class GraphAggregate(nn.Module):
@@ -105,10 +102,12 @@ class GraphAggregate(nn.Module):
                             act, norm, use_bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor | None,
-                y: torch.Tensor | None,
-                maxrel: torch.Tensor | None = None) -> torch.Tensor:
+                y: torch.Tensor | None, maxrel: torch.Tensor | None = None,
+                unfolded: bool = False) -> torch.Tensor:
+        """``unfolded``: x and maxrel arrive unfolded ``(B, N, C)`` (the
+        fold-aware route; 'mr' only)."""
         if self.conv == "mr":
-            g = self.num_group
+            g = 1 if unfolded else self.num_group
             if maxrel is None:
                 maxrel = max_relative(x, idx, y)
             return self.nn(interleave_channels(unfold_groups(x, g),
@@ -130,14 +129,38 @@ class GraphAggregate(nn.Module):
         return self.nn(interleave_channels(x, agg))
 
 
+def _fused_route(conv: nn.Module) -> bool:
+    """Whether a graph conv takes the fused 'mr' route (the kernel builds
+    the graph and the aggregate)."""
+    stochastic_now = conv.stochastic and conv.training and conv.epsilon > 0.0
+    return conv.conv == "mr" and not stochastic_now
+
+
+def _grouped_route(conv: nn.Module) -> bool:
+    """Whether a graph conv takes the fold-aware fused route."""
+    return _fused_route(conv) and conv.num_group > 1 and _grouped_enabled()
+
+
+def _run_grouped(conv: nn.Module, x: torch.Tensor, y: torch.Tensor,
+                 bias: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fold-aware route on unfolded nodes x ``(B, N, C)`` and targets y
+    ``(B, M, C)``: the mixed aggregate ``(B, N, out_channels)`` and the
+    edge indices in the folded ``(B*g, N, k)`` layout."""
+    g = conv.num_group
+    idx, maxrel = knn_mr_fused_grouped(x, y, bias, conv.k, conv.dilation, g)
+    out = conv.gconv(x, None, None, maxrel, unfolded=True)
+    b, n = x.shape[:2]
+    return out, idx.permute(0, 2, 1, 3).reshape(b * g, n, conv.k)
+
+
 def _build_edges(conv: nn.Module, xn: torch.Tensor, y: torch.Tensor | None,
                  bias: torch.Tensor | None,
                  generator: torch.Generator | None
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The graph of one graph conv and, on the fused route, its 'mr'
     aggregate: ``(idx (BG, N, k), maxrel or None)``."""
-    stochastic_now = conv.stochastic and conv.training and conv.epsilon > 0.0
-    if conv.conv == "mr" and not stochastic_now:
+    if _fused_route(conv):
         return knn_mr_fused(xn, xn if y is None else y, bias, conv.k,
                             conv.dilation)
     idx = knn_graph(xn, y, k=conv.k * conv.dilation, bias=bias)
@@ -172,10 +195,18 @@ class SpatialGraphConv(nn.Module):
         """``generator`` feeds the stochastic dilation's draws."""
         b, h, w, c = x.shape
         g = self.num_group
-        xn = fold_groups(x.reshape(b, h * w, c), g)
-        y = None
+        x_nodes = x.reshape(b, h * w, c)
+        y_nodes = None
         if self.r > 1:
-            y = fold_groups(avg_pool_nhwc(x, self.r).reshape(b, -1, c), g)
+            y_nodes = avg_pool_nhwc(x, self.r).reshape(b, -1, c)
+        if _grouped_route(self):
+            x_nodes = x_nodes.contiguous()  # the kernel takes contiguous rows
+            out, idx = _run_grouped(
+                self, x_nodes,
+                x_nodes if y_nodes is None else y_nodes.contiguous(), rel_pos)
+            return out.reshape(b, h, w, self.out_channels), idx
+        xn = fold_groups(x_nodes, g)
+        y = None if y_nodes is None else fold_groups(y_nodes, g)
         idx, maxrel = _build_edges(self, xn, y, rel_pos, generator)
         out = self.gconv(xn, idx, y, maxrel)
         return out.reshape(b, h, w, self.out_channels), idx
@@ -201,6 +232,9 @@ class LabelGraphConv(nn.Module):
     def forward(self, labels: torch.Tensor, feats: torch.Tensor,
                 generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        if _grouped_route(self):
+            return _run_grouped(self, labels.contiguous(),
+                                feats.contiguous(), None)
         g = self.num_group
         xn = fold_groups(labels, g)                   # (B*g, L, C/g)
         yn = fold_groups(feats, g)                    # (B*g, N, C/g)

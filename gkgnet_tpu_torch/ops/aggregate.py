@@ -9,6 +9,8 @@
   * ``interleave_channels``: ``[x_0, m_0, x_1, m_1, ...]``, the channel
     order of the reference's concat, which the grouped 1x1 conv after it
     depends on.
+  * ``fold_groups`` / ``unfold_groups``: ``(B, N, g*D) <-> (B*g, N, D)``,
+    the channel groups folded into the batch axis.
 """
 
 from __future__ import annotations
@@ -57,3 +59,22 @@ def max_neighbors(x: torch.Tensor, idx: torch.Tensor,
                   y: torch.Tensor | None = None) -> torch.Tensor:
     """``max_k y[idx]`` per query node (y = x when ``None``): ``(B, N, C)``."""
     return torch.amax(gather_nodes(x if y is None else y, idx), dim=2)
+
+
+def fold_groups(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, N, C) -> (B*g, N, C/g), contiguous; group i holds channels
+    [i*C/g, (i+1)*C/g)."""
+    b, n, c = x.shape
+    # at batch 1 the reshape can return a strided view; the kernel takes
+    # contiguous rows only
+    return x.reshape(b, n, g, c // g).permute(0, 2, 1, 3).reshape(
+        b * g, n, c // g).contiguous()
+
+
+def unfold_groups(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B*g, N, D) -> (B, N, g*D), the inverse of ``fold_groups``."""
+    if g == 1:
+        return x
+    bg, n, d = x.shape
+    return x.reshape(bg // g, g, n, d).permute(0, 2, 1, 3).reshape(
+        bg // g, n, g * d)

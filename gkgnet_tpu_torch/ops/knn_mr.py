@@ -19,12 +19,21 @@ channel's gradient equally among the tied maxima (``g / cnt``, rounded to
 the input type) and scatter-adds it into gy in fp32, rounded once; gx is
 ``-g``. When y is x, autograd sums the two into the one input.
 
+``knn_mr_fused_grouped(x, y, bias, k, dilation, groups) -> (idx, mr)`` is
+the fold-aware variant, the port of ``knn_mr.py::knn_mr_fused_grouped``:
+x ``(B, N, g*D)`` and y ``(B, M, g*D)`` arrive unfolded, group gi is
+channels ``[gi*D, (gi+1)*D)``, bias is None or ``(N, M)``; idx comes back
+``(B, N, g, k)`` and mr ``(B, N, g*D)``, bitwise
+``unfold(knn_mr_fused(fold x, fold y))``. Its backward folds and runs the
+folded backward, as the JAX package's ``_bwd_grouped`` does.
+
 On a CUDA tensor the wrappers launch the hand-written kernels in
-``csrc/knn_mr.cu`` (forward) and ``csrc/knn_mr_bwd.cu`` (backward), and
-raise if they cannot; on a CPU tensor they run ``knn_mr_reference`` and
+``csrc/knn_mr.cu`` (forward, folded and grouped) and ``csrc/knn_mr_bwd.cu``
+(backward), and raise if they cannot; on a CPU tensor they run
+``knn_mr_reference``, ``knn_mr_grouped_reference`` and
 ``knn_mr_backward_reference``, the plain PyTorch versions of the same
-functions. ``launches`` and ``backward_launches`` count the kernels'
-launches.
+functions. ``launches``, ``grouped_launches`` and ``backward_launches``
+count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -34,12 +43,14 @@ import ctypes
 import torch
 
 from gkgnet_tpu_torch.ops import _build
-from gkgnet_tpu_torch.ops.aggregate import gather_nodes, max_relative
+from gkgnet_tpu_torch.ops.aggregate import (fold_groups, gather_nodes,
+                                            max_relative, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (dilate_edges, knn_topk_reference,
                                       l2_normalize)
 
 # Kernel launches since the last reset; each wrapper adds one per launch.
 launches = 0
+grouped_launches = 0
 backward_launches = 0
 
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
@@ -52,6 +63,9 @@ def _lib() -> ctypes.CDLL:
         lib.knn_mr_forward.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.knn_mr_forward.restype = ctypes.c_int
+        lib.knn_mr_forward_grouped.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib.knn_mr_forward_grouped.restype = ctypes.c_int
         lib.knn_mr_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_error_string.restype = ctypes.c_char_p
         lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -102,13 +116,10 @@ def knn_mr_reference(x: torch.Tensor, y: torch.Tensor,
     return idx, max_relative(x, idx, y)
 
 
-def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
-           k: int, dilation: int = 1):
-    """Launch the CUDA kernel. Returns ``(idx, mr, xn, yn)``, where xn and
-    yn are the normalized rows the kernel computed its distances from (yn
-    is xn when y is x)."""
-    global launches
-    _check(x, y, bias, k, dilation)
+def _check_launch(x: torch.Tensor, y: torch.Tensor,
+                  bias: torch.Tensor | None, kd: int) -> bool:
+    """The kernel's own limits on inputs that passed ``_check``; returns
+    whether y is x."""
     tensors = [x, y] + ([bias] if bias is not None else [])
     for name, t in zip(("x", "y", "bias"), tensors):
         if t.device.type != "cuda" or t.device != x.device:
@@ -116,22 +127,49 @@ def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    bg, n, d = x.shape
-    m = y.shape[1]
-    kd = k * dilation
     if kd > MAX_KD:
         raise ValueError(f"k * dilation = {kd} exceeds the kernel's "
                          f"{MAX_KD}")
-    if (n + 7) // 8 > 65535:  # the grid's y extent: 8 query rows a block
-        raise ValueError(f"N = {n} query rows exceed the kernel's grid")
-    y_is_x = y.data_ptr() == x.data_ptr() and y.shape == x.shape
+    if (x.shape[1] + 7) // 8 > 65535:  # the grid's y extent: 8 rows a block
+        raise ValueError(f"N = {x.shape[1]} query rows exceed the kernel's "
+                         f"grid")
+    return y.data_ptr() == x.data_ptr() and y.shape == x.shape
+
+
+def _scratch(x: torch.Tensor, y: torch.Tensor, bg: int, d: int,
+             y_is_x: bool):
+    """The normalized rows and their squares, folded: ``(xn, xsq, yn,
+    ysq)``, with yn and ysq xn's and xsq's when y is x."""
+    n, m = x.shape[1], y.shape[1]
+    xn = torch.empty((bg, n, d), dtype=x.dtype, device=x.device)
+    xsq = torch.empty((bg, n), dtype=torch.float32, device=x.device)
+    if y_is_x:
+        return xn, xsq, xn, xsq
+    yn = torch.empty((bg, m, d), dtype=y.dtype, device=x.device)
+    ysq = torch.empty((bg, m), dtype=torch.float32, device=x.device)
+    return xn, xsq, yn, ysq
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.knn_mr_error_string(err).decode()} ({err})")
+
+
+def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
+           k: int, dilation: int = 1):
+    """Launch the CUDA kernel. Returns ``(idx, mr, xn, yn)``, where xn and
+    yn are the normalized rows the kernel computed its distances from (yn
+    is xn when y is x)."""
+    global launches
+    _check(x, y, bias, k, dilation)
+    y_is_x = _check_launch(x, y, bias, k * dilation)
+    bg, n, d = x.shape
+    m = y.shape[1]
     lib = _lib()
     idx = torch.empty((bg, n, k), dtype=torch.int32, device=x.device)
     mr = torch.empty_like(x)
-    xn = torch.empty_like(x)
-    xsq = torch.empty((bg, n), dtype=torch.float32, device=x.device)
-    yn, ysq = (xn, xsq) if y_is_x else (torch.empty_like(y), torch.empty(
-        (bg, m), dtype=torch.float32, device=x.device))
+    xn, xsq, yn, ysq = _scratch(x, y, bg, d, y_is_x)
     bias_mode = 0 if bias is None else (1 if bias.dim() == 2 else 2)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -141,10 +179,75 @@ def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
             xn.data_ptr(), yn.data_ptr(), xsq.data_ptr(), ysq.data_ptr(),
             idx.data_ptr(), mr.data_ptr(), bg, n, m, d, k, dilation,
             bias_mode, int(x.dtype == torch.bfloat16), int(y_is_x), stream)
-    if err != 0:
-        raise RuntimeError(f"knn_mr kernel launch failed: "
-                           f"{lib.knn_mr_error_string(err).decode()} ({err})")
+    _raise_on(err, lib, "knn_mr kernel")
     launches += 1
+    return idx, mr, xn, yn
+
+
+def _check_grouped(x: torch.Tensor, y: torch.Tensor,
+                   bias: torch.Tensor | None, k: int, dilation: int,
+                   groups: int) -> None:
+    if x.dim() != 3 or y.dim() != 3:
+        raise ValueError(f"x and y must be (B, N, g*D) / (B, M, g*D), got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    b, n, c = x.shape
+    if y.shape[0] != b or y.shape[2] != c:
+        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} differ "
+                         f"in batch or channels")
+    if groups < 1 or c % groups != 0:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    if bias is not None and bias.dim() != 2:
+        raise ValueError(f"the grouped route takes a shared (N, M) bias "
+                         f"only, got {tuple(bias.shape)}")
+    # the folded call's checks, on shapes only
+    _check(torch.empty((b * groups, n, c // groups), dtype=x.dtype,
+                       device="meta"),
+           torch.empty((b * groups, y.shape[1], c // groups), dtype=y.dtype,
+                       device="meta"), bias, k, dilation)
+
+
+def knn_mr_grouped_reference(x: torch.Tensor, y: torch.Tensor,
+                             bias: torch.Tensor | None, k: int,
+                             dilation: int = 1, groups: int = 2
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the grouped forward: fold, ``knn_mr_reference``,
+    unfold. Returns idx ``(B, N, g, k)`` and mr ``(B, N, g*D)``."""
+    _check_grouped(x, y, bias, k, dilation, groups)
+    idx, mr = knn_mr_reference(fold_groups(x, groups),
+                               fold_groups(y, groups), bias, k, dilation)
+    b, n = x.shape[:2]
+    return (idx.reshape(b, groups, n, k).permute(0, 2, 1, 3).contiguous(),
+            unfold_groups(mr, groups))
+
+
+def launch_grouped(x: torch.Tensor, y: torch.Tensor,
+                   bias: torch.Tensor | None, k: int, dilation: int = 1,
+                   groups: int = 2):
+    """Launch the group-strided CUDA kernel on the unfolded rows. Returns
+    ``(idx (B, N, g, k), mr (B, N, g*D), xn, yn)``, where xn and yn are the
+    folded normalized rows ``(B*g, N, D)`` / ``(B*g, M, D)`` the kernel
+    computed its distances from (yn is xn when y is x)."""
+    global grouped_launches
+    _check_grouped(x, y, bias, k, dilation, groups)
+    y_is_x = _check_launch(x, y, bias, k * dilation)
+    b, n, c = x.shape
+    m = y.shape[1]
+    d = c // groups
+    lib = _lib()
+    idx = torch.empty((b, n, groups, k), dtype=torch.int32, device=x.device)
+    mr = torch.empty_like(x)
+    xn, xsq, yn, ysq = _scratch(x, y, b * groups, d, y_is_x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.knn_mr_forward_grouped(
+            x.data_ptr(), y.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            xn.data_ptr(), yn.data_ptr(), xsq.data_ptr(), ysq.data_ptr(),
+            idx.data_ptr(), mr.data_ptr(), b, groups, n, m, d, k, dilation,
+            0 if bias is None else 1, int(x.dtype == torch.bfloat16),
+            int(y_is_x), stream)
+    _raise_on(err, lib, "knn_mr grouped kernel")
+    grouped_launches += 1
     return idx, mr, xn, yn
 
 
@@ -292,6 +395,51 @@ def knn_mr_fused(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
     differentiable in x and y. Launches the CUDA kernels for CUDA tensors
     and runs the plain versions for CPU tensors."""
     return _KnnMr.apply(x, y, bias, k, dilation)
+
+
+class _KnnMrGrouped(torch.autograd.Function):
+    """``knn_mr_fused_grouped`` with its backward, ``_bwd_grouped``'s: fold
+    x, y and the gradient, run the folded backward (the kernel for CUDA
+    tensors, the plain version for CPU tensors), unfold gx and gy."""
+
+    @staticmethod
+    def forward(ctx, x, y, bias, k, dilation, groups):
+        if x.device.type == "cpu":
+            idx, mr = knn_mr_grouped_reference(x, y, bias, k, dilation,
+                                               groups)
+        else:
+            idx, mr, _, _ = launch_grouped(x, y, bias, k, dilation, groups)
+        ctx.save_for_backward(x, y, idx)
+        ctx.groups = groups
+        ctx.mark_non_differentiable(idx)
+        return idx, mr
+
+    @staticmethod
+    def backward(ctx, _, g):
+        x, y, idx = ctx.saved_tensors
+        groups = ctx.groups
+        b, n, _, k = idx.shape
+        xf, yf = fold_groups(x, groups), fold_groups(y, groups)
+        gf = fold_groups(g, groups)
+        idxf = idx.permute(0, 2, 1, 3).reshape(b * groups, n, k)
+        if x.device.type == "cpu":
+            gx, gy = knn_mr_backward_reference(xf, yf, idxf, gf)
+        else:
+            gx, gy, _ = launch_backward(xf, yf, idxf.contiguous(), gf)
+        return (unfold_groups(gx, groups), unfold_groups(gy, groups), None,
+                None, None, None)
+
+
+def knn_mr_fused_grouped(x: torch.Tensor, y: torch.Tensor,
+                         bias: torch.Tensor | None, k: int,
+                         dilation: int = 1, groups: int = 2
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fold-aware fused kNN graph + max-relative aggregate on unfolded
+    ``(B, N, g*D)`` / ``(B, M, g*D)`` rows (see the module docstring),
+    differentiable in x and y: idx ``(B, N, g, k)``, mr ``(B, N, g*D)``.
+    Launches the CUDA kernels for CUDA tensors and runs the plain versions
+    for CPU tensors."""
+    return _KnnMrGrouped.apply(x, y, bias, k, dilation, groups)
 
 
 def ordering_gaps(xn: torch.Tensor, yn: torch.Tensor,

@@ -17,17 +17,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import check_topk, tie_fixture, topk_fixture  # noqa: E402
+from chip_smoke import (check_topk, folded_route, tie_fixture,  # noqa: E402
+                        topk_fixture)
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
                                            make_train_step)
 from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier, init_parameters  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.ops import knn_mr, knn_topk  # noqa: E402
-from gkgnet_tpu_torch.ops.aggregate import max_relative  # noqa: E402
+from gkgnet_tpu_torch.ops.aggregate import (fold_groups,  # noqa: E402
+                                            max_relative, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (knn_graph,  # noqa: E402
                                       knn_topk_reference, l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
+from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
 from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -520,3 +523,177 @@ def test_knn_graph_on_card_launches_the_kernel(cuda):
     assert knn_topk.launches == before + 1
     ref = knn_topk_reference(l2_normalize(x), l2_normalize(y), k=6)
     assert torch.equal(idx.cpu(), ref)
+
+
+# ------------------------------------- knn_mr_fused_grouped: the contract
+
+
+@pytest.mark.parametrize("b,g,n,m,d,k,dilation,bias_kind,dtype", [
+    (2, 2, 100, 70, 12, 4, 1, "shared", torch.float32),   # ragged N and M
+    (3, 2, 64, None, 40, 9, 2, "shared", torch.bfloat16),  # self-kNN
+    (2, 4, 37, 300, 20, 9, 3, None, torch.bfloat16),      # 4 groups
+    (1, 2, 33, 130, 7, 5, 7, None, torch.float32),        # k*d=35
+    (8, 2, 20736, 1296, 40, 9, 1, "table", torch.bfloat16),  # s@576 stage 1
+    (8, 2, 1296, None, 200, 9, 3, "table", torch.bfloat16),  # stage 3, d 3
+    (8, 2, 80, 20736, 40, 9, 1, None, torch.bfloat16),    # label 1
+    (2, 2, 324, None, 320, 9, 3, "table", torch.float32),  # stage 4, fp32
+])
+def test_grouped_kernel_matches_folded(cuda, b, g, n, m, d, k, dilation,
+                                       bias_kind, dtype):
+    """The group-strided kernel on unfolded rows against fold -> the folded
+    kernel -> unfold: idx and mr bitwise, at small shapes and at s@576's; one
+    grouped launch and no folded one; mr bitwise the plain max-relative of
+    its own idx, per group."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((b, n, g * d), generator=gen).to(dtype).to(cuda)
+    y = x if m is None else torch.randn((b, m, g * d), generator=gen).to(
+        dtype).to(cuda)
+    m = n if m is None else m
+    bias = None
+    if bias_kind == "shared":
+        bias = (torch.randn((n, m), generator=gen) * 0.1).to(cuda)
+    elif bias_kind == "table":
+        bias = torch.from_numpy(get_relative_pos_table(
+            g * d, n, int(round((n / m) ** 0.5)))).to(cuda)
+    before = (knn_mr.launches, knn_mr.grouped_launches)
+    idx, mr, xn, yn = knn_mr.launch_grouped(x, y, bias, k, dilation, g)
+    torch.cuda.synchronize()
+    assert (knn_mr.launches, knn_mr.grouped_launches) == (before[0],
+                                                          before[1] + 1)
+    assert idx.shape == (b, n, g, k) and mr.shape == x.shape
+    assert xn.shape == (b * g, n, d) and (yn is xn) == (y is x)
+    ref_idx, ref_mr = folded_route(x, y, bias, k, dilation, g)
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(mr, ref_mr)
+    idx_f = idx.permute(0, 2, 1, 3).reshape(b * g, n, k)
+    assert torch.equal(fold_groups(mr, g), max_relative(
+        fold_groups(x, g), idx_f, fold_groups(y, g)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_grouped_kernel_nan_and_tie_rows_match_folded(cuda, dtype):
+    """Exact ties (``tie_fixture`` on the unfolded rows: every group ties),
+    a NaN query row in group 0 of batch 0 and a NaN target row in group 1
+    of batch 1: the grouped kernel equals fold -> kernel -> unfold bitwise
+    (the NaN rows' columns in column order, as select_nan_columns walks the
+    folded scratch), and the plain version."""
+    gen = torch.Generator().manual_seed(12)
+    g, d, k, dilation = 2, 6, 4, 2
+    x = torch.randn((2, 40, g * d), generator=gen)
+    y = torch.randn((2, 96, g * d), generator=gen)
+    tie_fixture(x, y)
+    x[0, 3, :d] = float("nan")
+    y[1, 5, d:] = float("nan")
+    x, y = x.to(dtype).to(cuda), y.to(dtype).to(cuda)
+    idx, mr, _, _ = knn_mr.launch_grouped(x, y, None, k, dilation, g)
+    ref_idx, ref_mr = folded_route(x, y, None, k, dilation, g)
+    plain_idx, plain_mr = knn_mr.knn_mr_grouped_reference(x, y, None, k,
+                                                          dilation, g)
+    for want_idx, want_mr in ((ref_idx, ref_mr), (plain_idx, plain_mr)):
+        assert torch.equal(idx, want_idx)
+        torch.testing.assert_close(mr, want_mr, rtol=0, atol=0,
+                                   equal_nan=True)
+    assert idx[0, 3, 0].tolist() == [0, 2, 4, 6]
+    assert torch.isnan(mr[0, 3, :d]).all() and not torch.isnan(
+        mr[0, 3, d:]).any()
+    assert not (idx[1, :, 1] == 5).any()
+    assert idx[:, 0, :, :2].tolist() == [[[0, 2], [0, 2]]] * 2
+
+
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_grouped_backward_matches_folded(cuda, self_knn):
+    """Autograd through ``knn_mr_fused_grouped`` on the card against autograd
+    through fold -> ``knn_mr_fused`` -> unfold on the same rows (bf16, with
+    exact ties): the gradients bitwise (the same folded backward kernel on
+    the same folded inputs; with y = x the two parts sum into the one
+    input in the same order); one grouped forward launch and one backward
+    launch, no folded forward launch."""
+    gen = torch.Generator().manual_seed(5)
+    g, d, k, dilation = 2, 40, 9, 2
+    x = torch.randn((4, 300, g * d), generator=gen)
+    y = x if self_knn else torch.randn((4, 200, g * d), generator=gen)
+    tie_fixture(x, y)
+    w = torch.randn((4, 300, g * d), generator=gen).to(torch.bfloat16).cuda()
+    grads, counts = [], []
+    for grouped in (True, False):
+        xd = x.to(torch.bfloat16).cuda().requires_grad_()
+        yd = xd if self_knn else y.to(torch.bfloat16).cuda().requires_grad_()
+        before = (knn_mr.launches, knn_mr.grouped_launches,
+                  knn_mr.backward_launches)
+        if grouped:
+            _, mr = knn_mr.knn_mr_fused_grouped(xd, yd, None, k, dilation, g)
+        else:
+            xf = fold_groups(xd, g)
+            _, mrf = knn_mr.knn_mr_fused(
+                xf, xf if self_knn else fold_groups(yd, g), None, k,
+                dilation)
+            mr = unfold_groups(mrf, g)
+        (mr * w).float().sum().backward()
+        torch.cuda.synchronize()
+        counts.append(tuple(a - c for a, c in zip(
+            (knn_mr.launches, knn_mr.grouped_launches,
+             knn_mr.backward_launches), before)))
+        grads.append((xd.grad, None if self_knn else yd.grad))
+    assert counts == [(0, 1, 1), (1, 0, 1)]
+    assert torch.equal(grads[0][0], grads[1][0])
+    if not self_knn:
+        assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_grouped_route_in_the_model_matches_default(cuda, monkeypatch):
+    """The small model (arch t, size 128, k=2, fp32) with GKGNET_GROUPED=1:
+    16 grouped launches and no folded one per forward, the logits bitwise
+    the default route's (16 folded launches)."""
+    model = GKGNetClassifier(arch="t", k=2, k_label_gcn=2, n_classes=6,
+                             size=128)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    x = torch.randn((2, 128, 128, 3),
+                    generator=torch.Generator().manual_seed(1)).to(cuda)
+    logits, counts = [], []
+    for flag in ("0", "1"):
+        monkeypatch.setenv("GKGNET_GROUPED", flag)
+        before = (knn_mr.launches, knn_mr.grouped_launches)
+        with torch.no_grad():
+            logits.append(model(x)[0])
+        torch.cuda.synchronize()
+        counts.append((knn_mr.launches - before[0],
+                       knn_mr.grouped_launches - before[1]))
+    assert counts == [(16, 0), (0, 16)]
+    assert torch.equal(logits[0], logits[1])
+
+
+# --------------------------------------- exp_kernel_phases: the phase kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("phase", phases.PHASES)
+def test_phase_kernel_matches_plain(cuda, phase, dtype):
+    """Each phase kernel against its plain version at a small geometry
+    (ragged N, M over two tiles): dist within twice ``dist_bound``, sel
+    -inf, gfix within twice ``gather_bound``; selg within ``gather_bound``
+    of the fp64 checksum of ``knn_mr.launch``'s own idx on the same rows
+    (the same selection); one launch each."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((3, 45, 40), generator=gen).to(dtype).to(cuda)
+    y = torch.randn((3, 100, 40), generator=gen).to(dtype).to(cuda)
+    k = 9
+    before = phases.launches
+    got = phases.launch(phase, x, y, k)
+    torch.cuda.synchronize()
+    assert phases.launches == before + 1
+    assert got.shape == (3, 45, 1) and got.dtype == torch.float32
+    plain = phases.phase_reference(phase, x, y, k)
+    if phase == "sel":
+        assert (got == float("-inf")).all() and (plain == got).all()
+        return
+    if phase == "dist":
+        exact, bound = phases.dist_bound(x, y)
+    else:
+        idx = (phases.fixed_columns(x, k) if phase == "gfix"
+               else knn_mr.launch(x, y, None, k)[0])
+        exact, bound = phases.gather_bound(x, y, idx)
+    assert ((got.double() - exact).abs() <= bound).all()
+    assert ((got.double() - plain.double()).abs() <= 2 * bound).all()
