@@ -220,11 +220,12 @@ def print_ptxas_summary(compiler_log: str) -> None:
     for line in compiler_log.splitlines():
         fn = re.search(r"Compiling entry function '_Z\w*?(knn_mr_kernel|"
                        r"knn_topk_kernel|l2norm_rows|row_sq|edge_grads|"
-                       r"gather_targets)"
-                       r"I(13__nv_bfloat16|f)(?:Li(\d+)E)?(?:Lb([01])E)?"
+                       r"gather_targets|knn_mr_tc_kernel|knn_topk_tc_kernel)"
+                       r"I(13__nv_bfloat16|f)?(?:Li(\d+)E)?(?:Lb([01])E)?"
                        r"(?:Li(\d+)E)?", line)
         if fn:
-            dtype = "bf16" if fn.group(2) != "f" else "fp32"
+            # the tensor-core kernels are bf16 only: no type argument
+            dtype = "fp32" if fn.group(2) == "f" else "bf16"
             phase = int(fn.group(5) or 0)  # knn_mr_kernel's: 0 the forward
             name = f"{fn.group(1)}<{dtype}" + "".join(
                 part for part, on in (
@@ -237,8 +238,9 @@ def print_ptxas_summary(compiler_log: str) -> None:
         print(f"  ptxas {name}: {'; '.join(parts)}", flush=True)
 
 
-OUR_KERNELS = ("knn_mr_kernel", "l2norm_rows", "edge_grads", "gather_targets",
-               "knn_topk_kernel", "row_sq")
+OUR_KERNELS = ("knn_mr_kernel", "knn_mr_tc_kernel", "l2norm_rows",
+               "edge_grads", "gather_targets", "knn_topk_kernel",
+               "knn_topk_tc_kernel", "row_sq")
 
 
 def profile_device(run, unit: str, iters: int = 3) -> None:
@@ -392,7 +394,7 @@ def kernel_rows() -> list[dict]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         row = dict(name=name, dtype=dt, N=n, M=m, D=d, kd=k * dil,
-                   smem_bytes=knn_mr.shared_memory_bytes(d, k * dil),
+                   smem_bytes=knn_mr.shared_memory_bytes(d, k * dil, dtype),
                    calls_per_forward=calls, ms=ms, plain_ms=plain_ms,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -498,10 +500,27 @@ def topk_value_bounds(xn: torch.Tensor, yn: torch.Tensor,
                       bias: torch.Tensor | None, idx: torch.Tensor,
                       rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """For the flat query ``rows`` (into BG*N) and their selected columns
-    ``idx``: the fp64 distances (bias included) and the bound an fp32
-    computation of them meets, gamma(D + 3) * (x_sq + 2 sum|x_e y_e| + y_sq
-    + |bias|) with gamma(j) = j u / (1 - j u), u = 2**-24: D products
-    summed, then three more roundings. Both (rows, k) fp64."""
+    ``idx``: the fp64 distances (bias included) and the bound the kernel's
+    computation of them meets, gamma(j) * (x_sq + 2 sum|x_e y_e| + y_sq +
+    |bias|) with gamma(j) = j u / (1 - j u), u = 2**-24. Both (rows, k)
+    fp64.
+
+    fp32 rows (the CUDA-core kernel): j = D + 3, D products summed by fmaf
+    in fp32, then three more roundings.
+
+    bf16 rows (the tensor-core kernel, csrc/knn_scan.cuh): each product of
+    two bf16 values is exact in fp32, and one mma.m16n8k16 step adds 16 of
+    them to the fp32 accumulator. Taking the step as tensor cores are
+    measured to add (the 17 terms aligned to the largest exponent and cut
+    to fp32's 24 bits, summed, the sum cut to 24 bits again: truncation, no
+    extra bits, the least precise of the reported behaviours), each of the
+    16 cut terms loses less than 2u max|term| and the sum less than
+    2u |sum|, so a step is off by less than 34u sum|x_e y_e|, and the
+    ceil(D/16) steps' dot product by 34 ceil(D/16) u sum|x_e y_e|. The
+    distance doubles it (exactly), then takes the three IEEE roundings of
+    x_sq - 2 dot + y_sq (+ bias); x_sq and y_sq are fp32 sums of D exact
+    squares, off by gamma(D - 1) < 34 ceil(D/16) u of themselves. So
+    j = 34 ceil(D/16) + 3 (D = 80: 173 against the fp32 kernel's 83)."""
     bg, n, d = xn.shape
     k = idx.shape[-1]
     b_of, n_of = rows // n, rows % n
@@ -517,7 +536,8 @@ def topk_value_bounds(xn: torch.Tensor, yn: torch.Tensor,
         bsel = b.gather(1, cols)
         exact = exact + bsel
         scale = scale + bsel.abs()
-    ju = (d + 3) * 2.0 ** -24
+    j = 34 * ((d + 15) // 16) + 3 if xn.dtype == torch.bfloat16 else d + 3
+    ju = j * 2.0 ** -24
     return exact, ju / (1.0 - ju) * scale
 
 
@@ -653,7 +673,7 @@ def topk_rows() -> list[dict]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
-                   smem_bytes=knn_topk.shared_memory_bytes(d),
+                   smem_bytes=knn_topk.shared_memory_bytes(d, k, dtype),
                    calls_per_pass=1 if pass_ == "agg" else 0,
                    calls_per_stochastic_pass=1 if pass_ == "stoch" else 0,
                    ms=ms, plain_ms=plain_ms, two_call_ms=two_call_ms,
@@ -1278,10 +1298,10 @@ def phases_phase() -> dict:
                            else "bytes", max_abs_err_vs_plain=err)
         print(f"phase_row {json.dumps(dict(phase=phase, **rows[phase]))}",
               flush=True)
-    blocks = x.shape[0] * ((x.shape[1] + 7) // 8)
+    query_rows = x.shape[0] * x.shape[1]
     log("phases: " + ", ".join(
-        f"{p} {r['ms']:.3f} ms ({r['ms'] / blocks * 1e3:.4f} us per 8-row "
-        f"block)" for p, r in rows.items())
+        f"{p} {r['ms']:.3f} ms ({r['ms'] / query_rows * 1e6:.3f} ns per "
+        f"query row)" for p, r in rows.items())
         + f"; split of selg: scan {times['dist']:.3f} ms, selection "
         f"{times['sel'] - times['dist']:.3f} ms, gather "
         f"{times['gfix'] - times['dist']:.3f} ms")

@@ -9,7 +9,10 @@
 // is ported, not the blocks: the TPU's (T, M) VMEM distance scratch, its
 // argmin/foldv selectors and its one-hot MXU gather answer TPU limits. Here
 // each query row keeps its candidates in registers and the gather is a
-// direct indexed load.
+// direct indexed load. Like the TPU kernel, which multiplies bf16 rows on
+// its matrix unit in one pass with fp32 accumulation (knn_mr.py:164-180)
+// and fp32 rows at Precision.HIGHEST, the bf16 kernel takes its products
+// from the tensor cores and the fp32 one from the CUDA cores.
 //
 // knn_mr_forward_grouped replaces the fold-aware TPU kernel
 // knn_mr.py::knn_mr_fused_grouped (:1167; the same pallas_call with
@@ -20,26 +23,32 @@
 // same scan and merge on it, and gathers and writes the unfolded rows, so
 // its idx and mr are bitwise those of fold -> knn_mr_forward -> unfold and
 // the (B, N, C) <-> (B*g, N, C/g) copies around the call never exist. The
-// flag is a template parameter, so the folded instantiation compiles to
-// the code it had without it; the grouped one writes its scan's loop with
-// the loads ahead of the products (see there).
+// flag is a template parameter of both kernels, so the folded
+// instantiations compile to the code they had without it; knn_mr_kernel's
+// grouped one writes its scan's loop with the loads ahead of the products
+// (see there).
 //
-// What bounds it on this card. At the main path's largest call (stage 1,
-// BG=16, N=20736, M=1296, D=40, bf16) the bytes it must move are ~174 MB,
-// most of it the 107 MB fp32 bias (0.05 ms at 3.35 TB/s), and the distance
-// products are 34 GFLOP (0.035 ms on bf16 tensor cores). This first design
-// computes the products on the fp32 CUDA cores from shared memory, so it is
-// bound by shared-memory loads and fp32 issue, far above either bound.
-// What the design does about the bytes: the grid's fastest axis is the
-// batch-group axis, so the blocks that read the same bias rows for
-// different groups run together and the bias is served from L2; each block
-// reads the target set once for its kWarps query rows.
+// Two kernels compute it, one per input type.
 //
-// Design (one warp per query row, kWarps rows per block):
-//   1. l2norm_rows: one warp per row of x and of y: fp32 norm of the raw
-//      row, divide by max(norm, 1e-12), round to the input type (the
-//      contract of gkgnet_tpu/ops/knn.py l2_normalize), then the fp32 sum
-//      of squares of the rounded row. Written to scratch the caller owns.
+// bf16 (the model's type): knn_mr_tc_kernel, on knn_scan.cuh's tensor-core
+// scan and row-threshold selection, which its header describes: what bounds
+// it on this card (instruction issue and latency, far above the 0.23 ms per
+// forward that bytes and tensor-core operations allow) and what the design
+// does about it. After the scan each warp merges its 16 rows' lists into
+// their kept columns; then its lanes gather the raw target rows of those
+// columns, 8 channels (one 16-byte load) per lane, the warp's (row, chunk)
+// items spread over its lanes, and write max_j(y_j - x) in fp32, rounded
+// once to bf16 (max_relative8; max_relative_pair where rows are not whole
+// 16-byte chunks).
+//
+// fp32: knn_mr_kernel, the CUDA-core design, as the TPU kernel keeps fp32
+// at Precision.HIGHEST (TF32 would break the 1e-4 fp64 ordering oracle):
+// one warp per query row, kWarps rows per block.
+//   1. l2norm_rows (both types): one warp per row of x and of y: fp32 norm
+//      of the raw row, divide by max(norm, 1e-12), round to the input type
+//      (the contract of gkgnet_tpu/ops/knn.py l2_normalize), then the fp32
+//      sum of squares of the rounded row. Written to scratch the caller
+//      owns.
 //   2. knn_mr_kernel: the block walks the targets in tiles of kTile rows,
 //      staged transposed in shared memory as fp32. Each lane computes the
 //      distances of its 2 columns of the tile,
@@ -49,30 +58,38 @@
 //      rounds 0, d, 2d, ... are kept. Last, the lanes gather the raw target
 //      rows of the kept columns and write max_j(y_j - x) in fp32, rounded
 //      once to the input type.
+//   Its bound: shared-memory loads and fp32 issue (one load per fmaf), far
+//   above the bytes' and the fp32 operations' bounds. The blocks that read
+//   the same bias rows for different groups run together (the grid's
+//   fastest axis is the batch-group axis), so the bias comes from L2.
 //   The selection helpers (the register lists, their lexicographic order,
 //   select_nan_columns) are knn_select.cuh's, shared with knn_topk.cu,
-//   whose scan and merge repeat this kernel's arithmetic, so that
+//   whose fp32 scan and merge repeat this kernel's arithmetic, so that
 //   knn_topk(xn, yn, k*d)[..., ::d] is bitwise this kernel's idx. The scan
 //   and merge stay written out here: moved into shared functions they
 //   compiled to other code (122 and 178 registers for lists of 32 and 64,
 //   not 115 and 171) and a 1 % slower stage-1 call on an H100 80GB HBM3.
+//   This design computed the bf16 calls too until the tensor-core kernel
+//   took them; its fp32 instantiations compile to the code they had then.
 //
 // NaN distances (a NaN query row, a NaN target row, a NaN bias entry) come
 // after every number, +inf included, and among themselves in column order:
-// the order of the plain version's torch.sort. The register lists never
-// take a NaN (every comparison with it is false), so a row keeps its exact
-// order over its numbers at no cost on the hot path. Only a row with fewer
-// than k*d numbers runs out of them in the merge: its lists show the empty
-// slot, and select_nan_columns then walks the columns in order for the
-// NaN ones. (Ordering NaN inside the comparison instead cost 6 % to 45 %
-// of the kernel's time at stage 1, by variant, on an H100 80GB HBM3.)
+// the order of the plain version's torch.sort. In both kernels the
+// register lists never take a NaN (every comparison with it is false), so
+// a row keeps its exact order over its numbers at no cost on the hot path.
+// Only a row with fewer than k*d numbers runs out of them in the merge: its
+// lists show the empty slot, and select_nan_columns then walks the columns
+// in order for the NaN ones. (Ordering NaN inside the comparison instead
+// cost 6 % to 45 % of the CUDA-core kernel's time at stage 1, by variant,
+// on an H100 80GB HBM3.)
 //
 // knn_phase runs the phase-isolated pieces of this same kernel for the tool
 // gkgnet_tpu_torch/tools/exp_kernel_phases.py, which replaces the TPU tool
 // tools/exp_kernel_phases.py::make (:108; bodies k_dist :57, k_sel :63).
-// The phase is a template parameter of knn_mr_kernel (kPhase; the forward
+// The phase is a template parameter of both kernels (kPhase; the forward
 // is kForward), so the split times the scan, the merge and the gather the
-// model runs, not a copy of them. Each phase writes one fp32 checksum per
+// model runs, not a copy of them; the tool's bf16 geometry times
+// knn_mr_tc_kernel. Each phase writes one fp32 checksum per
 // query row, (BG, N, 1), as the TPU kernels define it:
 //   dist  the row sum of the fp32 distances x_sq - 2 <x, y> + y_sq from the
 //         rounded normalized rows (the contract of _dist :37-54);
@@ -89,12 +106,15 @@
 //   selg  the whole forward: sum_D max_j(y[idx_j] - x) + sum(idx), the max
 //         in fp32 before any rounding to the input type.
 // The phases run without bias and dilation (the tool's geometry has
-// neither), folded, with lists of 8 or 16.
+// neither), folded, with lists of 8, 12 (bf16) or 16.
 //
 // Launch discipline: the kernels run on the caller's stream, allocate
 // nothing and do not synchronize; knn_mr_forward, knn_mr_forward_grouped
 // and knn_phase return cudaGetLastError() after the launches.
 
+#include <type_traits>
+
+#include "knn_scan.cuh"
 #include "knn_select.cuh"
 
 namespace {
@@ -424,7 +444,325 @@ cudaError_t launch_main(const void* x, const void* y, const void* xn,
   return cudaGetLastError();
 }
 
-// bg is the folded batch B * groups; d the channels of one group.
+// The max-relative value of one channel c of a query row: max_j over the
+// kept columns sel_w[0..k) of y[sel_w[j]][c] - xv in fp32, combined in the
+// order of sel_w with NaN propagating (knn_mr_kernel's arithmetic), for two
+// channels at a time (c1 < 0: none). The loads are issued 16 at a time
+// before their first use, so a warp has up to 32 in flight.
+__device__ __forceinline__ void max_relative_pair(
+    const __nv_bfloat16* __restrict__ y_b, int ystride, const int* sel_w,
+    int k, int c0, int c1, float x0, float x1, float& b0, float& b1) {
+  b0 = -INFINITY;
+  b1 = -INFINITY;
+  for (int s0 = 0; s0 < k; s0 += 16) {
+    float v0[16], v1[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (s0 + u < k) {
+        const long long off = (long long)sel_w[s0 + u] * ystride;
+        v0[u] = to_f32(y_b[off + c0]);
+        v1[u] = c1 >= 0 ? to_f32(y_b[off + c1]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      if (s0 + u < k) {
+        const float w0 = v0[u] - x0;
+        b0 = (w0 > b0 || w0 != w0) ? w0 : b0;  // NaN propagates, as amax
+        const float w1 = v1[u] - x1;
+        b1 = (w1 > b1 || w1 != w1) ? w1 : b1;
+      }
+    }
+  }
+}
+
+// 8 bf16 values from 16 bytes, in fp32.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// The same maxima for the 8 channels c0..c0+7 (c0 a multiple of 8, rows
+// of a multiple of 8 channels: 16-byte aligned), x8 the query's 8 raw
+// values: each kept column's 8 values one 16-byte load, issued 8 columns
+// at a time before their first use.
+__device__ __forceinline__ void max_relative8(
+    const __nv_bfloat16* __restrict__ y_b, int ystride, const int* sel_w,
+    int k, int c0, const __nv_bfloat16* __restrict__ x8, float (&best)[8]) {
+  float xv[8];
+  unpack8(*reinterpret_cast<const uint4*>(x8), xv);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) best[c] = -INFINITY;
+  for (int s0 = 0; s0 < k; s0 += 8) {
+    uint4 raw[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (s0 + u < k) {
+        raw[u] = *reinterpret_cast<const uint4*>(
+            y_b + (long long)sel_w[s0 + u] * ystride + c0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (s0 + u < k) {
+        float v[8];
+        unpack8(raw[u], v);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float w = v[c] - xv[c];
+          best[c] = (w > best[c] || w != w) ? w : best[c];  // as amax
+        }
+      }
+    }
+  }
+}
+
+// 8 fp32 values rounded to bf16 (as from_f32), stored as 16 bytes.
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __halves2bfloat162(__float2bfloat16_rn(v[2 * i]),
+                              __float2bfloat16_rn(v[2 * i + 1]));
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// The bf16 forward and its phases on knn_scan.cuh's tensor-core scan and
+// row-threshold selection: 16 query rows per warp, 1-4 warps per block
+// (knn_scan::config). After the scan and the merge (each warp's rows' kept
+// columns in its shared sel rows), the epilogue does knn_mr_kernel's work
+// for the warp's rows: the lanes gather the raw target rows of the kept
+// columns (max_relative8, max_relative_pair) and write max_j(y_j - x) (or
+// the phase's checksum). The arguments are knn_mr_kernel's.
+template <int KDM, bool kGrouped, int kPhase>
+__global__ void __launch_bounds__(knn_scan::kMaxWarps * 32)
+knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                 const __nv_bfloat16* __restrict__ y,
+                 const __nv_bfloat16* __restrict__ xn,
+                 const __nv_bfloat16* __restrict__ yn,
+                 const float* __restrict__ xsq, const float* __restrict__ ysq,
+                 const float* __restrict__ bias, int bias_mode,
+                 int* __restrict__ idx, __nv_bfloat16* __restrict__ mr, int n,
+                 int m, int d, int k, int dilation, int groups,
+                 float acc_init, float dist_weight, float* __restrict__ out) {
+  using knn_scan::kRows;
+  static_assert(kPhase == kForward || !kGrouped, "phases run folded");
+  constexpr bool kSelect =
+      kPhase == kForward || kPhase == kSel || kPhase == kSelg;
+  constexpr bool kGather =
+      kPhase == kForward || kPhase == kGfix || kPhase == kSelg;
+  constexpr bool kSumDist = kPhase == kDist || kPhase == kGfix;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int warps = blockDim.x >> 5;
+  const knn_scan::Layout lay = knn_scan::layout(d, KDM, warps);
+  const int bg = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * warps * kRows;
+  const int wrow0 = row0 + warp * kRows;
+  knn_scan::Rows rows{xn + (long long)bg * n * d, xsq + (long long)bg * n,
+                      yn + (long long)bg * m * d, ysq + (long long)bg * m,
+                      bias_mode == 0 ? nullptr
+                                     : bias + (bias_mode == 2
+                                                   ? (long long)bg * n * m
+                                                   : 0LL),
+                      n, m, d};
+  const int kd = k * dilation;
+  unsigned lk[KDM];
+  int lc[KDM];
+  float dsum_a = 0.f, dsum_b = 0.f;  // dist, gfix: this lane's distances
+  knn_scan::scan<KDM, kSelect, kSumDist>(rows, row0, kd, smem_tc,
+                                         lay, lk, lc, dsum_a, dsum_b);
+  if (wrow0 >= n) return;  // whole warp: no block-wide barrier follows
+
+  if constexpr (kSumDist) {  // the quad's sums: the rows' totals
+    dsum_a += __shfl_xor_sync(kFull, dsum_a, 1);
+    dsum_a += __shfl_xor_sync(kFull, dsum_a, 2);
+    dsum_b += __shfl_xor_sync(kFull, dsum_b, 1);
+    dsum_b += __shfl_xor_sync(kFull, dsum_b, 2);
+  }
+  if constexpr (kPhase == kDist) {
+    const int g = lane >> 2;
+    if ((lane & 3) == 0) {
+      if (wrow0 + g < n) out[(long long)bg * n + wrow0 + g] = dsum_a;
+      if (wrow0 + g + 8 < n) out[(long long)bg * n + wrow0 + g + 8] = dsum_b;
+    }
+    return;
+  }
+
+  int* sel = reinterpret_cast<int*>(smem_tc + lay.sel) + warp * kRows * KDM;
+  if constexpr (kSelect) {
+    knn_scan::merge_rows<KDM>(rows, row0, kd, dilation, smem_tc, lay, lk, lc,
+                              sel, KDM, nullptr);
+  } else {
+    for (int i = lane; i < kRows * k; i += 32) {
+      sel[(i / k) * KDM + i % k] = kFixedColumn + i % k;
+    }
+    __syncwarp();
+  }
+
+  // knn_mr_kernel's epilogue for the warp's rows: gather the raw target
+  // rows of the kept columns and take max(y_j - x) in fp32; a grouped
+  // call's targets and outputs are rows of g*D.
+  const __nv_bfloat16* y_b = y + (long long)bg * m * d;
+  int ystride = d;
+  int b = bg;
+  int gi = 0;
+  if constexpr (kGrouped) {
+    b = bg / groups;
+    gi = bg - b * groups;
+    y_b = y + (long long)b * m * groups * d + (long long)gi * d;
+    ystride = groups * d;
+  }
+  auto out_row = [&](int row) {  // the output row of x and mr (of d)
+    if constexpr (kGrouped) {
+      return ((long long)b * n + row) * groups + gi;
+    } else {
+      return (long long)bg * n + row;
+    }
+  };
+  const int nrows = min(kRows, n - wrow0);
+  // the phases: each (row, 8-channel chunk)'s sum of maxima (or each row's
+  // lanes' sums where rows are not 8-channel aligned), then the rows'
+  float* psum = reinterpret_cast<float*>(
+      smem_tc + lay.y + warp * knn_scan::merge_bytes(d, KDM));
+  const int chunks = d >> 3;
+  const bool vec =  // rows of whole, 16-byte aligned 8-channel chunks
+      (d & 7) == 0 && ((reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(y_b) |
+                        reinterpret_cast<uintptr_t>(mr)) & 15) == 0;
+  if constexpr (kGather) {
+    if (vec) {
+      // 8 channels per lane: one 16-byte load per kept column, the warp's
+      // (row, chunk) items spread over its lanes
+      for (int it = lane; it < nrows * chunks; it += 32) {
+        const int rr = it / chunks;
+        const int ch = it - rr * chunks;
+        const long long orow = out_row(wrow0 + rr);
+        float best[8];
+        max_relative8(y_b, ystride, sel + rr * KDM, k, ch * 8,
+                      x + orow * d + ch * 8, best);
+        if constexpr (kPhase == kForward) {
+          store8(mr + orow * d + ch * 8, best);
+        } else {
+          float sum = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) sum += best[c];
+          psum[rr * chunks + ch] = sum;
+        }
+      }
+    } else {
+      for (int rr = 0; rr < nrows; ++rr) {
+        const long long orow = out_row(wrow0 + rr);
+        float part = 0.f;  // the phases: this lane's channels' maxima
+        for (int c0 = lane; c0 < d; c0 += 64) {
+          const int c1 = c0 + 32 < d ? c0 + 32 : -1;
+          const float x0 = to_f32(x[orow * d + c0]);
+          const float x1 = c1 >= 0 ? to_f32(x[orow * d + c1]) : 0.f;
+          float b0, b1;
+          max_relative_pair(y_b, ystride, sel + rr * KDM, k, c0, c1, x0, x1,
+                            b0, b1);
+          if constexpr (kPhase == kForward) {
+            mr[orow * d + c0] = from_f32<__nv_bfloat16>(b0);
+            if (c1 >= 0) mr[orow * d + c1] = from_f32<__nv_bfloat16>(b1);
+          } else {
+            part += b0;
+            if (c1 >= 0) part += b1;
+          }
+        }
+        if constexpr (kPhase != kForward) psum[rr * 32 + lane] = part;
+      }
+    }
+  }
+  if constexpr (kPhase == kForward) {
+    for (int it = lane; it < nrows * k; it += 32) {
+      const int rr = it / k;
+      const int s = it - rr * k;
+      idx[out_row(wrow0 + rr) * k + s] = sel[rr * KDM + s];
+    }
+  } else {
+    __syncwarp();  // the items' sums written
+    const int parts = vec ? chunks : 32;
+    for (int rr = 0; rr < nrows; ++rr) {
+      float part = 0.f;  // sum_D(acc): this lane's parts of it
+      for (int c = lane; c < (kGather ? parts : d); c += 32) {
+        part += kGather ? psum[rr * parts + c] : acc_init;
+      }
+      int isum = 0;
+      for (int s = 0; s < k; ++s) isum += sel[rr * KDM + s];
+      float res = warp_sum(part) + (float)isum;
+      if constexpr (kSumDist) {
+        const float dr =
+            __shfl_sync(kFull, rr < 8 ? dsum_a : dsum_b, 4 * (rr & 7));
+        res += dr * dist_weight;
+      }
+      if (lane == 0) out[(long long)bg * n + wrow0 + rr] = res;
+    }
+  }
+}
+
+template <int KDM, bool kGrouped, int kPhase = kForward>
+cudaError_t launch_tc(const void* x, const void* y, const void* xn,
+                      const void* yn, const void* xsq, const void* ysq,
+                      const void* bias, int bias_mode, void* idx, void* mr,
+                      int bg, int n, int m, int d, int k, int dilation,
+                      int groups, cudaStream_t stream, float acc_init = 0.f,
+                      float dist_weight = 0.f, void* out = nullptr) {
+  const knn_scan::Config cfg = knn_scan::config(d, KDM);
+  if (cfg.smem == 0) return cudaErrorInvalidValue;
+  if (cfg.smem > 48 * 1024) {  // above the default dynamic limit: opt in
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_mr_tc_kernel<KDM, kGrouped, kPhase>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = cfg.warps * knn_scan::kRows;
+  const dim3 grid(bg, (n + rows - 1) / rows);
+  knn_mr_tc_kernel<KDM, kGrouped, kPhase>
+      <<<grid, cfg.warps * 32, cfg.smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(y),
+          static_cast<const __nv_bfloat16*>(xn),
+          static_cast<const __nv_bfloat16*>(yn),
+          static_cast<const float*>(xsq), static_cast<const float*>(ysq),
+          static_cast<const float*>(bias), bias_mode, static_cast<int*>(idx),
+          static_cast<__nv_bfloat16*>(mr), n, m, d, k, dilation, groups,
+          acc_init, dist_weight, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, L>{}) for the list length L that T's
+// kernel takes for k*d = kd, no longer than kMaxList: knn_scan's for
+// bf16, knn_select's for fp32. cudaErrorInvalidValue where none does.
+template <typename T, int kMaxList, typename F>
+cudaError_t with_lists(int kd, F f) {
+  using std::integral_constant;
+  const int len = std::is_same_v<T, __nv_bfloat16> ? knn_scan::list_slots(kd)
+                                                   : kdm_bucket(kd);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (len == 12) return f(integral_constant<int, 12>{});
+    if constexpr (kMaxList >= 24) {
+      if (len == 24) return f(integral_constant<int, 24>{});
+    }
+  }
+  if (len == 8) return f(integral_constant<int, 8>{});
+  if (len == 16) return f(integral_constant<int, 16>{});
+  if constexpr (kMaxList >= 64) {
+    if (len == 32) return f(integral_constant<int, 32>{});
+    if (len == 64) return f(integral_constant<int, 64>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// bg is the folded batch B * groups; d the channels of one group. The bf16
+// calls run knn_mr_tc_kernel, the fp32 ones knn_mr_kernel.
 template <typename T, bool kGrouped>
 cudaError_t forward(const void* x, const void* y, const void* bias,
                     void* xn, void* yn, void* xsq, void* ysq, void* idx,
@@ -443,54 +781,35 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
   if (err != cudaSuccess) return err;
   const void* ynp = y_is_x ? xn : yn;
   const void* ysqp = y_is_x ? xsq : ysq;
-  switch (kdm_bucket(k * dilation)) {
-    case 8:
-      return launch_main<T, 8, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+  return with_lists<T, 64>(k * dilation, [&](auto len) {
+    constexpr int L = decltype(len)::value;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return launch_tc<L, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+                                    bias_mode, idx, mr, bg, n, m, d, k,
+                                    dilation, groups, stream);
+    } else {
+      return launch_main<T, L, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
                                          bias_mode, idx, mr, bg, n, m, d, k,
                                          dilation, groups, stream);
-    case 16:
-      return launch_main<T, 16, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
-                                          bias_mode, idx, mr, bg, n, m, d, k,
-                                          dilation, groups, stream);
-    case 32:
-      return launch_main<T, 32, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
-                                          bias_mode, idx, mr, bg, n, m, d, k,
-                                          dilation, groups, stream);
-    case 64:
-      return launch_main<T, 64, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
-                                          bias_mode, idx, mr, bg, n, m, d, k,
-                                          dilation, groups, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+    }
+  });
 }
 
-template <typename T, int KDM>
-cudaError_t launch_phase(int phase, const void* x, const void* y,
-                         const void* xn, const void* yn, const void* xsq,
-                         const void* ysq, void* out, int bg, int n, int m,
-                         int d, int k, cudaStream_t stream) {
+template <typename T, int KDM, int kPhase>
+cudaError_t launch_phase(const void* x, const void* y, const void* xn,
+                         const void* yn, const void* xsq, const void* ysq,
+                         void* out, int bg, int n, int m, int d, int k,
+                         cudaStream_t stream) {
   const float acc_init = -INFINITY;  // acc's initial value, as on the TPU
   const float dist_weight = 0.f;     // gfix: keeps the scan, adds nothing
-  switch (phase) {
-    case kDist:
-      return launch_main<T, KDM, false, kDist>(
-          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
-          k, 1, 1, stream, acc_init, dist_weight, out);
-    case kSel:
-      return launch_main<T, KDM, false, kSel>(
-          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
-          k, 1, 1, stream, acc_init, dist_weight, out);
-    case kGfix:
-      return launch_main<T, KDM, false, kGfix>(
-          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
-          k, 1, 1, stream, acc_init, dist_weight, out);
-    case kSelg:
-      return launch_main<T, KDM, false, kSelg>(
-          x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d,
-          k, 1, 1, stream, acc_init, dist_weight, out);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return launch_tc<KDM, false, kPhase>(
+        x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d, k,
+        1, 1, stream, acc_init, dist_weight, out);
+  } else {
+    return launch_main<T, KDM, false, kPhase>(
+        x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d, k,
+        1, 1, stream, acc_init, dist_weight, out);
   }
 }
 
@@ -507,16 +826,25 @@ cudaError_t run_phase(int phase, const void* x, const void* y, void* xn,
       static_cast<T*>(yn), static_cast<float*>(ysq), rows_y, d, n, m, 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  switch (kdm_bucket(k)) {
-    case 8:
-      return launch_phase<T, 8>(phase, x, y, xn, yn, xsq, ysq, out, bg, n, m,
-                                d, k, stream);
-    case 16:
-      return launch_phase<T, 16>(phase, x, y, xn, yn, xsq, ysq, out, bg, n,
-                                 m, d, k, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return with_lists<T, 16>(k, [&](auto len) {
+    constexpr int L = decltype(len)::value;
+    switch (phase) {
+      case kDist:
+        return launch_phase<T, L, kDist>(x, y, xn, yn, xsq, ysq, out, bg, n,
+                                         m, d, k, stream);
+      case kSel:
+        return launch_phase<T, L, kSel>(x, y, xn, yn, xsq, ysq, out, bg, n,
+                                        m, d, k, stream);
+      case kGfix:
+        return launch_phase<T, L, kGfix>(x, y, xn, yn, xsq, ysq, out, bg, n,
+                                         m, d, k, stream);
+      case kSelg:
+        return launch_phase<T, L, kSelg>(x, y, xn, yn, xsq, ysq, out, bg, n,
+                                         m, d, k, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
 }
 
 }  // namespace
@@ -584,9 +912,14 @@ int knn_phase(int phase, const void* x, const void* y, void* xn, void* yn,
                           d, k, s);
 }
 
-// Dynamic shared memory of one main-kernel block at row width d and k*d
-// (0 when k*d exceeds 64).
-long long knn_mr_smem_bytes(int d, int kd) {
+// Dynamic shared memory of one main-kernel block at row width d and
+// k*d = kd, in bf16 (is_bf16) or fp32 (0 when k*d exceeds 64 or no block
+// shape fits).
+long long knn_mr_smem_bytes(int d, int kd, int is_bf16) {
+  if (is_bf16) {
+    const int len = knn_scan::list_slots(kd);
+    return len ? knn_scan::config(d, len).smem : 0;
+  }
   const int kdm = kdm_bucket(kd);
   return kdm ? (long long)main_smem_bytes(d, kdm) : 0;
 }

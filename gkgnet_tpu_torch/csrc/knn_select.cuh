@@ -1,8 +1,10 @@
-// The k-nearest-neighbour selection helpers shared by knn_mr.cu and
-// knn_topk.cu: each lane keeps a sorted register list of its best
-// (distance, column) pairs (insert), the lanes' lists are merged by a warp
-// lexicographic min (lex_less), and a row whose distances run out of
-// numbers gets its NaN columns in column order (select_nan_columns).
+// The k-nearest-neighbour selection helpers of the CUDA-core (fp32)
+// kernels of knn_mr.cu and knn_topk.cu: each lane keeps a sorted register
+// list of its best (distance, column) pairs (insert), the lanes' lists are
+// merged by a warp lexicographic min (lex_less), and a row whose distances
+// run out of numbers gets its NaN columns in column order
+// (select_nan_columns, which the bf16 tensor-core kernels of knn_scan.cuh
+// call too: its test for NaN does not depend on the order of the sum).
 //
 // Order: ascending (distance, column), the lower column first among equal
 // distances. NaN distances come after every number, +inf included, in
@@ -11,11 +13,12 @@
 // them in the merge; select_nan_columns then walks its columns in order
 // for the NaN ones.
 //
-// The two kernels' target scans and merges compute the same fp32 distances
-// in the same order (x_sq - 2 * <x, y> + y_sq (+ bias), products summed by
-// fmaf over the channels from a transposed fp32 tile), so
+// The two fp32 kernels' target scans and merges compute the same fp32
+// distances in the same order (x_sq - 2 * <x, y> + y_sq (+ bias), products
+// summed by fmaf over the channels from a transposed fp32 tile), so
 // knn_topk(xn, yn, k*d)[..., ::d] is bitwise knn_mr's idx on the same
-// normalized rows; chip_smoke.py checks it at every knn_mr shape.
+// normalized fp32 rows; the bf16 kernels hold the same contract through
+// knn_scan.cuh's one scan. chip_smoke.py checks both at every knn_mr shape.
 
 #pragma once
 

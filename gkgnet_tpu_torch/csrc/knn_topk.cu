@@ -16,44 +16,55 @@
 // torch.sort (not the TPU kernel's, whose masked argmin loses a row that
 // holds a NaN).
 //
-// What bounds it on this card. At the slice's largest call (a stage-1
-// Grapher at batch 8 without channel groups: BG=8, N=20736, M=1296, D=80,
-// k=9, bf16) the bytes it must move are ~142 MB, most of it the 107 MB fp32
-// bias (0.04 ms at 3.35 TB/s), and the distance products are 34 GFLOP
-// (0.035 ms on bf16 tensor cores). Like knn_mr.cu, whose selection helpers
-// it shares (knn_select.cuh), this first design computes the products on the
-// fp32 CUDA cores from shared memory, so shared-memory loads and fp32 issue
-// bound it, far above either bound. What the design does about the bytes:
-// the grid's fastest axis is the batch-group axis, so the blocks that read
-// the same bias rows for different groups run together and the bias is
-// served from L2; each block reads the target set once for its kWarps rows.
+// Two kernels compute it, one per input type.
 //
-// Design (one warp per query row, kWarps rows per block):
-//   1. row_sq: one warp per row of x and of y, the fp32 sum of squares in
-//      lane-strided fmaf order and a butterfly sum: the arithmetic of
-//      knn_mr.cu's l2norm_rows on its rounded rows, so on knn_mr's own
-//      normalized rows both kernels see bitwise the same x_sq and y_sq.
+// bf16 (the Graphers' type): knn_topk_tc_kernel, on knn_scan.cuh's
+// tensor-core scan and row-threshold selection, the same scan and
+// selection knn_mr.cu's bf16 kernel runs; the header says what bounds it on
+// this card (at the slice's largest call, a stage-1 Grapher at batch 8
+// without channel groups, BG=8, N=20736, M=1296, D=80, k=9: ~142 MB, most
+// of it the 107 MB fp32 bias, 0.04 ms at 3.35 TB/s, and 34 GFLOP, 0.035 ms
+// on bf16 tensor cores) and what the design does about it. Each row's
+// merge writes its k nearest in order, with their distances, straight to
+// idx and vals. Shared memory per block (knn_scan::layout): at D = 640 and
+// k = 27, 2 warps' query rows and two 64-row tiles, 216 KB; 1 warp for
+// wider rows, and none fits past about 780 bf16 channels (the wrapper
+// raises).
+//
+// fp32: knn_topk_kernel, the CUDA-core design (one warp per query row,
+// kWarps rows per block), as the TPU kernel keeps fp32 at full precision:
+//   1. row_sq (both types): one warp per row of x and of y, the fp32 sum of
+//      squares in lane-strided fmaf order and a butterfly sum: the
+//      arithmetic of knn_mr.cu's l2norm_rows on its rounded rows, so on
+//      knn_mr's own normalized rows both kernels see bitwise the same x_sq
+//      and y_sq.
 //   2. knn_topk_kernel: scan_targets walks the targets in tiles of kTile
 //      rows, staged transposed in shared memory as fp32; each lane computes
 //      the distances of its 2 columns of the tile and keeps a sorted
 //      register list of its best KDM >= k pairs; merge_lists takes k rounds
 //      of a warp lexicographic min over the lanes' list heads and writes
 //      the row's k nearest in order, with their distances, straight to idx
-//      and vals. Both repeat knn_mr.cu's scan and merge line for line, with
-//      dilation 1 (knn_mr.cu says why they are not shared functions). For
-//      lists of 8 and 16 the rare NaN tail is a real call (nan_tail, not
-//      inlined): on an H100 80GB HBM3 that took the stage-1 Grapher call
-//      from 6.95 to 6.51 ms and label 1 from 1.99 to 1.42 ms, while for
+//      and vals. Both repeat knn_mr.cu's fp32 scan and merge line for line,
+//      with dilation 1 (knn_mr.cu says why they are not shared functions).
+//      For lists of 8 and 16 the rare NaN tail is a real call (nan_tail,
+//      not inlined): on an H100 80GB HBM3 that took the stage-1 Grapher
+//      call from 6.95 to 6.51 ms and label 1 from 1.99 to 1.42 ms, while for
 //      lists of 32 it made the stage-3 calls 2.8 -> 4.2 ms, so there the
 //      tail stays inlined.
-// The target tile is d * 65 fp32 values: at D = 640 a block takes 187 KB of
-// dynamic shared memory (opted in above 48 KB; 227 KB is the card's limit,
-// so D <= 795).
+//   Shared-memory loads and fp32 issue bound it (one load per fmaf). The
+//   target tile is d * 65 fp32 values: at D = 640 a block takes 187 KB of
+//   dynamic shared memory (opted in above 48 KB; 227 KB is the card's
+//   limit, so D <= 795). This design computed the bf16 calls too until the
+//   tensor-core kernel took them; its fp32 instantiations compile to the
+//   code they had then.
 //
 // Launch discipline: both kernels run on the caller's stream, allocate
 // nothing and do not synchronize; knn_topk_forward returns
 // cudaGetLastError() after the launches.
 
+#include <type_traits>
+
+#include "knn_scan.cuh"
 #include "knn_select.cuh"
 
 namespace {
@@ -292,6 +303,69 @@ cudaError_t launch_main(const void* x, const void* y, const void* xsq,
   return cudaGetLastError();
 }
 
+// The bf16 kernel on knn_scan.cuh's tensor-core scan and row-threshold
+// selection (16 query rows per warp, 1-4 warps per block): each row's
+// merge writes its k nearest in order, with their distances, straight to
+// idx and vals. The arguments are knn_topk_kernel's.
+template <int KDM>
+__global__ void __launch_bounds__(knn_scan::kMaxWarps * 32)
+knn_topk_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ y,
+                   const float* __restrict__ xsq,
+                   const float* __restrict__ ysq,
+                   const float* __restrict__ bias, int bias_mode,
+                   int* __restrict__ idx, float* __restrict__ vals, int n,
+                   int m, int d, int k) {
+  using knn_scan::kRows;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const int warps = blockDim.x >> 5;
+  const knn_scan::Layout lay = knn_scan::layout(d, KDM, warps);
+  const int bg = blockIdx.x;
+  const int row0 = blockIdx.y * warps * kRows;
+  const int wrow0 = row0 + (threadIdx.x >> 5) * kRows;
+  knn_scan::Rows rows{x + (long long)bg * n * d, xsq + (long long)bg * n,
+                      y + (long long)bg * m * d, ysq + (long long)bg * m,
+                      bias_mode == 0 ? nullptr
+                                     : bias + (bias_mode == 2
+                                                   ? (long long)bg * n * m
+                                                   : 0LL),
+                      n, m, d};
+  unsigned lk[KDM];
+  int lc[KDM];
+  float dsum_a = 0.f, dsum_b = 0.f;  // unused: no distance sums here
+  knn_scan::scan<KDM, true, false>(rows, row0, k, smem_tc, lay, lk,
+                                   lc, dsum_a, dsum_b);
+  if (wrow0 >= n) return;  // whole warp: no block-wide barrier follows
+  const long long first = ((long long)bg * n + wrow0) * k;
+  knn_scan::merge_rows<KDM>(rows, row0, k, 1, smem_tc, lay, lk, lc,
+                            idx + first, k,
+                            vals != nullptr ? vals + first : nullptr);
+}
+
+template <int KDM>
+cudaError_t launch_tc(const void* x, const void* y, const void* xsq,
+                      const void* ysq, const void* bias, int bias_mode,
+                      void* idx, void* vals, int bg, int n, int m, int d,
+                      int k, cudaStream_t stream) {
+  const knn_scan::Config cfg = knn_scan::config(d, KDM);
+  if (cfg.smem == 0) return cudaErrorInvalidValue;
+  if (cfg.smem > 48 * 1024) {  // above the default dynamic limit: opt in
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_topk_tc_kernel<KDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cfg.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = cfg.warps * knn_scan::kRows;
+  const dim3 grid(bg, (n + rows - 1) / rows);
+  knn_topk_tc_kernel<KDM><<<grid, cfg.warps * 32, cfg.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(xsq),
+      static_cast<const float*>(ysq), static_cast<const float*>(bias),
+      bias_mode, static_cast<int*>(idx), static_cast<float*>(vals), n, m, d,
+      k);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t forward(const void* x, const void* y, const void* bias,
                     void* xsq, void* ysq, void* idx, void* vals, int bg,
@@ -306,21 +380,46 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const void* ysqp = y_is_x ? xsq : ysq;
-  switch (kdm_bucket(k)) {
-    case 8:
-      return launch_main<T, 8>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
-                               bg, n, m, d, k, stream);
-    case 16:
-      return launch_main<T, 16>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
-                                bg, n, m, d, k, stream);
-    case 32:
-      return launch_main<T, 32>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
-                                bg, n, m, d, k, stream);
-    case 64:
-      return launch_main<T, 64>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
-                                bg, n, m, d, k, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // the tensor-core scan
+    switch (knn_scan::list_slots(k)) {
+      case 8:
+        return launch_tc<8>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
+                            n, m, d, k, stream);
+      case 12:
+        return launch_tc<12>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
+                             n, m, d, k, stream);
+      case 16:
+        return launch_tc<16>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
+                             n, m, d, k, stream);
+      case 24:
+        return launch_tc<24>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
+                             n, m, d, k, stream);
+      case 32:
+        return launch_tc<32>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
+                             n, m, d, k, stream);
+      case 64:
+        return launch_tc<64>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
+                             n, m, d, k, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (kdm_bucket(k)) {
+      case 8:
+        return launch_main<T, 8>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
+                                 bg, n, m, d, k, stream);
+      case 16:
+        return launch_main<T, 16>(x, y, xsq, ysqp, bias, bias_mode, idx,
+                                  vals, bg, n, m, d, k, stream);
+      case 32:
+        return launch_main<T, 32>(x, y, xsq, ysqp, bias, bias_mode, idx,
+                                  vals, bg, n, m, d, k, stream);
+      case 64:
+        return launch_main<T, 64>(x, y, xsq, ysqp, bias, bias_mode, idx,
+                                  vals, bg, n, m, d, k, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -345,8 +444,16 @@ int knn_topk_forward(const void* x, const void* y, const void* bias,
                         bias_mode, y_is_x, s);
 }
 
-// Dynamic shared memory of one main-kernel block at row width d.
-long long knn_topk_smem_bytes(int d) { return (long long)main_smem_bytes(d); }
+// Dynamic shared memory of one main-kernel block at row width d and k
+// neighbours, in bf16 (is_bf16) or fp32 (0 when k exceeds 64, or in bf16
+// when no block shape fits).
+long long knn_topk_smem_bytes(int d, int k, int is_bf16) {
+  if (is_bf16) {
+    const int len = knn_scan::list_slots(k);
+    return len ? knn_scan::config(d, len).smem : 0;
+  }
+  return kdm_bucket(k) ? (long long)main_smem_bytes(d) : 0;
+}
 
 const char* knn_topk_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -28,8 +28,11 @@ channels ``[gi*D, (gi+1)*D)``, bias is None or ``(N, M)``; idx comes back
 folded backward, as the JAX package's ``_bwd_grouped`` does.
 
 On a CUDA tensor the wrappers launch the hand-written kernels in
-``csrc/knn_mr.cu`` (forward, folded and grouped) and ``csrc/knn_mr_bwd.cu``
-(backward), and raise if they cannot; on a CPU tensor they run
+``csrc/knn_mr.cu`` (forward, folded and grouped: for bfloat16 rows the
+tensor-core scan of ``csrc/knn_scan.cuh``, its products exact and summed in
+fp32 by the tensor cores; for float32 rows the CUDA-core scan, summed by
+fmaf) and ``csrc/knn_mr_bwd.cu`` (backward), and raise if they cannot; on a
+CPU tensor they run
 ``knn_mr_reference``, ``knn_mr_grouped_reference`` and
 ``knn_mr_backward_reference``, the plain PyTorch versions of the same
 functions. ``launches``, ``grouped_launches`` and ``backward_launches``
@@ -68,15 +71,17 @@ def _lib() -> ctypes.CDLL:
         lib.knn_mr_forward_grouped.restype = ctypes.c_int
         lib.knn_mr_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_error_string.restype = ctypes.c_char_p
-        lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.knn_mr_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def shared_memory_bytes(d: int, kd: int) -> int:
+def shared_memory_bytes(d: int, kd: int,
+                        dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one block of the kernel at row width ``d``
-    and ``k * dilation = kd`` (builds the kernel if needed)."""
-    return _lib().knn_mr_smem_bytes(d, kd)
+    and ``k * dilation = kd`` in ``dtype`` (bfloat16, else the float32
+    kernel); 0 where no block fits (builds the kernel if needed)."""
+    return _lib().knn_mr_smem_bytes(d, kd, int(dtype == torch.bfloat16))
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,

@@ -7,13 +7,16 @@
     to float32, as the JAX kernel casts it);
   * bias: optional fp32 distance bias ``(N, M)`` or ``(BG, N, M)``;
   * returns idx ``(BG, N, k)`` int32, the k targets with the smallest
-    ``x_sq - 2 <x, y> + y_sq (+ bias)`` (fp32 products) in ascending
-    (distance, column) order, NaN distances last in column order; with
-    ``return_values`` also their fp32 distances ``(BG, N, k)``.
+    ``x_sq - 2 <x, y> + y_sq (+ bias)`` (fp32 sums of exact products) in
+    ascending (distance, column) order, NaN distances last in column order;
+    with ``return_values`` also their fp32 distances ``(BG, N, k)``.
 
 It launches the hand-written CUDA kernel in ``csrc/knn_topk.cu`` on CUDA
-tensors and raises on anything else, or when the kernel cannot take the
-input: the plain version is ``ops.knn.knn_topk_reference``, and
+tensors (for bfloat16 rows the tensor-core scan of ``csrc/knn_scan.cuh``,
+which knn_mr's bf16 kernel shares, so that ``launch(xn, yn, k=k*d)[...,
+::d]`` is bitwise knn_mr's idx; for float32 rows the CUDA-core scan) and
+raises on anything else, or when the kernel cannot take the input: the
+plain version is ``ops.knn.knn_topk_reference``, and
 ``ops.knn.knn_graph`` picks between the two by the tensors' device.
 ``launches`` counts the kernel's launches.
 """
@@ -41,15 +44,17 @@ def _lib() -> ctypes.CDLL:
         lib.knn_topk_forward.restype = ctypes.c_int
         lib.knn_topk_error_string.argtypes = [ctypes.c_int]
         lib.knn_topk_error_string.restype = ctypes.c_char_p
-        lib.knn_topk_smem_bytes.argtypes = [ctypes.c_int]
+        lib.knn_topk_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.knn_topk_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def shared_memory_bytes(d: int) -> int:
+def shared_memory_bytes(d: int, k: int = 1,
+                        dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one block of the kernel at row width ``d``
-    (builds the kernel if needed)."""
-    return _lib().knn_topk_smem_bytes(d)
+    and ``k`` neighbours in ``dtype`` (bfloat16, else the float32 kernel);
+    0 where no block fits (builds the kernel if needed)."""
+    return _lib().knn_topk_smem_bytes(d, k, int(dtype == torch.bfloat16))
 
 
 def check_inputs(x: torch.Tensor, y: torch.Tensor,
@@ -94,8 +99,9 @@ def launch(x: torch.Tensor, y: torch.Tensor, *, k: int,
     if (n + 7) // 8 > 65535:  # the grid's y extent: 8 query rows a block
         raise ValueError(f"N = {n} query rows exceed the kernel's grid")
     lib = _lib()
-    smem = lib.knn_topk_smem_bytes(d)
-    if smem > MAX_SMEM_BYTES:
+    is_bf16 = x.dtype == torch.bfloat16 and y.dtype == torch.bfloat16
+    smem = lib.knn_topk_smem_bytes(d, k, int(is_bf16))
+    if smem == 0 or smem > MAX_SMEM_BYTES:
         raise ValueError(f"D = {d}: a block would need {smem} bytes of "
                          f"shared memory, over the card's {MAX_SMEM_BYTES}")
     y_is_x = y.data_ptr() == x.data_ptr() and y.shape == x.shape

@@ -1,6 +1,7 @@
 """Compare the SASS of two versions of a CUDA source, kernel by kernel.
 
     python -m gkgnet_tpu_torch.tools.compare_sass OTHER_CSRC [NAME ...]
+        [--fp32]
 
 builds ``csrc/<NAME>.cu`` of this checkout and of the directory
 ``OTHER_CSRC`` (another checkout's ``gkgnet_tpu_torch/csrc``) for sm_90a
@@ -10,6 +11,12 @@ kernel of the same name (namespaces, parameter lists and trailing ``false``
 or ``0`` template arguments left out: the default instantiation of a kernel
 that gained compile-time flags, such as knn_mr_kernel's grouped flag and
 its phase) and the same instructions, addresses and encodings aside. Exits 1 if any differs. NAME defaults to ``knn_mr``.
+
+``--fp32`` compares only the kernels that the bf16 tensor-core redesign
+left alone, the CUDA-core ones: every fp32 instantiation of knn_mr_kernel
+and knn_topk_kernel, and l2norm_rows and row_sq in both types (names as
+printed, matched by ``FP32_ONLY``); it counts the rest as skipped, so the
+exit code says whether the kernels that were meant to stay did.
 
 Needs ``nvcc``, ``cuobjdump`` and ``cu++filt`` from the CUDA toolkit, not a
 card.
@@ -26,6 +33,7 @@ import tempfile
 from gkgnet_tpu_torch.ops import _build
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
+FP32_ONLY = r"^(knn_mr_kernel<float|knn_topk_kernel<float|l2norm_rows<|row_sq<)"
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 
 
@@ -75,10 +83,12 @@ def sass(src: str, out: str) -> dict[str, list[str]]:
 
 
 def main(argv: list[str]) -> int:
+    only = re.compile(FP32_ONLY) if "--fp32" in argv else None
+    argv = [a for a in argv if a != "--fp32"]
     if not argv:
         raise SystemExit(__doc__)
     other, names = argv[0], argv[1:] or ["knn_mr"]
-    differ = 0
+    differ = skipped = 0
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
             mine = sass(os.path.join(_build.CSRC_DIR, f"{name}.cu"),
@@ -86,6 +96,9 @@ def main(argv: list[str]) -> int:
             theirs = sass(os.path.join(other, f"{name}.cu"),
                           os.path.join(tmp, f"other_{name}.cubin"))
             for kernel, ins in sorted(theirs.items()):
+                if only is not None and not only.search(kernel):
+                    skipped += 1
+                    continue
                 got = mine.get(kernel)
                 same = got == ins
                 differ += not same
@@ -93,6 +106,8 @@ def main(argv: list[str]) -> int:
                       + ("same" if same else "missing" if got is None else
                          f"differs ({len(got)} vs {len(ins)} instructions)"),
                       flush=True)
+    if only is not None:
+        print(f"sass: {skipped} kernels skipped (--fp32)", flush=True)
     return 1 if differ else 0
 
 

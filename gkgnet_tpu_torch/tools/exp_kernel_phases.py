@@ -3,7 +3,8 @@ ordering oracle of its selection (counterpart: ``tools/exp_kernel_phases.py``
 of the JAX package).
 
 Each phase is an instantiation of the knn_mr forward kernel itself
-(``csrc/knn_mr.cu``, its ``kPhase`` template parameter; entry ``knn_phase``)
+(``csrc/knn_mr.cu``, its ``kPhase`` template parameter; entry ``knn_phase``;
+for the tool's bf16 rows the tensor-core kernel on ``csrc/knn_scan.cuh``)
 after the row normalization, so the split times the scan, the selection and
 the gather the model runs. Each writes one fp32 checksum per query row,
 ``(BG, N, 1)``, as the TPU tool's kernels define it:
@@ -22,11 +23,10 @@ dist). Run on the card, from the repository root:
 
     python -m gkgnet_tpu_torch.tools.exp_kernel_phases
 
-It prints each phase's ms and µs per block of 8 query rows (one warp per
-row), at BG 16, N 20736, M 1296, D 40, K 9 in bf16 on seeded
-standard-normal input, then the oracle: on 2 x 2048 query rows, the
-kernel's idx (``knn_mr.launch``) and the plain version's, each against the
-fp64 order.
+It prints each phase's ms and ns per query row, at BG 16, N 20736, M 1296,
+D 40, K 9 in bf16 on seeded standard-normal input, then the oracle: on
+2 x 2048 query rows, the kernel's idx (``knn_mr.launch``) and the plain
+version's, each against the fp64 order.
 
 ``launch(phase, x, y, k)`` runs a phase's kernel (CUDA tensors only; it
 counts its launches in ``launches``); ``phase_reference(phase, x, y, k)``
@@ -46,10 +46,10 @@ from gkgnet_tpu_torch.ops.aggregate import gather_nodes
 from gkgnet_tpu_torch.ops.knn import knn_topk_reference, l2_normalize
 
 BG, N, D, M, K = 16, 20736, 40, 1296, 9
-ROWS_PER_BLOCK = 8
+ROWS_PER_BLOCK = 8  # the fp32 kernel's block, the wrappers' grid limit
 PHASES = ("dist", "sel", "gfix", "selg")
 FIXED_COLUMN = 7   # gfix gathers columns 7, 8, ..., 6 + k
-MAX_K = 16         # the kernel's register lists hold 16
+MAX_K = 16         # the phase instantiations' lists hold 16
 _DTYPES = (torch.bfloat16, torch.float32)
 
 # Kernel launches since the last reset; ``launch`` adds one per launch.
@@ -254,12 +254,11 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("exp_kernel_phases: needs a CUDA device")
     x, y = seeded_inputs("cuda")
-    blocks = BG * ((N + ROWS_PER_BLOCK - 1) // ROWS_PER_BLOCK)
     print(f"{torch.cuda.get_device_name(0)}; BG {BG}, N {N}, M {M}, D {D}, "
           f"K {K}, bf16", flush=True)
     for phase, ms in time_phases(x, y, K).items():
-        print(f"{phase:5s}: {ms:8.3f} ms ({ms / blocks * 1e3:.4f} us per "
-              f"{ROWS_PER_BLOCK}-row block)", flush=True)
+        print(f"{phase:5s}: {ms:8.3f} ms ({ms / (BG * N) * 1e6:.3f} ns per "
+              f"query row)", flush=True)
     xs, ys = x[:2, :2048].contiguous(), y[:2].contiguous()
     for name, (differ, rows, gap) in oracle(xs, ys, K).items():
         print(f"oracle[{name}]: order-mismatch rows {differ}/{rows}, max "

@@ -414,7 +414,8 @@ def test_topk_kernel_nan_rows_match_plain(cuda, dtype, self_knn):
 
 
 @pytest.mark.parametrize("case", ["not_contiguous", "bias_on_cpu",
-                                  "k_over_64", "k_over_m", "too_wide"])
+                                  "k_over_64", "k_over_m", "too_wide",
+                                  "too_wide_bf16"])
 def test_topk_kernel_rejects_bad_inputs(cuda, case):
     x = torch.randn((2, 16, 8), device=cuda)
     y = torch.randn((2, 100, 8), device=cuda)
@@ -428,9 +429,12 @@ def test_topk_kernel_rejects_bad_inputs(cuda, case):
         k = 65
     elif case == "k_over_m":
         k = 101
-    else:
+    elif case == "too_wide":
         x = torch.randn((2, 16, 800), device=cuda)
         y = torch.randn((2, 100, 800), device=cuda)
+    else:  # the tensor-core kernel's query rows and tiles do not fit
+        x = torch.randn((2, 16, 800), device=cuda).to(torch.bfloat16)
+        y = torch.randn((2, 100, 800), device=cuda).to(torch.bfloat16)
     before = knn_topk.launches
     with pytest.raises(ValueError):
         knn_topk.launch(x, y, k=k, bias=bias)
@@ -697,3 +701,172 @@ def test_phase_kernel_matches_plain(cuda, phase, dtype):
         exact, bound = phases.gather_bound(x, y, idx)
     assert ((got.double() - exact).abs() <= bound).all()
     assert ((got.double() - plain.double()).abs() <= 2 * bound).all()
+
+
+# ---------------- the bf16 tensor-core scan (csrc/knn_scan.cuh): its edges
+#
+# 16 query rows per warp, target tiles of 64 rows, channels padded to a
+# multiple of 16, lists of 8, 12, 16, 24, 32 or 64 (k*d 5, 9, 16, 18, 27,
+# 40 below) behind a threshold for the whole row. Each case runs knn_mr
+# (folded and grouped) and knn_topk on the same rows and holds them to
+# their plain versions: the fp64 ordering oracle, idx equal to the plain
+# version's but at near-ties (``check_topk``), mr the plain max-relative of
+# the kernel's idx, knn_topk(xn, yn, k*d)[..., ::d] bitwise knn_mr's idx,
+# the grouped kernel bitwise fold -> folded kernel -> unfold, and the
+# returned distances in lexicographic (distance, column) order.
+
+TC_SHAPES = [  # (n, m, d, k, dilation): N, M ragged against 16 and 64
+    (80, 1296, 40, 5, 1),
+    (324, 324, 200, 9, 1),
+    (80, 1296, 200, 8, 2),
+    (324, 324, 40, 9, 2),
+    (1296, 324, 40, 9, 3),
+    (80, 324, 200, 20, 2),
+]
+
+
+def _tc_case(n, m, d, seed, fixture=None):
+    """Seeded bf16 rows on the card: x (2, n, 2d) and y (2, m, 2d), two
+    groups of d channels; ``fixture`` edits the fp32 rows first."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((2, n, 2 * d), generator=g)
+    y = torch.randn((2, m, 2 * d), generator=g)
+    if fixture is not None:
+        fixture(x, y, g)
+    return x.to(torch.bfloat16).cuda(), y.to(torch.bfloat16).cuda()
+
+
+def _toward(q, angles, g):
+    """Rows at the given angles from the unit rows q (B, d), in a random
+    plane through each: (B, len(angles), d)."""
+    v = torch.randn(q.shape[-1:], generator=g)
+    v = v - (q * v).sum(-1, keepdim=True) * q
+    v = v / v.norm(dim=-1, keepdim=True)
+    a = torch.as_tensor(angles, dtype=torch.float32)
+    return (torch.cos(a)[None, :, None] * q[:, None, :]
+            + torch.sin(a)[None, :, None] * v[:, None, :])
+
+
+def _exact_ties(x, y, g):
+    """Groups of equal target rows, at the start (columns 0-3), across the
+    first tile boundary (61-66) and in the fourth tile (200-202), each
+    nearer to query row 7 than the group before it, and columns 300, 301
+    nearer still: at that row each group is in the lists when nearer
+    targets arrive and push it down."""
+    d = y.shape[2] // 2
+    for cs in (slice(0, d), slice(d, 2 * d)):
+        q = x[:, 7, cs] / x[:, 7, cs].norm(dim=-1, keepdim=True)
+        for (lo, hi), angle in (((0, 4), 0.9), ((61, 67), 0.7),
+                                ((200, 203), 0.5)):
+            y[:, lo:hi, cs] = _toward(q, [angle], g)
+        y[:, 300:302, cs] = _toward(q, [0.2, 0.25], g)
+
+
+def _falling(x, y, g):
+    """Query row 5 of every batch and group meets targets in falling
+    distance order: in each group, y_j at angle 0.5 + (1 - j / M) from it,
+    so each target is nearer than every earlier one and passes any
+    threshold."""
+    m, d = y.shape[1], y.shape[2] // 2
+    angles = 0.5 + (1.0 - torch.arange(m, dtype=torch.float32) / m)
+    for cs in (slice(0, d), slice(d, 2 * d)):
+        q = x[:, 5, cs] / x[:, 5, cs].norm(dim=-1, keepdim=True)
+        y[:, :, cs] = _toward(q, angles, g)
+
+
+def _check_lex_order(vals, idx):
+    """Ascending distances, the lower column first among equal ones."""
+    v, i = vals[..., :-1], vals[..., 1:]
+    assert bool((v <= i).all())
+    tied = vals[..., :-1] == vals[..., 1:]
+    assert bool((idx[..., :-1][tied] < idx[..., 1:][tied]).all())
+
+
+def _check_tc(x, y, k, dilation):
+    """knn_mr, its grouped route and knn_topk on bf16 (B, N, 2D) rows (two
+    groups), against their plain versions and each other."""
+    kd = k * dilation
+    xf, yf = fold_groups(x, 2), fold_groups(y, 2)
+    idx, mr, xn, yn = knn_mr.launch(xf, yf, None, k, dilation)
+    torch.cuda.synchronize()
+    assert torch.equal(mr, max_relative(xf, idx, yf))
+    assert knn_mr.ordering_gaps(xn, yn, None, idx, dilation).max().item() \
+        <= ORACLE_TOL
+    t_idx, t_vals = knn_topk.launch(xn, yn, k=kd, return_values=True)
+    assert torch.equal(t_idx[..., ::dilation], idx)
+    check_topk("tc", xn, yn, None, t_idx, t_vals, max_flip_share=1e-2)
+    _check_lex_order(t_vals, t_idx)
+    g_idx, g_mr, _, _ = knn_mr.launch_grouped(x, y, None, k, dilation, 2)
+    ref_idx, ref_mr = folded_route(x, y, None, k, dilation, 2)
+    assert torch.equal(g_idx, ref_idx) and torch.equal(g_mr, ref_mr)
+    return t_idx, t_vals
+
+
+@pytest.mark.parametrize("n,m,d,k,dilation", TC_SHAPES)
+def test_tc_kernels_match_plain(cuda, n, m, d, k, dilation):
+    """Random rows at the design's edges: D 40 and 200 (not multiples of
+    16), N 80, 324, 1296 and M 324, 1296 (not multiples of 16 or 64 rows),
+    every list length."""
+    x, y = _tc_case(n, m, d, seed=20)
+    _check_tc(x, y, k, dilation)
+
+
+@pytest.mark.parametrize("n,m,d,k,dilation", TC_SHAPES)
+def test_tc_kernels_exact_ties(cuda, n, m, d, k, dilation):
+    """Exact ties at the start, across a tile boundary and deep in the
+    scan, pushed down the lists by nearer targets: where a group is
+    selected, its lowest columns, in column order (the plain version's
+    order, which ``check_topk`` also holds)."""
+    x, y = _tc_case(n, m, d, seed=21, fixture=_exact_ties)
+    t_idx, _ = _check_tc(x, y, k, dilation)
+    for lo, hi in ((0, 4), (61, 67), (200, 203)):
+        inside = (t_idx >= lo) & (t_idx < hi)
+        place = inside.int().cumsum(-1) - 1  # among the group's selected
+        assert bool((t_idx[inside] == lo + place[inside]).all())
+    assert bool(((t_idx[:, 7] >= 200) & (t_idx[:, 7] < 203)).any(-1).all())
+
+
+@pytest.mark.parametrize("n,m,d,k,dilation", TC_SHAPES[:3])
+def test_tc_kernels_falling_distances(cuda, n, m, d, k, dilation):
+    """A row whose targets come nearer with every column: every candidate
+    passes the row's threshold, the lists take one insertion per column
+    (their worst case); the row keeps the last columns, nearest first."""
+    x, y = _tc_case(n, m, d, seed=22, fixture=_falling)
+    t_idx, _ = _check_tc(x, y, k, dilation)
+    # the falling row of each (batch, group) keeps the last columns, up to
+    # the bf16 rounding of neighbours' distances
+    assert int(t_idx[:, 5].min()) >= m - 4 * k * dilation
+
+
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_tc_kernels_nan_rows_match_plain(cuda, self_knn):
+    """bf16 NaN rows at the main path's widths: a NaN query row (its
+    columns 0, d, 2d, ... in column order, NaN mr), a NaN target row at the
+    first tile boundary (column 64: never chosen); knn_mr, grouped and
+    knn_topk bitwise the plain versions on those rows."""
+    g = torch.Generator().manual_seed(23)
+    n, m, d, k, dilation = 80, (80 if self_knn else 324), 40, 9, 2
+    x = torch.randn((2, n, 2 * d), generator=g)
+    y = x if self_knn else torch.randn((2, m, 2 * d), generator=g)
+    x[0, 3, :d] = float("nan")
+    (x if self_knn else y)[1, 64, d:] = float("nan")
+    x = x.to(torch.bfloat16).cuda()
+    y = x if self_knn else y.to(torch.bfloat16).cuda()
+    idx, mr = knn_mr.knn_mr_fused_grouped(x, y, None, k, dilation, 2)
+    ref_idx, ref_mr = knn_mr.knn_mr_grouped_reference(x, y, None, k,
+                                                      dilation, 2)
+    assert idx[0, 3, 0].tolist() == list(range(0, 2 * k, 2))
+    assert torch.equal(idx[0, 3], ref_idx[0, 3])
+    assert torch.isnan(mr[0, 3, :d]).all()
+    assert not (idx[1, :, 1] == 64).any()
+    f_idx, _ = folded_route(x, y, None, k, dilation, 2)
+    assert torch.equal(idx, f_idx)
+    xn = l2_normalize(fold_groups(x, 2))
+    yn = xn if self_knn else l2_normalize(fold_groups(y, 2))
+    t_idx, t_vals = knn_topk.launch(xn, yn, k=k * dilation,
+                                    return_values=True)
+    p_idx, _ = knn_topk_reference(xn, yn, k=k * dilation,
+                                  return_values=True)
+    assert torch.equal(t_idx[0, 3], p_idx[0, 3])
+    assert torch.isnan(t_vals[0, 3]).all()
+    assert not (t_idx[3][torch.isfinite(xn[3]).all(-1)] == 64).any()
