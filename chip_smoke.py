@@ -21,11 +21,13 @@ Phases (each prints its elapsed seconds):
      (d) kernel and plain times with CUDA events after warmup;
      the backward (knn_mr_backward), on inputs with exact ties in the max
      (tie_fixture) and the forward kernel's idx:
-     (e) gx bitwise -g; the per-edge gradients, hence the tie sets,
-         bitwise the plain version's;
-     (f) gy within backward_gy_bound of the fp64 sum of those gradients
-         (the fp32 summation bound; in bf16 plus one rounding);
-     (g) a second launch bitwise equal (no atomics), and the times;
+     (e) gx bitwise -g;
+     (f) gy bitwise knn_mr_backward_ordered_reference (each target's fp32
+         sum from 0.0 in ascending edge id, the kernel's order, which also
+         holds the tie sets), and within backward_gy_bound of the fp64 sum;
+         every group has a row with a tie;
+     (g) a second launch bitwise equal (no atomics), the times, and each
+         call's largest and 99th-percentile in-degree;
      the forward rows also hold knn_topk(xn, yn, k*d)[..., ::d] bitwise to
      knn_mr's idx on knn_mr's own normalized rows (the same selection
      helpers and arithmetic). knn_topk (knn_graph's kernel) at every shape of this slice's
@@ -71,10 +73,12 @@ Phases (each prints its elapsed seconds):
      (knn_mr_grouped_reference): mr bitwise where idx agrees, every idx
      difference a near-tie by the fp64 oracle on both sides, at most
      FLIP_SHARE of the forward's (row, group) pairs; per bf16 call the
-     grouped, folded-route and plain ms and the bound; then 3 train steps at batch 8 (16 grouped
-     forward and 16 backward launches each, no folded one), the step-1
-     loss bitwise phase 5's and the step-1 gradients held to phase 5's per
-     parameter, ms/step and peak memory;
+     grouped, folded-route and plain ms and the bound; then 3 train steps
+     at batch 8 (16 grouped forward and 16 backward launches each, no
+     folded one), each step's 16 grouped backward calls (the group-strided
+     kernel, no fold copy) bitwise fold -> the folded backward -> unfold on
+     their own inputs, the step-1 loss bitwise phase 5's and the step-1
+     gradients held to phase 5's per parameter, ms/step and peak memory;
   8. the phases (gkgnet_tpu_torch/tools/exp_kernel_phases.py) at the
      tool's geometry (BG 16, N 20736, M 1296, D 40, K 9, bf16): the four
      phase kernels timed (each launched on that run), then each checksum
@@ -219,11 +223,32 @@ def print_ptxas_summary(compiler_log: str) -> None:
     name = None
     for line in compiler_log.splitlines():
         fn = re.search(r"Compiling entry function '_Z\w*?(knn_mr_kernel|"
-                       r"knn_topk_kernel|l2norm_rows|row_sq|edge_grads|"
-                       r"gather_targets|knn_mr_tc_kernel|knn_topk_tc_kernel)"
+                       r"knn_topk_kernel|l2norm_rows|row_sq|"
+                       r"knn_mr_tc_kernel|knn_topk_tc_kernel)"
                        r"I(13__nv_bfloat16|f)?(?:Li(\d+)E)?(?:Lb([01])E)?"
                        r"(?:Li(\d+)E)?", line)
-        if fn:
+        bwd = re.search(r"Compiling entry function '_Z\w*?(rank_edges|"
+                        r"target_offsets|row_split|target_sum)(\w*)'", line)
+        if bwd:  # the backward's: type, folded or grouped, and its flags
+            args = re.match(r"I(13__nv_bfloat16|f)?((?:Lb[01]E)*)(t|m)?"
+                            r"(?:Li(\d+)E)?", bwd.group(2))
+            parts = []
+            if args:
+                if args.group(1):
+                    parts.append("fp32" if args.group(1) == "f" else "bf16")
+                flags = re.findall(r"Lb([01])E", args.group(2))
+                names = (("grouped", "folded"),
+                         ("smem counts", "global counts")
+                         if bwd.group(1) == "rank_edges"
+                         else ("16-byte rows", "scalar rows"))
+                parts += [on if flag == "1" else off
+                          for flag, (on, off) in zip(flags, names)]
+                if args.group(3):  # the tie masks' words
+                    parts.append("k<=16" if args.group(3) == "t" else "k<=64")
+                if args.group(4):
+                    parts.append(f"{args.group(4)} edges in flight")
+            name = bwd.group(1) + (f"<{', '.join(parts)}>" if parts else "")
+        elif fn:
             # the tensor-core kernels are bf16 only: no type argument
             dtype = "fp32" if fn.group(2) == "f" else "bf16"
             phase = int(fn.group(5) or 0)  # knn_mr_kernel's: 0 the forward
@@ -239,8 +264,8 @@ def print_ptxas_summary(compiler_log: str) -> None:
 
 
 OUR_KERNELS = ("knn_mr_kernel", "knn_mr_tc_kernel", "l2norm_rows",
-               "edge_grads", "gather_targets", "knn_topk_kernel",
-               "knn_topk_tc_kernel", "row_sq")
+               "rank_edges", "target_offsets", "row_split", "target_sum",
+               "knn_topk_kernel", "knn_topk_tc_kernel", "row_sq")
 
 
 def profile_device(run, unit: str, iters: int = 3) -> None:
@@ -424,24 +449,41 @@ def tie_fixture(x: torch.Tensor, y: torch.Tensor) -> None:
         y[:, :4] = 3.0 * base
 
 
-def check_backward(name: str, x, y, idx, g, out) -> tuple[float, int]:
-    """(e) and (f) for one backward launch ``out = (gx, gy, ge)``. Returns
-    the largest |gy - exact| and the number of rows with a tie."""
-    gx, gy, ge = out
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of a float tensor: bitwise comparisons that tell
+    -0.0 from 0.0."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_backward(name: str, x, y, idx, g, out) -> tuple[float, float, int]:
+    """(e) and (f) for one backward launch ``out = (gx, gy)``. Returns the
+    largest |gy - the ordered plain gy| (0: bitwise), the largest
+    |gy - exact fp64 sum| and the number of rows with a tie."""
+    gx, gy = out
     check(gx.dtype == x.dtype and gy.shape == y.shape and gy.dtype == y.dtype,
           f"{name}: backward output shapes")
     check(torch.equal(gx, -g), f"{name}: gx is not -g")
+    _, want = knn_mr.knn_mr_backward_ordered_reference(x, y, idx, g)
+    err = (gy.float() - want.float()).abs().max().item()
+    check(torch.equal(bits(gy), bits(want)), f"{name}: gy not bitwise the "
+          f"ordered plain version's (max |diff| {err:.3e})")
+    del want
     ge_ref = knn_mr.edge_gradients_reference(x, y, idx, g)
-    check(torch.equal(ge, ge_ref), f"{name}: per-edge gradients (tie sets) "
-          f"differ from the plain version's")
     tie_rows = int(((ge_ref != 0).sum(dim=2) > 1).any(dim=-1).sum())
+    exact, bound = knn_mr.backward_gy_bound(ge_ref, idx, y.shape[1])
     del ge_ref
-    exact, bound = knn_mr.backward_gy_bound(ge, idx, y.shape[1])
-    err = (gy.double() - exact).abs()
-    over = int((err > bound).sum())
+    gap = (gy.double() - exact).abs()
+    over = int((gap > bound).sum())
     check(over == 0, f"{name}: gy off the fp64 sum beyond the bound at "
-          f"{over} entries (worst {err.max().item():.3e})")
-    return err.max().item(), tie_rows
+          f"{over} entries (worst {gap.max().item():.3e})")
+    return err, gap.max().item(), tie_rows
+
+
+def in_degrees(idx: torch.Tensor, m: int) -> tuple[int, float]:
+    """The largest and the 99th-percentile number of edges into a target."""
+    deg = torch.bincount(knn_mr._flat_targets(idx, m),
+                         minlength=idx.shape[0] * m).float()
+    return int(deg.max()), float(deg.quantile(0.99))
 
 
 def backward_rows() -> list[dict]:
@@ -464,12 +506,14 @@ def backward_rows() -> list[dict]:
         g = torch.randn((BG, n, d), generator=gen, device="cuda").to(dtype)
         out = knn_mr.launch_backward(x, y, idx, g)
         torch.cuda.synchronize()
-        max_abs_err, tie_rows = check_backward(name, x, y, idx, g, out)
+        max_abs_err, fp64_err, tie_rows = check_backward(name, x, y, idx, g,
+                                                         out)
         check(tie_rows >= BG, f"{name}: the tie fixture gave {tie_rows} "
               f"rows with a tie")
         # (g) determinism, then times
         again = knn_mr.launch_backward(x, y, idx, g)
-        check(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]),
+        check(torch.equal(bits(out[0]), bits(again[0]))
+              and torch.equal(bits(out[1]), bits(again[1])),
               f"{name}: two launches differ")
         del again
         iters = 20 if n * m < 10**7 else 10
@@ -478,17 +522,20 @@ def backward_rows() -> list[dict]:
             lambda: knn_mr.knn_mr_backward_reference(x, y, idx, g), 3, 1)
         # least time: x, y, idx, g read once, gx and gy written once; per
         # edge and channel a subtraction, a comparison, a split and an add
-        gx, gy, _ = out
+        gx, gy = out
         nbytes = (x.nbytes + (0 if targets == "self" else y.nbytes)
                   + idx.nbytes + g.nbytes + gx.nbytes + gy.nbytes)
         flops = 4.0 * BG * n * k * d
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["fp32"] * 1e3
+        max_deg, p99_deg = in_degrees(idx, m)
         row = dict(name=name, dtype=dt, N=n, M=m, D=d, k=k,
-                   smem_bytes=0, calls_per_step=calls, ms=ms,
-                   plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                   calls_per_step=calls, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=max_abs_err, tie_rows=tie_rows)
+                   max_abs_err=max_abs_err, fp64_err=fp64_err,
+                   tie_rows=tie_rows, max_in_degree=max_deg,
+                   p99_in_degree=p99_deg)
         print("bwd_row " + json.dumps(row), flush=True)
         results.append(row)
         del x, y, idx, g, out, gx, gy
@@ -937,8 +984,7 @@ def compare_fp32_train() -> None:
         return idx, mr, l2_normalize(x), l2_normalize(y)
 
     def plain_bwd(x, y, idx, g):
-        gx, gy = knn_mr.knn_mr_backward_reference(x, y, idx, g)
-        return gx, gy, None
+        return knn_mr.knn_mr_backward_reference(x, y, idx, g)
 
     results = []
     for fwd, bwd, ulp in ((kernel_fwd, recording, False),
@@ -960,13 +1006,15 @@ def compare_fp32_train() -> None:
     check(len(calls) == 16, f"{len(calls)} backward calls, expected 16")
     worst = 0.0
     for i, ((x, y, idx, g), out) in enumerate(calls):
-        err, tie_rows = check_backward(f"fp32 backward call {i}", x, y, idx,
-                                       g, out)
+        _, err, tie_rows = check_backward(f"fp32 backward call {i}", x, y,
+                                          idx, g, out)
         worst = max(worst, err)
+        max_deg, p99_deg = in_degrees(idx, y.shape[1])
         print(f"  fp32 backward call {i:2d}: N={x.shape[1]:5d} "
-              f"M={y.shape[1]:5d} D={x.shape[2]:3d} k={idx.shape[2]}: "
-              f"{tie_rows} rows with a tie; max |gy - fp64| {err:.3e}",
-              flush=True)
+              f"M={y.shape[1]:5d} D={x.shape[2]:3d} k={idx.shape[2]}: gy "
+              f"bitwise the ordered plain version; {tie_rows} rows with a "
+              f"tie; max |gy - fp64| {err:.3e}; in-degree max {max_deg}, "
+              f"p99 {p99_deg:.0f}", flush=True)
     del calls
     torch.cuda.empty_cache()
     kernel, plain, moved = results
@@ -974,7 +1022,8 @@ def compare_fp32_train() -> None:
     def rel(key, other):
         return abs(kernel[key] - other[key]) / abs(kernel[key])
 
-    log(f"train fp32 batch 2: 16 backward calls passed (worst |gy - fp64| "
+    log(f"train fp32 batch 2: 16 backward calls passed, gx bitwise -g and "
+        f"gy bitwise the ordered plain version (worst |gy - fp64| "
         f"{worst:.3e}); loss: kernel {kernel['loss']:.7g}, plain "
         f"{plain['loss']:.7g} (rel diff {rel('loss', plain):.3e}), kernel on "
         f"images one ulp up {moved['loss']:.7g} (rel diff "
@@ -1119,6 +1168,36 @@ def check_grouped_calls(calls, label: str, timed: bool) -> list[dict]:
     return rows
 
 
+def folded_backward(x, y, idx, g, groups):
+    """fold -> the folded backward kernel -> unfold, on the unfolded rows
+    and idx ``(B, N, g, k)`` of one grouped backward call."""
+    b, n, _, k = idx.shape
+    xf = fold_groups(x, groups)
+    yf = xf if y is x else fold_groups(y, groups)
+    idxf = idx.permute(0, 2, 1, 3).reshape(b * groups, n, k).contiguous()
+    gx, gy = knn_mr.launch_backward(xf, yf, idxf, fold_groups(g, groups))
+    return unfold_groups(gx, groups), unfold_groups(gy, groups)
+
+
+def check_grouped_backward(calls, label: str) -> None:
+    """Each recorded grouped backward call's gx and gy bitwise fold -> the
+    folded backward -> unfold on the call's own inputs. The folded launches
+    made to compare are not counted."""
+    saved = knn_mr.backward_launches
+    try:
+        for i, ((x, y, idx, g, groups), (gx, gy)) in enumerate(calls):
+            want_gx, want_gy = folded_backward(x, y, idx, g, groups)
+            check(torch.equal(bits(gx), bits(want_gx))
+                  and torch.equal(bits(gy), bits(want_gy)),
+                  f"{label}: grouped backward call {i} (N={x.shape[1]}, "
+                  f"M={y.shape[1]}) differs from fold -> folded backward -> "
+                  f"unfold")
+    finally:
+        knn_mr.backward_launches = saved
+    log(f"{label}: its 16 grouped backward calls bitwise fold -> folded "
+        f"backward -> unfold")
+
+
 def grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
     """Phase 7: the grouped path, with GKGNET_GROUPED=1 for this phase only.
     Returns its launch counts, times and per-call rows."""
@@ -1191,15 +1270,31 @@ def _grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
     knn_mr.launches = knn_mr.grouped_launches = 0
     knn_mr.backward_launches = knn_topk.launches = 0
     ref_loss, ref_grads = ref_step1
+    kernel_bwd = knn_mr.launch_backward_grouped
     for i in range(3):
         before = (knn_mr.grouped_launches, knn_mr.backward_launches)
-        state, logs = fn(state, batch)
-        torch.cuda.synchronize()
+        calls = []
+
+        def recording(*args):
+            out = kernel_bwd(*args)
+            calls.append((args, out))
+            return out
+
+        knn_mr.launch_backward_grouped = recording
+        try:
+            state, logs = fn(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            knn_mr.launch_backward_grouped = kernel_bwd
         fwd = knn_mr.grouped_launches - before[0]
         bwd = knn_mr.backward_launches - before[1]
-        check(fwd == 16 and bwd == 16 and knn_mr.launches == 0,
+        check(fwd == 16 and bwd == 16 and knn_mr.launches == 0
+              and len(calls) == 16,
               f"grouped train step {i}: {fwd} grouped, {bwd} backward and "
-              f"{knn_mr.launches} folded launches, expected 16, 16 and 0")
+              f"{knn_mr.launches} folded launches, {len(calls)} grouped "
+              f"backward calls, expected 16, 16, 0 and 16")
+        check_grouped_backward(calls, f"grouped train step {i}")
+        del calls
         values = {k: float(v) for k, v in logs.items()}
         for key in ("loss", "grad_norm"):
             check(math.isfinite(values[key]),
@@ -1357,8 +1452,9 @@ def main() -> int:
     log("kernels: every forward row passed (a) bitwise mr and (b) the fp64 "
         "oracle")
     bwd_rows = backward_rows()
-    log("kernels: every backward row passed (e) gx and the tie sets, (f) gy "
-        "against the fp64 sums and (g) determinism")
+    log("kernels: every backward row passed (e) gx bitwise -g, (f) gy "
+        "bitwise the ordered plain version and within the fp64 bound, and "
+        "(g) determinism")
     t_rows = topk_rows()
     log("kernels: every knn_topk row passed the fp64 oracle, the value bound, "
         "the plain idx up to near-ties, determinism and the tie and NaN "
@@ -1444,7 +1540,8 @@ def main() -> int:
         "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
         "launches": train_bwd,
-        # largest |gy - exact fp64 sum| over the rows
+        # largest |gy - the ordered plain version's gy| over the rows (0:
+        # bitwise; the rows print |gy - exact fp64 sum| as fp64_err)
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
         # per train step at batch 8: the sum over the 16 calls' shapes
         "ms": bwd["ms"],

@@ -24,24 +24,31 @@ the fold-aware variant, the port of ``knn_mr.py::knn_mr_fused_grouped``:
 x ``(B, N, g*D)`` and y ``(B, M, g*D)`` arrive unfolded, group gi is
 channels ``[gi*D, (gi+1)*D)``, bias is None or ``(N, M)``; idx comes back
 ``(B, N, g, k)`` and mr ``(B, N, g*D)``, bitwise
-``unfold(knn_mr_fused(fold x, fold y))``. Its backward folds and runs the
-folded backward, as the JAX package's ``_bwd_grouped`` does.
+``unfold(knn_mr_fused(fold x, fold y))``. Its backward reads the unfolded
+rows as they are, with no fold copy, and gives bitwise what fold -> the
+folded backward -> unfold gives (the JAX package's ``_bwd_grouped``).
 
 On a CUDA tensor the wrappers launch the hand-written kernels in
 ``csrc/knn_mr.cu`` (forward, folded and grouped: for bfloat16 rows the
 tensor-core scan of ``csrc/knn_scan.cuh``, its products exact and summed in
 fp32 by the tensor cores; for float32 rows the CUDA-core scan, summed by
-fmaf) and ``csrc/knn_mr_bwd.cu`` (backward), and raise if they cannot; on a
-CPU tensor they run
-``knn_mr_reference``, ``knn_mr_grouped_reference`` and
-``knn_mr_backward_reference``, the plain PyTorch versions of the same
-functions. ``launches``, ``grouped_launches`` and ``backward_launches``
-count the kernels' launches.
+fmaf) and ``csrc/knn_mr_bwd.cu`` (backward, folded and group-strided: an
+inverse edge list built by its own counting sort, each target's sum in
+ascending edge id), and raise if they cannot; on a CPU tensor they run
+``knn_mr_reference``, ``knn_mr_grouped_reference``,
+``knn_mr_backward_reference`` and ``knn_mr_grouped_backward_reference``,
+the plain PyTorch versions of the same functions.
+``knn_mr_backward_ordered_reference`` is the plain backward with the
+kernel's summation order, a check. ``launches``, ``grouped_launches`` and
+``backward_launches`` count the kernels' launches (one backward launch per
+call, folded or grouped).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -57,6 +64,8 @@ grouped_launches = 0
 backward_launches = 0
 
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
+MAX_BWD_K = 64  # largest k of the backward kernel's per-channel tie masks
+MAX_BWD_CHUNKS = 256  # most 16-byte chunks of a row in the backward kernel
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -258,14 +267,12 @@ def launch_grouped(x: torch.Tensor, y: torch.Tensor,
 
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("knn_mr_bwd")
-    if lib.knn_mr_edge_grads.argtypes is None:
-        lib.knn_mr_edge_grads.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.knn_mr_edge_grads.restype = ctypes.c_int
-        lib.knn_mr_gather_targets.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-            + [ctypes.c_void_p])
-        lib.knn_mr_gather_targets.restype = ctypes.c_int
+    if lib.knn_mr_backward.argtypes is None:
+        lib.knn_mr_backward.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.knn_mr_backward.restype = ctypes.c_int
+        lib.knn_mr_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 7
+        lib.knn_mr_bwd_workspace_bytes.restype = ctypes.c_longlong
         lib.knn_mr_bwd_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -323,48 +330,171 @@ def knn_mr_backward_reference(x: torch.Tensor, y: torch.Tensor,
     return -g, gy.reshape(bg, m, d).to(y.dtype)
 
 
-def launch_backward(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
-                    g: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward CUDA kernels. ``idx`` is the forward's, with every
-    entry in [0, M). Returns ``(gx, gy, ge)``, where ge are the per-edge
-    gradients ``(BG, N, k, D)`` the kernel summed into gy."""
-    global backward_launches
+def knn_mr_backward_ordered_reference(x: torch.Tensor, y: torch.Tensor,
+                                      idx: torch.Tensor, g: torch.Tensor
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain backward with the kernel's summation order: ``(gx, gy)``
+    as ``knn_mr_backward_reference``, but each target's fp32 sum starts at
+    0.0 and runs over its edges in ascending edge id ``(bg*N + n)*k + j``,
+    one add per edge. A loop over the rank r within the target: the r-th
+    edge's row of ``edge_gradients_reference`` is gathered and added to
+    every target with more than r edges. Slow (one pass per rank up to the
+    largest in-degree); a check, never the CPU path."""
     _check_backward(x, y, idx, g)
-    for name, t in zip(("x", "y", "idx", "g"), (x, y, idx, g)):
-        if t.device.type != "cuda" or t.device != x.device:
+    bg, _, d = x.shape
+    m = y.shape[1]
+    ge = edge_gradients_reference(x, y, idx, g).reshape(-1, d)
+    flat = _flat_targets(idx, m)
+    order = torch.sort(flat, stable=True).indices  # by (target, edge id)
+    count = torch.bincount(flat, minlength=bg * m)
+    first = torch.cumsum(count, 0) - count
+    # at rank r the targets with more than r edges: a prefix of this order
+    by_degree = torch.sort(count, descending=True, stable=True).indices
+    alive = (count.numel() - torch.cumsum(torch.bincount(count), 0)).tolist()
+    acc = torch.zeros((bg * m, d), dtype=torch.float32, device=y.device)
+    for r, live in enumerate(alive[:-1]):
+        t = by_degree[:live]
+        acc[t] = acc[t] + ge[order[first[t] + r]].float()
+    return -g, acc.reshape(bg, m, d).to(y.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd_workspace_bytes(b: int, groups: int, n: int, m: int, d: int, k: int,
+                         is_bf16: int) -> int:
+    return _bwd_lib().knn_mr_bwd_workspace_bytes(b, groups, n, m, d, k,
+                                                 is_bf16)
+
+
+def _check_bwd_launch(tensors: dict, rows: int, d: int, k: int) -> int:
+    """The backward kernel's own limits, on inputs that passed the shape
+    checks: one CUDA device, contiguous, k <= MAX_BWD_K, fewer than 2**31
+    edges, its inverse list's entries ``row << ceil(log2 k) | j`` in 32
+    bits, and a row of at most MAX_BWD_CHUNKS 16-byte chunks. Returns the
+    device's index."""
+    x = tensors["x"]
+    dev = x.get_device()  # -1 on the CPU
+    for name, t in tensors.items():
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name} must be on {x.device} (CUDA), "
                              f"got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    bg, n, d = x.shape
-    m = y.shape[1]
-    k = idx.shape[2]
-    # the inverse edge list: edge ids sorted by (target, edge id); index
-    # bookkeeping only, the arithmetic is in the kernels
-    keys, order = torch.sort(_flat_targets(idx, m), stable=True)
-    first = torch.searchsorted(
-        keys, torch.arange(bg * m + 1, device=x.device))
-    gx = torch.empty_like(x)
-    gy = torch.empty_like(y)
-    ge = torch.empty((bg, n, k, d), dtype=x.dtype, device=x.device)
+    chunks = -(-d * x.element_size() // 16)
+    if (k > MAX_BWD_K or rows * k >= 2 ** 31
+            or rows << (k - 1).bit_length() >= 2 ** 32
+            or chunks > MAX_BWD_CHUNKS):
+        raise ValueError(f"the backward kernel takes k <= {MAX_BWD_K}, "
+                         f"fewer than 2**31 edges, rows << ceil(log2 k) < "
+                         f"2**32 and rows of at most {MAX_BWD_CHUNKS} "
+                         f"16-byte chunks, got k={k}, {rows} rows of "
+                         f"{chunks} chunks")
+    return dev
+
+
+def _launch_bwd(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+                g: torch.Tensor, b: int, groups: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/knn_mr_bwd.cu`` (its group-strided instantiation
+    when groups > 1) on checked inputs; returns ``(gx, gy)``."""
+    global backward_launches
+    n, m, k = x.shape[1], y.shape[1], idx.shape[-1]
+    d = x.shape[2] // groups
+    dev = _check_bwd_launch(dict(x=x, y=y, idx=idx, g=g), b * groups * n,
+                            d, k)
     lib = _bwd_lib()
     is_bf16 = int(x.dtype == torch.bfloat16)
-    with torch.cuda.device(x.device):
+    gx = torch.empty_like(x)
+    gy = torch.empty_like(y)
+    work = torch.empty(_bwd_workspace_bytes(b, groups, n, m, d, k, is_bf16),
+                       dtype=torch.uint8, device=x.device)
+    # the backward runs between the step's other launches: switch devices
+    # only where the caller's current one is another
+    with (torch.cuda.device(dev) if dev != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.knn_mr_edge_grads(
+        err = lib.knn_mr_backward(
             x.data_ptr(), y.data_ptr(), idx.data_ptr(), g.data_ptr(),
-            gx.data_ptr(), ge.data_ptr(), bg, n, m, d, k, is_bf16, stream)
-        if err == 0:
-            err = lib.knn_mr_gather_targets(
-                ge.data_ptr(), order.data_ptr(), first.data_ptr(),
-                gy.data_ptr(), bg * m, d, is_bf16, stream)
+            gx.data_ptr(), gy.data_ptr(), work.data_ptr(), b, groups, n, m,
+            d, k, is_bf16, stream)
     if err != 0:
         raise RuntimeError(f"knn_mr backward kernel launch failed: "
                            f"{lib.knn_mr_bwd_error_string(err).decode()} "
                            f"({err})")
     backward_launches += 1
-    return gx, gy, ge
+    return gx, gy
+
+
+def launch_backward(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
+                    g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward CUDA kernels on folded rows. ``idx`` is the
+    forward's, with every entry in [0, M). Returns ``(gx, gy)``."""
+    _check_backward(x, y, idx, g)
+    return _launch_bwd(x, y, idx, g, x.shape[0], 1)
+
+
+def _check_backward_grouped(x: torch.Tensor, y: torch.Tensor,
+                            idx: torch.Tensor, g: torch.Tensor,
+                            groups: int) -> None:
+    if x.dim() != 3 or y.dim() != 3 or groups < 1 \
+            or x.shape[2] % groups != 0:
+        raise ValueError(f"x and y must be (B, N, g*D) / (B, M, g*D) with "
+                         f"{groups} groups, got {tuple(x.shape)} and "
+                         f"{tuple(y.shape)}")
+    b, n, c = x.shape
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} must have x's shape "
+                         f"{tuple(x.shape)}")
+    if idx.dim() != 4 or idx.shape[:3] != (b, n, groups):
+        raise ValueError(f"idx must be (B, N, g, k) = ({b}, {n}, {groups}, "
+                         f"k), got {tuple(idx.shape)}")
+
+    def folded(t, rows):
+        return torch.empty((b * groups, rows, t.shape[-1] // groups),
+                           dtype=t.dtype, device="meta")
+
+    # the folded call's checks, on shapes only
+    _check_backward(folded(x, n), folded(y, y.shape[1]),
+                    torch.empty((b * groups, n, idx.shape[3]),
+                                dtype=idx.dtype, device="meta"),
+                    folded(g, n))
+
+
+def knn_mr_grouped_backward_reference(x: torch.Tensor, y: torch.Tensor,
+                                      idx: torch.Tensor, g: torch.Tensor,
+                                      groups: int
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of ``knn_mr_fused_grouped`` on the unfolded
+    rows, without fold copies: x ``(B, N, g*D)``, y ``(B, M, g*D)``, idx
+    ``(B, N, g, k)``, g like x; returns ``(gx, gy)`` unfolded, the values
+    of fold -> ``knn_mr_backward_reference`` -> unfold (each target's
+    edges summed in the same order)."""
+    _check_backward_grouped(x, y, idx, g, groups)
+    b, n, c = x.shape
+    m, d = y.shape[1], c // groups
+    bi = torch.arange(b, device=x.device)[:, None, None, None]
+    gi = torch.arange(groups, device=x.device)[None, None, :, None]
+    rel = y.reshape(b, m, groups, d)[bi, idx.long(), gi] \
+        - x.reshape(b, n, groups, d)[:, :, :, None, :]
+    tie = rel == rel.amax(dim=3, keepdim=True)
+    cnt = tie.sum(dim=3, keepdim=True)
+    ge = torch.where(tie, g.reshape(b, n, groups, d).float()[:, :, :, None]
+                     / cnt, 0.0).to(x.dtype)
+    # unfolded target rows (b*M + t)*g + gi, in the order (b, n, gi, j)
+    flat = ((bi * m + idx.long()) * groups + gi).reshape(-1)
+    gy = torch.zeros((b * m * groups, d), dtype=torch.float32,
+                     device=y.device)
+    gy.index_add_(0, flat, ge.reshape(-1, d).float())
+    return -g, gy.reshape(b, m, c).to(y.dtype)
+
+
+def launch_backward_grouped(x: torch.Tensor, y: torch.Tensor,
+                            idx: torch.Tensor, g: torch.Tensor, groups: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the group-strided backward on the unfolded rows as they are
+    (x, g ``(B, N, g*D)``, y ``(B, M, g*D)``, idx ``(B, N, g, k)``); returns
+    unfolded ``(gx, gy)``, bitwise fold -> ``launch_backward`` -> unfold."""
+    _check_backward_grouped(x, y, idx, g, groups)
+    return _launch_bwd(x, y, idx, g, x.shape[0], groups)
 
 
 class _KnnMr(torch.autograd.Function):
@@ -389,7 +519,7 @@ class _KnnMr(torch.autograd.Function):
         if x.device.type == "cpu":
             gx, gy = knn_mr_backward_reference(x, y, idx, g)
         else:
-            gx, gy, _ = launch_backward(x, y, idx, g)
+            gx, gy = launch_backward(x, y, idx, g)
         return gx, gy, None, None, None
 
 
@@ -403,9 +533,10 @@ def knn_mr_fused(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
 
 
 class _KnnMrGrouped(torch.autograd.Function):
-    """``knn_mr_fused_grouped`` with its backward, ``_bwd_grouped``'s: fold
-    x, y and the gradient, run the folded backward (the kernel for CUDA
-    tensors, the plain version for CPU tensors), unfold gx and gy."""
+    """``knn_mr_fused_grouped`` with its backward on the unfolded rows as
+    they are (the group-strided kernel for CUDA tensors, the plain version
+    for CPU tensors): no fold or unfold copy, the values of
+    ``_bwd_grouped``'s fold -> folded backward -> unfold."""
 
     @staticmethod
     def forward(ctx, x, y, bias, k, dilation, groups):
@@ -422,17 +553,13 @@ class _KnnMrGrouped(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _, g):
         x, y, idx = ctx.saved_tensors
-        groups = ctx.groups
-        b, n, _, k = idx.shape
-        xf, yf = fold_groups(x, groups), fold_groups(y, groups)
-        gf = fold_groups(g, groups)
-        idxf = idx.permute(0, 2, 1, 3).reshape(b * groups, n, k)
+        g = g.contiguous()
         if x.device.type == "cpu":
-            gx, gy = knn_mr_backward_reference(xf, yf, idxf, gf)
+            gx, gy = knn_mr_grouped_backward_reference(x, y, idx, g,
+                                                       ctx.groups)
         else:
-            gx, gy, _ = launch_backward(xf, yf, idxf.contiguous(), gf)
-        return (unfold_groups(gx, groups), unfold_groups(gy, groups), None,
-                None, None, None)
+            gx, gy = launch_backward_grouped(x, y, idx, g, ctx.groups)
+        return gx, gy, None, None, None, None
 
 
 def knn_mr_fused_grouped(x: torch.Tensor, y: torch.Tensor,
@@ -492,8 +619,8 @@ def backward_gy_bound(ge: torch.Tensor, idx: torch.Tensor, m: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's summation contract, checked in fp64.
 
-    From the per-edge gradients ``ge (BG, N, k, D)`` (``launch_backward``
-    returns them) and ``idx``, returns ``(exact, bound)``, both
+    From the per-edge gradients ``ge (BG, N, k, D)``
+    (``edge_gradients_reference``) and ``idx``, returns ``(exact, bound)``, both
     ``(BG, M, D)`` fp64: each target's exact sum and the bound that
     ``|gy - exact|`` must meet. A sum of n terms taken in fp32 in any order
     is off by at most ``gamma(n - 1) * sum|g_j|``, with

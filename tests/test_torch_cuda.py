@@ -218,6 +218,35 @@ def _bwd_case(bg, n, m, d, k, dilation, dtype, self_knn, seed=0):
     return x, y, idx, g
 
 
+def _bits(t):
+    """The bit patterns of a float tensor, for bitwise comparisons that tell
+    -0.0 from 0.0."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _check_bwd_kernel(x, y, idx, g):
+    """One backward launch against the plain versions: gx bitwise -g, gy
+    bitwise ``knn_mr_backward_ordered_reference`` (the same fp32 sums in
+    the same order, which also holds the tie sets), within
+    ``backward_gy_bound`` of the fp64 sum, and a second launch bitwise
+    equal (no atomics). Returns gy."""
+    before = knn_mr.backward_launches
+    gx, gy = knn_mr.launch_backward(x, y, idx, g)
+    torch.cuda.synchronize()
+    assert knn_mr.backward_launches == before + 1
+    assert gx.dtype == x.dtype and gy.dtype == y.dtype and gy.shape == y.shape
+    assert torch.equal(gx, -g)
+    _, want = knn_mr.knn_mr_backward_ordered_reference(x, y, idx, g)
+    assert torch.equal(_bits(gy), _bits(want))
+    ge = knn_mr.edge_gradients_reference(x, y, idx, g)
+    exact, bound = knn_mr.backward_gy_bound(ge, idx, y.shape[1])
+    finite = torch.isfinite(exact)
+    assert ((gy.double() - exact).abs() <= bound)[finite].all()
+    gx2, gy2 = knn_mr.launch_backward(x, y, idx, g)
+    assert torch.equal(_bits(gy2), _bits(gy)) and torch.equal(gx2, gx)
+    return gy
+
+
 @pytest.mark.parametrize("bg,n,m,d,k,dilation,dtype,self_knn", [
     (2, 100, 70, 12, 4, 1, torch.float32, False),
     (2, 64, None, 40, 9, 2, torch.bfloat16, True),
@@ -227,25 +256,104 @@ def _bwd_case(bg, n, m, d, k, dilation, dtype, self_knn, seed=0):
 ])
 def test_backward_kernel_matches_plain(cuda, bg, n, m, d, k, dilation, dtype,
                                        self_knn):
-    """The backward kernel against the plain version on the same idx: gx
-    bitwise -g, the per-edge gradients (hence the tie sets) bitwise, gy
-    within ``backward_gy_bound`` of the fp64 sum (the fp32 summation bound,
-    plus one rounding in bf16), and a second launch bitwise equal (no
-    atomics)."""
+    """The backward kernel against the plain versions on the forward
+    kernel's idx of rows with exact ties (``_check_bwd_kernel``)."""
     x, y, idx, g = _bwd_case(bg, n, m or n, d, k, dilation, dtype, self_knn)
-    before = knn_mr.backward_launches
-    gx, gy, ge = knn_mr.launch_backward(x, y, idx, g)
-    torch.cuda.synchronize()
-    assert knn_mr.backward_launches == before + 1
-    assert gx.dtype == dtype and gy.dtype == dtype and gy.shape == y.shape
-    assert torch.equal(gx, -g)
-    ge_ref = knn_mr.edge_gradients_reference(x, y, idx, g)
-    assert torch.equal(ge, ge_ref)
-    assert ((ge_ref[:, 0] != 0).sum(dim=1) >= 2).all(), "row 0 must tie"
-    exact, bound = knn_mr.backward_gy_bound(ge_ref, idx, y.shape[1])
-    assert ((gy.double() - exact).abs() <= bound).all()
-    gx2, gy2, _ = knn_mr.launch_backward(x, y, idx, g)
-    assert torch.equal(gy, gy2) and torch.equal(gx, gx2)
+    ge = knn_mr.edge_gradients_reference(x, y, idx, g)
+    assert ((ge[:, 0] != 0).sum(dim=1) >= 2).all(), "row 0 must tie"
+    _check_bwd_kernel(x, y, idx, g)
+
+
+def _distinct_idx(bg, n, m, k, gen):
+    """Seeded idx (bg, n, k), int32, k distinct targets per row."""
+    return torch.rand((bg, n, m), generator=gen).argsort(-1)[..., :k].to(
+        torch.int32)
+
+
+def _bwd_hub(dtype):
+    """One target with 4500 incoming edges in each group (every row holds
+    target 3, at slot n % k), whose edges come from every ranking unit of
+    the group (18000 edges); target 5 equals target 3, so the rows holding
+    both tie."""
+    gen = torch.Generator().manual_seed(31)
+    bg, n, m, d, k = 2, 4500, 64, 40, 4
+    idx = _distinct_idx(bg, n, m - 1, k, gen)
+    idx = idx + (idx >= 3).to(torch.int32)  # targets other than 3
+    rows = torch.arange(n)
+    idx[:, rows, rows % k] = 3
+    x = torch.randn((bg, n, d), generator=gen)
+    y = torch.randn((bg, m, d), generator=gen)
+    y[:, 5] = y[:, 3]
+    return x.to(dtype), y.to(dtype), idx, 3
+
+
+def _bwd_no_edges(dtype):
+    """Label-like (M >> N): most targets get no edge, and their gy is 0."""
+    gen = torch.Generator().manual_seed(32)
+    x = torch.randn((2, 30, 40), generator=gen).to(dtype)
+    y = torch.randn((2, 5000, 40), generator=gen).to(dtype)
+    idx, _ = knn_mr.knn_mr_reference(x, y, None, 9)
+    return x, y, idx, None
+
+
+def _bwd_nan_rows(dtype):
+    """A NaN query row (its channels get no gradient) and a NaN target row
+    that 10 rows chose: those rows' channels get none either."""
+    gen = torch.Generator().manual_seed(33)
+    x = torch.randn((2, 40, 16), generator=gen)
+    y = torch.randn((2, 96, 16), generator=gen)
+    x[0, 3] = float("nan")
+    y[1, 5] = float("nan")
+    idx = _distinct_idx(2, 40, 95, 6, gen)
+    idx = idx + (idx >= 5).to(torch.int32)  # targets other than 5
+    idx[1, :10, 0] = 5
+    return x.to(dtype), y.to(dtype), idx, None
+
+
+def _bwd_k1(dtype):
+    """k = 1: every edge carries its row's whole gradient."""
+    gen = torch.Generator().manual_seed(34)
+    x = torch.randn((3, 200, 24), generator=gen).to(dtype)
+    y = torch.randn((3, 50, 24), generator=gen).to(dtype)
+    return x, y, _distinct_idx(3, 200, 50, 1, gen), None
+
+
+def _bwd_d33(dtype):
+    """D = 33, not a multiple of 8: the kernels' scalar loads, a last chunk
+    of one channel; exact ties from ``tie_fixture``."""
+    gen = torch.Generator().manual_seed(35)
+    x = torch.randn((2, 120, 33), generator=gen)
+    y = torch.randn((2, 90, 33), generator=gen)
+    tie_fixture(x, y)
+    x, y = x.to(dtype).cuda(), y.to(dtype).cuda()
+    idx, _ = knn_mr.knn_mr_fused(x, y, None, 7, 1)
+    return x, y, idx.cpu(), None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("make", [_bwd_hub, _bwd_no_edges, _bwd_nan_rows,
+                                  _bwd_k1, _bwd_d33],
+                         ids=["hub", "no_edges", "nan_rows", "k1", "d33"])
+def test_backward_kernel_edge_cases(cuda, make, dtype):
+    """The backward kernel at the inverse list's edges (``_check_bwd_kernel``
+    each): a hub target over many ranking units, targets with no edge
+    (gy exactly 0), NaN query and target rows, k = 1, D = 33."""
+    x, y, idx, hub = make(dtype)
+    gen = torch.Generator().manual_seed(36)
+    g = torch.randn(x.shape, generator=gen).to(dtype)
+    x, y, idx, g = x.to(cuda), y.to(cuda), idx.to(cuda), g.to(cuda)
+    gy = _check_bwd_kernel(x, y, idx, g)
+    count = torch.bincount(knn_mr._flat_targets(idx, y.shape[1]),
+                           minlength=y.shape[0] * y.shape[1])
+    no_edge = (count == 0).reshape(y.shape[:2])
+    assert (gy[no_edge] == 0).all()
+    if make is _bwd_hub:
+        assert (count.reshape(y.shape[:2])[:, hub] >= 4000).all()
+    if make is _bwd_no_edges:
+        assert no_edge.float().mean() > 0.9
+    if make is _bwd_nan_rows:
+        assert torch.isfinite(gy).all()
 
 
 @pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
@@ -643,6 +751,35 @@ def test_grouped_backward_matches_folded(cuda, self_knn):
     assert torch.equal(grads[0][0], grads[1][0])
     if not self_knn:
         assert torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_grouped_backward_kernel_matches_folded(cuda, self_knn, dtype):
+    """The group-strided backward on the unfolded rows as they are against
+    fold -> the folded backward -> unfold: gx and gy bitwise (with exact
+    ties, 3 groups, D = 40); one backward launch each."""
+    gen = torch.Generator().manual_seed(7)
+    b, g, n, d, k, dilation = 3, 3, 250, 40, 9, 2
+    x = torch.randn((b, n, g * d), generator=gen)
+    y = x if self_knn else torch.randn((b, 180, g * d), generator=gen)
+    tie_fixture(x, y)
+    x = x.to(dtype).to(cuda)
+    y = x if self_knn else y.to(dtype).to(cuda)
+    grad = torch.randn((b, n, g * d), generator=gen).to(dtype).to(cuda)
+    idx, _, _, _ = knn_mr.launch_grouped(x, y, None, k, dilation, g)
+    before = knn_mr.backward_launches
+    gx, gy = knn_mr.launch_backward_grouped(x, y, idx, grad, g)
+    torch.cuda.synchronize()
+    assert knn_mr.backward_launches == before + 1
+    xf = fold_groups(x, g)
+    yf = xf if self_knn else fold_groups(y, g)
+    idxf = idx.permute(0, 2, 1, 3).reshape(b * g, n, k).contiguous()
+    fgx, fgy = knn_mr.launch_backward(xf, yf, idxf, fold_groups(grad, g))
+    assert torch.equal(_bits(gx), _bits(unfold_groups(fgx, g)))
+    assert torch.equal(_bits(gy), _bits(unfold_groups(fgy, g)))
+    assert torch.equal(gx, -grad)
 
 
 def test_grouped_route_in_the_model_matches_default(cuda, monkeypatch):

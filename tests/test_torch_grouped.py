@@ -129,6 +129,83 @@ def test_grouped_autograd_matches_jax_grad(self_knn):
                                    rtol=1e-5, atol=1e-5)
 
 
+def _grouped_bwd_inputs(dtype, self_knn, seed=12):
+    """Unfolded rows with exact ties (target rows 5, 6 and 7 equal, so that
+    dilation 2 keeps two of them), the plain grouped forward's idx and an
+    output gradient, in ``dtype``."""
+    b, g, n, m, d, k, dil = 2, 2, 32, 24, 6, 4, 2
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n, g * d)).astype(np.float32)
+    y = x.copy() if self_knn else rng.standard_normal(
+        (b, m, g * d)).astype(np.float32)
+    y[:, 6] = y[:, 7] = y[:, 5]
+    if self_knn:
+        x = y
+    grad = rng.standard_normal(x.shape).astype(np.float32)
+    tx = _t(x).to(dtype)
+    ty = tx if self_knn else _t(y).to(dtype)
+    idx, _ = tknn_mr.knn_mr_grouped_reference(tx, ty, None, k, dil, g)
+    return tx, ty, idx, _t(grad).to(dtype), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_grouped_backward_reference_matches_folded(dtype, self_knn):
+    """``knn_mr_grouped_backward_reference`` on the unfolded rows, without
+    fold copies, bitwise fold -> ``knn_mr_backward_reference`` -> unfold
+    (each target's edges summed in the same order), with exact ties."""
+    x, y, idx, grad, g = _grouped_bwd_inputs(dtype, self_knn)
+    gx, gy = tknn_mr.knn_mr_grouped_backward_reference(x, y, idx, grad, g)
+    b, n, _, k = idx.shape
+    idxf = idx.permute(0, 2, 1, 3).reshape(b * g, n, k).contiguous()
+    fgx, fgy = tknn_mr.knn_mr_backward_reference(
+        fold_groups(x, g), fold_groups(y, g), idxf, fold_groups(grad, g))
+    assert gx.shape == x.shape and gy.shape == y.shape
+    assert torch.equal(gx, unfold_groups(fgx, g))
+    assert torch.equal(gy, unfold_groups(fgy, g))
+    ge = tknn_mr.edge_gradients_reference(
+        fold_groups(x, g), fold_groups(y, g), idxf, fold_groups(grad, g))
+    assert ((ge != 0).sum(dim=2) > 1).any(), "the fixture has no tie"
+
+
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_grouped_autograd_without_fold_copies_matches_jax_grad(
+        monkeypatch, self_knn):
+    """torch.autograd through the port's ``knn_mr_fused_grouped`` (fp32,
+    exact ties, dilation 2), whose backward takes the unfolded rows as they
+    are (fold_groups and unfold_groups raise once the forward has run),
+    against jax.grad through the JAX one (interpret mode): the same
+    gradients within 1e-5."""
+    x, y, idx, _, g = _grouped_bwd_inputs(torch.float32, self_knn, seed=13)
+    k, dil = idx.shape[-1], 2
+    w = np.random.default_rng(14).standard_normal(x.shape).astype(np.float32)
+
+    def j_loss(x_, y_):
+        _, mr = jknn_mr.knn_mr_fused_grouped(
+            x_, x_ if self_knn else y_, None, k, dil, g, 8, True)
+        return jnp.sum(mr * mr * jnp.asarray(w))
+
+    j_gx, j_gy = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(x.numpy()),
+                                                  jnp.asarray(y.numpy()))
+    tx = x.clone().requires_grad_()
+    ty = tx if self_knn else y.clone().requires_grad_()
+    got_idx, mr = tknn_mr.knn_mr_fused_grouped(tx, ty, None, k, dil, g)
+    assert torch.equal(got_idx, idx)
+
+    def no_copy(*_):
+        raise AssertionError("the grouped backward made a fold copy")
+
+    monkeypatch.setattr(tknn_mr, "fold_groups", no_copy)
+    monkeypatch.setattr(tknn_mr, "unfold_groups", no_copy)
+    (mr * mr * _t(w)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(j_gx),
+                               rtol=1e-5, atol=1e-5)
+    if not self_knn:
+        np.testing.assert_allclose(ty.grad.numpy(), np.asarray(j_gy),
+                                   rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("case", ["batched_bias", "groups_split",
                                   "channels", "kd_over_m"])
 def test_grouped_rejects_bad_inputs(case):

@@ -485,3 +485,117 @@ def test_backward_gy_bound_holds_plain_and_flags_a_wrong_sum(dtype):
     wrong = gy.double()
     wrong[0, idx[0, 0, 0]] -= ge[0, 0, 0].double()
     assert ((wrong - exact).abs() > bound).any()
+
+
+# ------------- knn_mr backward: the kernel's summation order, in plain torch
+
+
+def _python_ordered_gy(x, y, idx, g):
+    """gy by a pure-Python loop: each target's fp32 sum from 0.0 over its
+    edges in ascending edge id (bg*N + n)*k + j, one numpy float32 add per
+    edge, rounded once to y's type."""
+    bg, n, d = x.shape
+    m, k = y.shape[1], idx.shape[2]
+    ge = tknn_mr.edge_gradients_reference(x, y, idx, g).float().numpy()
+    acc = np.zeros((bg, m, d), np.float32)
+    ids = idx.numpy()
+    for b in range(bg):
+        for r in range(n):
+            for j in range(k):
+                acc[b, ids[b, r, j]] = acc[b, ids[b, r, j]] + ge[b, r, j]
+    return _t(acc).to(y.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["ties", "hub", "k1"])
+def test_knn_mr_backward_ordered_reference_matches_python_loop(dtype, case):
+    """``knn_mr_backward_ordered_reference`` bitwise against a pure-Python
+    loop over the edges in ascending edge id: with exact ties, with a hub
+    target that every row chose (its sum the longest), and at k = 1; gx is
+    -g; targets no edge chose get exactly 0."""
+    if case == "k1":
+        x, y, idx, g = _bwd_inputs(2, 30, 40, 6, 1, dtype, seed=25)
+    else:
+        x, y, idx, g = _bwd_inputs(2, 40, 36, 6, 4, dtype, seed=26)
+    if case == "hub":  # target 7 in every row, once
+        idx = idx.clone()
+        idx[:, :, 0] = torch.where((idx == 7).any(-1), idx[:, :, 0], 7)
+        assert ((idx == 7).sum((1, 2)) == idx.shape[1]).all()
+    gx, gy = tknn_mr.knn_mr_backward_ordered_reference(x, y, idx, g)
+    assert torch.equal(gx, -g)
+    want = _python_ordered_gy(x, y, idx, g)
+    assert torch.equal(gy.float().view(torch.int32),
+                       want.float().view(torch.int32))
+    count = torch.bincount(tknn_mr._flat_targets(idx, y.shape[1]),
+                           minlength=y.shape[0] * y.shape[1])
+    assert (count == 0).any()
+    assert (gy.reshape(-1, y.shape[2])[count == 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_knn_mr_backward_ordered_reference_within_the_bound(dtype):
+    """The ordered plain version and ``knn_mr_backward_reference`` both
+    within ``backward_gy_bound`` of the fp64 sum (two fp32 sums of the
+    same terms in their orders), and within twice the bound of each
+    other."""
+    x, y, idx, g = _bwd_inputs(2, 48, 40, 8, 4, dtype, seed=27)
+    _, gy = tknn_mr.knn_mr_backward_ordered_reference(x, y, idx, g)
+    _, gy_plain = tknn_mr.knn_mr_backward_reference(x, y, idx, g)
+    ge = tknn_mr.edge_gradients_reference(x, y, idx, g)
+    exact, bound = tknn_mr.backward_gy_bound(ge, idx, 40)
+    assert ((gy.double() - exact).abs() <= bound).all()
+    assert ((gy_plain.double() - exact).abs() <= bound).all()
+    assert ((gy.double() - gy_plain.double()).abs() <= 2 * bound).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("self_knn", [False, True], ids=["cross", "self"])
+def test_knn_mr_backward_ordered_reference_matches_bwd_pallas(dtype,
+                                                              self_knn):
+    """The ordered plain version against the JAX package's Pallas backward
+    (interpret mode, one tile), at the tolerance of
+    ``test_knn_mr_backward_reference_matches_bwd_pallas``: gx bitwise, gy
+    within 1e-6 (fp32) or 1 bf16 ulp (bf16)."""
+    bg, n, m, d, k = 2, 48, 40, 8, 4
+    x, y, idx, g = _bwd_inputs(bg, n, m, d, k, dtype, seed=28)
+    if self_knn:
+        y = x.clone()
+        y[:, 31] = y[:, 30]
+        x = y
+        idx, _ = tknn_mr.knn_mr_reference(x, y, None, k)
+    gx, gy = tknn_mr.knn_mr_backward_ordered_reference(x, y, idx, g)
+    assert gx.dtype == dtype and gy.dtype == dtype and gy.shape == y.shape
+    jx, jy, jg = (jnp.asarray(a.float().numpy(), _JDT[dtype])
+                  for a in (x, y, g))
+    j_gx, j_gy = j_bwd_pallas(jx, jy, jnp.asarray(idx.numpy()), jg, k, n,
+                              True)
+    np.testing.assert_array_equal(gx.float().numpy(),
+                                  np.asarray(j_gx.astype(jnp.float32)))
+    got = gy.float().numpy()
+    ref = np.asarray(j_gy.astype(jnp.float32))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    else:
+        assert (np.abs(got - ref) <= _bf16_ulp(np.maximum(np.abs(got),
+                                                          np.abs(ref)))).all()
+
+
+def test_backward_wrappers_launch_only_on_cuda():
+    """The backward kernel's wrappers raise on CPU tensors (the autograd
+    Functions run the plain versions there) and count no launch; the
+    grouped wrapper checks its shapes first."""
+    x, y, idx, g = _bwd_inputs(1, 10, 16, 4, 3, torch.float32, seed=29,
+                               ties=False)
+    before = tknn_mr.backward_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tknn_mr.launch_backward(x, y, idx, g)
+    xu, yu, gu = (t.reshape(1, -1, 8) for t in (x, y, g))
+    idxu = idx.reshape(1, 5, 2, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tknn_mr.launch_backward_grouped(xu, yu, idxu, gu, 2)
+    with pytest.raises(ValueError, match="idx"):
+        tknn_mr.launch_backward_grouped(xu, yu, idx, gu, 2)
+    assert tknn_mr.backward_launches == before
