@@ -87,7 +87,24 @@ Phases (each prints its elapsed seconds):
      knn_mr.launch's own idx on the same rows; ms, plain ms and bound per
      phase, and the fp64 ordering oracle of the kernel's and the plain
      version's idx;
-  9. the kernels line, nvidia-smi's line, and the result line.
+  9. the CLI path: the port's make_synthetic_coco writes 256 train and 64
+     val images (the seeds of data/synthetic) into a temporary directory;
+     one pass of the train loader alone (img/s); then tools.train.main on
+     configs/gkgnet_synthetic_576.py as it is (s@576 bf16, batch 8, the
+     full augmentation recipe, ClassBalanced + RepeatAug, EMA, step lr with
+     warmup, 2 loader processes) with the data paths pointed at that set
+     and runner.max_epochs=1, evaluation.interval=1,
+     checkpoint_config.interval=1 and the two-phase workflow (a val_loss
+     pass): 32 steps, knn_mr launches counted exactly (16 forward and 16
+     backward per step, 16 forward per batch of the val_loss pass and of
+     the raw and EMA evaluations), no grouped or knn_topk launch, finite
+     losses, a val record with mAP and mAP_ema, a val_loss record, the
+     checkpoints; then tools.test.main on the epoch's checkpoint, raw and
+     EMA: (64, 80) scores whose mAP equals the log's (CLI_MAP_TOL);
+     ms/step, data_time and its share, img/s, val img/s, peak memory, the
+     checkpoint's size and save and restore seconds, the native ops' build
+     seconds;
+ 10. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -102,15 +119,22 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from gkgnet_tpu_torch import native  # noqa: E402
+from gkgnet_tpu_torch.core.builder import (build_dataset,  # noqa: E402
+                                           build_model)
+from gkgnet_tpu_torch.core.checkpoint import load_params_only  # noqa: E402
+from gkgnet_tpu_torch.data.loader import build_dataloader  # noqa: E402
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
@@ -120,6 +144,9 @@ from gkgnet_tpu_torch.ops.knn import (knn_topk_reference,  # noqa: E402
                                       l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
 from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
+from gkgnet_tpu_torch.tools import make_synthetic_coco  # noqa: E402
+from gkgnet_tpu_torch.tools import test as test_cli  # noqa: E402
+from gkgnet_tpu_torch.tools import train as train_cli  # noqa: E402
 from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 BG = 16                   # batch 8 x 2 channel groups
@@ -127,6 +154,13 @@ ORACLE_TOL = 1e-4         # ~2x the worst fp32 accumulation error at D=320
 ORACLE_ROWS = 4096
 FLIP_SHARE = 1e-3         # fp32: rows of a call whose idx may differ from
                           # the plain version's (near-ties, checked in fp64)
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+CLI_CONFIG = os.path.join(REPO_DIR, "configs", "gkgnet_synthetic_576.py")
+# the test CLI's mAP against the train log's, same weights and images: the
+# two score the same bytes with the same batch of 8 through the same
+# deterministic kernels (no atomics; cuDNN and cuBLAS at one shape on one
+# card), so the scores and the mAP are equal
+CLI_MAP_TOL = 0.0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense; fp32 without TF32
 
@@ -1410,6 +1444,173 @@ def phases_phase() -> dict:
     return dict(launches=launches, rows=rows, max_abs_err=worst)
 
 
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def cli_phase(smi: str) -> dict:
+    """Phase 9: the config-driven train and test CLIs on a synthetic set
+    made here, on the card nvidia-smi names ``smi``. Returns the launch
+    counts of the CLI runs."""
+    t = time.perf_counter()
+    native.lib()  # before the loader's spawned workers load it
+    log(f"cli: native ops built in {native.build_seconds:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="gkgnet_cli_") as root:
+        return _cli_phase(root, t, smi)
+
+
+def _cli_phase(root: str, t0: float, smi: str) -> dict:
+    t = time.perf_counter()
+    data = os.path.join(root, "synthetic")
+    n_tr = make_synthetic_coco.make_split(
+        os.path.join(data, "train"), os.path.join(data, "train.data"), 256, 0)
+    n_va = make_synthetic_coco.make_split(
+        os.path.join(data, "val"), os.path.join(data, "val.data"), 64, 1)
+    log(f"cli: make_synthetic_coco wrote {n_tr} train / {n_va} val images "
+        f"in {time.perf_counter() - t:.1f} s")
+    work = os.path.join(root, "work")
+    options = [
+        f"data.train.dataset.data_prefix={data}/train",
+        f"data.train.dataset.ann_file={data}/train.data",
+        f"data.val.data_prefix={data}/val",
+        f"data.val.ann_file={data}/val.data",
+        f"data.test.data_prefix={data}/val",
+        f"data.test.ann_file={data}/val.data",
+    ]
+    train_args = [CLI_CONFIG, "--work-dir", work, "--cfg-options", *options,
+                  "runner.max_epochs=1", "evaluation.interval=1",
+                  "checkpoint_config.interval=1",
+                  "workflow=[('train',1),('val',1)]"]
+
+    # the loader alone: one pass over the train loader, no model
+    cfg = train_cli.load_config(CLI_CONFIG, options)
+    per_batch = cfg.data["samples_per_device"]
+    loader = build_dataloader(
+        build_dataset(cfg.data["train"]), per_batch,
+        cfg.data["workers"], shuffle=True, sampler=cfg.sampler["type"],
+        seed=cfg.seed, drop_last=True, mode=cfg.data["loader_mode"])
+    t = time.perf_counter()
+    n_img = 0
+    try:
+        for b in loader:
+            if not n_img:
+                first_s = time.perf_counter() - t
+            n_img += len(b["img"])
+    finally:
+        loader.close()
+    loader_s = time.perf_counter() - t
+    steady = (n_img - per_batch) / (loader_s - first_s)
+    log(f"cli ({smi}): the train loader alone ({cfg.data['loader_mode']}, "
+        f"{cfg.data['workers']} workers): {n_img} images in {loader_s:.2f} s,"
+        f" {n_img / loader_s:.1f} img/s; the first batch after "
+        f"{first_s:.2f} s (the workers' start), then {steady:.1f} img/s")
+
+    # the train CLI: the main path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    knn_mr.launches = 0
+    knn_mr.grouped_launches = 0
+    knn_mr.backward_launches = 0
+    knn_topk.launches = 0
+    t = time.perf_counter()
+    summary = train_cli.main(train_args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    fwd, bwd, grouped, topk = (knn_mr.launches, knn_mr.backward_launches,
+                               knn_mr.grouped_launches, knn_topk.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps, batch = summary["steps"], summary["batch"]
+    val_batches = -(-n_va // batch)
+    want_fwd = 16 * (steps + 3 * val_batches)   # val_loss, raw, EMA
+    check(steps == 32 and batch == 8, f"{steps} steps at batch {batch}, "
+          f"expected 32 at 8")
+    check(fwd == want_fwd and bwd == 16 * steps and grouped == 0
+          and topk == 0,
+          f"train CLI: {fwd} forward, {bwd} backward, {grouped} grouped and "
+          f"{topk} knn_topk launches, expected {want_fwd}, {16 * steps}, 0, "
+          f"0")
+    with open(summary["log_json"]) as f:
+        records = [json.loads(line) for line in f]
+    by_mode = {}
+    for r in records:
+        by_mode.setdefault(r["mode"], []).append(r)
+    check(set(by_mode) == {"train", "val_loss", "val"},
+          f"log records {sorted(by_mode)}")
+    for r in by_mode["train"] + by_mode["val_loss"]:
+        for key in ("loss", "bce_loss", "asy_loss"):
+            check(math.isfinite(r[key]), f"{r['mode']} {key} = {r[key]}")
+    val = by_mode["val"][-1]
+    check(all(math.isfinite(val[k]) for k in ("mAP", "mAP_ema")),
+          f"val record {val}")
+    ckpt = os.path.join(work, "checkpoints")
+    check(os.path.isfile(os.path.join(ckpt, "1", "state.pt"))
+          and os.path.isdir(os.path.join(work, "best", "1")),
+          "the epoch's checkpoints")
+    log(f"cli: train CLI: {steps} steps, {fwd} forward and {bwd} backward "
+        f"knn_mr launches (exact), train loss {by_mode['train'][-1]['loss']:.6g}"
+        f", val_loss {by_mode['val_loss'][-1]['loss']:.6g}, mAP "
+        f"{val['mAP']:.4f}, mAP_ema {val['mAP_ema']:.4f}; {wall_s:.1f} s "
+        f"for the whole run")
+    step_ms = summary["train_s"] * 1e3 / steps
+    # without the first batch's wait (the loader workers' start)
+    later_s = summary["train_s"] - summary["first_data_s"]
+    later_data_s = summary["data_s"] - summary["first_data_s"]
+    log(f"cli ({smi}): {step_ms:.2f} ms/step wall with the real loader "
+        f"(the epoch's "
+        f"32 steps, the loader's start included), "
+        f"{batch * 1e3 / step_ms:.1f} img/s; data_time "
+        f"{summary['data_s'] * 1e3 / steps:.2f} ms/step "
+        f"({100 * summary['data_s'] / summary['train_s']:.1f} % of the "
+        f"step); after the first batch ({summary['first_data_s']:.2f} s): "
+        f"{later_s * 1e3 / steps:.2f} ms/step, {batch * steps / later_s:.1f}"
+        f" img/s, data_time {later_data_s * 1e3 / steps:.2f} ms/step "
+        f"({100 * later_data_s / later_s:.1f} %); "
+        f"val {summary['eval_images'] / summary['eval_s']:.1f} img/s "
+        f"(raw + EMA, {summary['eval_images']} images in "
+        f"{summary['eval_s']:.2f} s, the val loader included); val_loss pass "
+        f"{summary['val_loss_s']:.2f} s; peak memory {peak / 2**30:.2f} GiB")
+
+    # the checkpoint: size, save and restore seconds
+    model = build_model(cfg.model).to("cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    load_params_only(ckpt, model)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    log(f"cli ({smi}): checkpoint {dir_bytes(os.path.join(ckpt, '1')) / 2**20:.1f} "
+        f"MiB (model, AdamW state, EMA), saved in "
+        f"{summary['ckpt_save_s']:.2f} s, weights restored onto the card in "
+        f"{restore_s:.2f} s")
+    del model
+
+    # the test CLI on the epoch's checkpoint, raw and EMA
+    test_fwd = 0
+    for ema in (False, True):
+        out = os.path.join(root, f"scores_{int(ema)}.pkl")
+        f0 = knn_mr.launches
+        metrics, scores = test_cli.main(
+            [CLI_CONFIG, ckpt, "--out", out, "--cfg-options", *options]
+            + (["--ema"] if ema else []))
+        test_fwd += knn_mr.launches - f0
+        key = "mAP_ema" if ema else "mAP"
+        check(scores.shape == (n_va, 80) and bool(np.isfinite(scores).all()),
+              f"test CLI scores {scores.shape}")
+        check(os.path.isfile(out), f"{out} not written")
+        diff = abs(metrics["mAP"] - val[key])
+        check(diff <= CLI_MAP_TOL, f"test CLI mAP {metrics['mAP']} against "
+              f"the log's {key} {val[key]}: |diff| {diff} > {CLI_MAP_TOL}")
+        log(f"cli: test CLI{' --ema' if ema else ''}: scores "
+            f"{scores.shape}, mAP {metrics['mAP']:.4f} = the log's {key} "
+            f"(|diff| {diff})")
+    check(test_fwd == 2 * 16 * val_batches and knn_mr.backward_launches == bwd,
+          f"test CLI: {test_fwd} forward launches, expected "
+          f"{2 * 16 * val_batches}")
+    log(f"cli: phase 9 passed in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return dict(launches=(fwd + test_fwd, bwd))
+
+
 def per_step(rows: list[dict], calls_key: str) -> dict:
     """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
     and the bound that holds for the larger part of that bound_ms."""
@@ -1513,7 +1714,10 @@ def main() -> int:
     grouped = grouped_phase(ref_logits, train.pop("step1"))
     phase = phases_phase()
 
-    # 9. result lines
+    # 9. the config-driven CLIs
+    cli_fwd, cli_bwd = cli_phase(smi)["launches"]
+
+    # 10. result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
     topk = per_step(t_rows, "calls_per_pass")
@@ -1524,9 +1728,10 @@ def main() -> int:
         "route": "cuda",
         "source": "gkgnet_tpu_torch/csrc/knn_mr.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:874",
-        # the eval path (one forward + 3 requests) and the train path
-        # (3 steps)
-        "launches": eval_launches + train_fwd,
+        # the eval path (one forward + 3 requests), the train path (3
+        # steps) and the CLI path (32 steps, the val_loss pass, raw and
+        # EMA evaluations, the test CLI raw and EMA)
+        "launches": eval_launches + train_fwd + cli_fwd,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per forward at batch 8: the sum over the 16 calls' shapes
         "ms": fwd["ms"],
@@ -1539,7 +1744,7 @@ def main() -> int:
         "route": "cuda",
         "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
-        "launches": train_bwd,
+        "launches": train_bwd + cli_bwd,
         # largest |gy - the ordered plain version's gy| over the rows (0:
         # bitwise; the rows print |gy - exact fp64 sum| as fp64_err)
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
@@ -1605,8 +1810,9 @@ def main() -> int:
                              # call computes its checksum
     }]
     log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
-        f"(one forward + 3 requests) and {train_fwd} on the train path (3 "
-        f"steps); kernel knn_mr_backward: {train_bwd} on the train path; "
+        f"(one forward + 3 requests), {train_fwd} on the train path (3 "
+        f"steps) and {cli_fwd} on the CLI path; kernel knn_mr_backward: "
+        f"{train_bwd} on the train path and {cli_bwd} on the CLI path; "
         f"checks passed at {len(rows)} shapes each, 16 fp32 forward calls "
         f"and 16 fp32 backward calls on the model's own activations; kernel "
         f"knn_topk: {graph['launches']} launches on the Grapher path, checks "

@@ -9,7 +9,9 @@ nor JAX. Layout conventions are the JAX package's:
 
 Hand-written kernels live in ``csrc/`` and are built with ``nvcc`` on first
 use (``ops/_build.py``). Entry points (``entry.py``) run on the card unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``; so do the config-driven CLIs,
+``python -m gkgnet_tpu_torch.tools.train CONFIG`` and
+``python -m gkgnet_tpu_torch.tools.test CONFIG CKPT_DIR`` (``--device cpu``).
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,11 @@
     ``total - cool_down_time`` steps, then flat at
     ``base * cool_down_ratio``;
   * ``ReduceLrOnPlateau``: a host-side reducer whose ``scale`` multiplies
-    the schedule's output.
+    the schedule's output;
+  * ``build_lr_schedule``: either schedule from a config's ``lr_config``.
+
+The JAX package computes the same formulas in float32 on the device; here
+they run in float64 on the host.
 """
 
 from __future__ import annotations
@@ -90,3 +94,27 @@ class ReduceLrOnPlateau:
                 self.num_bad = 0
                 self.cooldown_counter = self.cooldown
         return self.scale
+
+
+def build_lr_schedule(cfg: dict, steps_per_epoch: int
+                      ) -> Callable[[int], float]:
+    """The schedule of an ``lr_config`` dict (with ``base_lr`` set from the
+    optimizer's lr): ``policy`` 'step' or 'cosine'; ``warmup_iters`` counts
+    epochs when ``warmup_by_epoch`` is set."""
+    policy = cfg.get("policy", "step")
+    base_lr = cfg["base_lr"]
+    warmup_iters = cfg.get("warmup_iters", 0)
+    if cfg.get("warmup_by_epoch"):
+        warmup_iters *= steps_per_epoch
+    if policy == "step":
+        return step_lr_with_warmup(
+            base_lr, steps_per_epoch, cfg["step"], cfg.get("gamma", 0.1),
+            warmup_iters=warmup_iters,
+            warmup_ratio=cfg.get("warmup_ratio", 1e-3))
+    if policy == "cosine":
+        return cosine_cooldown_lr(
+            base_lr, cfg["total_steps"],
+            cfg.get("cool_down_ratio", 0.1), cfg.get("cool_down_time", 10),
+            cfg.get("min_lr_ratio", 0.0), warmup_iters,
+            cfg.get("warmup_ratio", 1e-3))
+    raise ValueError(f"unknown lr policy {policy}")

@@ -154,10 +154,24 @@ def make_train_step(loss_fn: Callable | None = None,
     return train_step
 
 
+def pipeline_device_norm(pipeline_cfg) -> tuple | None:
+    """``(mean, std)`` if the pipeline's Normalize defers to the card
+    (``device=True``), else None: the batch then crosses to the card as
+    uint8 and ``make_device_normalize`` normalizes it there."""
+    for t in pipeline_cfg or ():
+        if isinstance(t, dict) and t.get("type") == "Normalize" \
+                and t.get("device", False):
+            return tuple(t["mean"]), tuple(t["std"])
+    return None
+
+
 def make_device_normalize(norm: tuple | None):
-    """``(x - mean) / std`` in fp32 on the batch's device for uint8
+    """``(x - mean) * (1 / std)`` in fp32 on the batch's device for uint8
     (B, H, W, 3) batches; float batches pass through. ``norm`` is
-    ``(mean, std)``, or None for the identity."""
+    ``(mean, std)``, or None for the identity. The reciprocal (fp32) is
+    what the JAX package computes: XLA turns its ``/ std`` by a constant
+    into that product, and its host ``Normalize`` does the same, so both
+    paths give the same bits."""
     if norm is None:
         return lambda img: img
     mean, std = norm
@@ -166,8 +180,8 @@ def make_device_normalize(norm: tuple | None):
         if img.dtype != torch.uint8:
             return img
         m = torch.tensor(mean, dtype=torch.float32, device=img.device)
-        s = torch.tensor(std, dtype=torch.float32, device=img.device)
-        return (img.float() - m) / s
+        inv = 1.0 / torch.tensor(std, dtype=torch.float32, device=img.device)
+        return (img.float() - m) * inv
 
     return dev_norm
 

@@ -23,13 +23,18 @@ class GKGNetClassifier(nn.Module):
     def __init__(self, arch: str = "s", k: int = 9, k_label_gcn: int = 9,
                  num_group: int = 2, n_classes: int = 80, size: int = 576,
                  num_gcn: int = 1, drop_path: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 head_kwargs: dict | None = None):
+        """``head_kwargs``: the LabelQueryHead's loss settings (a config's
+        ``model.head``)."""
         super().__init__()
         self.backbone = GKGNet(arch=arch, k=k, k_label_gcn=k_label_gcn,
                                num_group=num_group, n_classes=n_classes,
                                size=size, num_gcn=num_gcn,
                                drop_path=drop_path, dtype=dtype)
-        self.head = LabelQueryHead(n_classes, ARCH_SETTINGS[arch]["channels"][-1])
+        self.head = LabelQueryHead(
+            n_classes, ARCH_SETTINGS[arch]["channels"][-1],
+            **(head_kwargs or {}))
 
     def forward(self, imgs: torch.Tensor,
                 generator: torch.Generator | None = None):

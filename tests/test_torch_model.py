@@ -258,9 +258,14 @@ def test_entry_needs_a_card_unless_cpu_is_asked(monkeypatch):
 def test_import_leaves_jax_out():
     code = ("import sys, gkgnet_tpu_torch.entry, gkgnet_tpu_torch.utils.weights,"
             " gkgnet_tpu_torch.core.trainer, gkgnet_tpu_torch.core.optim,"
-            " gkgnet_tpu_torch.core.schedules, gkgnet_tpu_torch.nn.losses;"
+            " gkgnet_tpu_torch.core.schedules, gkgnet_tpu_torch.nn.losses,"
+            " gkgnet_tpu_torch.tools.train, gkgnet_tpu_torch.tools.test,"
+            " gkgnet_tpu_torch.tools.make_synthetic_coco,"
+            " gkgnet_tpu_torch.data, gkgnet_tpu_torch.native,"
+            " gkgnet_tpu_torch.core.checkpoint, gkgnet_tpu_torch.core.metrics,"
+            " gkgnet_tpu_torch.core.config, gkgnet_tpu_torch.core.builder;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'gkgnet_tpu')]; print(bad); "
+            "('jax', 'flax', 'optax', 'orbax', 'gkgnet_tpu')]; print(bad); "
             "sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
