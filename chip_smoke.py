@@ -104,7 +104,29 @@ Phases (each prints its elapsed seconds):
      ms/step, data_time and its share, img/s, val img/s, peak memory, the
      checkpoint's size and save and restore seconds, the native ops' build
      seconds;
- 10. the kernels line, nvidia-smi's line, and the result line.
+ 10. the serving path, in phase 9's directory on its epoch checkpoint and
+     64 val JPEGs (s@576 bf16): (a) core.hooks.precise_bn over 4 seeded
+     batches of 8 (16 knn_mr launches each, every running statistic
+     finite and moved); (b) tools.inference on one val JPEG, its scores
+     bitwise the eval step's on the dataset's own preprocessed image; (c)
+     tools.deployment.export on the card at batch 1 and 8 with --verify,
+     and at batch 1 on the grouped route: each graph holds 16 kernel nodes
+     (knn_mr_fused, or knn_mr_fused_grouped) and no sort or topk, one
+     forward of the loaded artifact launches exactly 16 kernels, the
+     grouped artifact's scores bitwise the default one's; size, export
+     seconds and the largest |artifact - eager| score; (d)
+     tools.deployment.test of the batch-8 artifact over the 64 images, its
+     mAP equal to phase 9's test CLI (CLI_MAP_TOL); (e)
+     tools.deployment.serve on port 0 in a thread, on the checkpoint and
+     on the batch-1 artifact: /ping, 8 POSTs of val JPEGs whose answers
+     are the in-process scorer's on the same bytes, then 320 timed POSTs,
+     16 knn_mr launches per request; ms per request over the 320 (p50,
+     p99, max, mean) and the split of a request in process (host decode
+     and pipeline, device normalization and forward); (f) at batch 1 in
+     fp32 (TF32 off), with PreciseBN's statistics, the relative logit
+     gaps of the kernel and the plain paths (printed, not asserted; the
+     kernel run must launch 16 kernels and the plain run none);
+ 11. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -120,7 +142,10 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 T0 = time.perf_counter()
@@ -134,6 +159,11 @@ from gkgnet_tpu_torch import native  # noqa: E402
 from gkgnet_tpu_torch.core.builder import (build_dataset,  # noqa: E402
                                            build_model)
 from gkgnet_tpu_torch.core.checkpoint import load_params_only  # noqa: E402
+from gkgnet_tpu_torch.core.export import (  # noqa: E402
+    load_exported_classifier)
+from gkgnet_tpu_torch.core.hooks import precise_bn  # noqa: E402
+from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
+                                           make_eval_step)
 from gkgnet_tpu_torch.data.loader import build_dataloader  # noqa: E402
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
@@ -144,9 +174,15 @@ from gkgnet_tpu_torch.ops.knn import (knn_topk_reference,  # noqa: E402
                                       l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
 from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
+from gkgnet_tpu_torch.tools import inference  # noqa: E402
 from gkgnet_tpu_torch.tools import make_synthetic_coco  # noqa: E402
 from gkgnet_tpu_torch.tools import test as test_cli  # noqa: E402
 from gkgnet_tpu_torch.tools import train as train_cli  # noqa: E402
+from gkgnet_tpu_torch.tools.deployment import (  # noqa: E402
+    export as export_cli)
+from gkgnet_tpu_torch.tools.deployment import serve  # noqa: E402
+from gkgnet_tpu_torch.tools.deployment import (  # noqa: E402
+    test as deploy_test)
 from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 BG = 16                   # batch 8 x 2 channel groups
@@ -1449,15 +1485,17 @@ def dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for f in files)
 
 
-def cli_phase(smi: str) -> dict:
+def cli_phase(smi: str) -> tuple[dict, dict]:
     """Phase 9: the config-driven train and test CLIs on a synthetic set
-    made here, on the card nvidia-smi names ``smi``. Returns the launch
-    counts of the CLI runs."""
+    made here, on the card nvidia-smi names ``smi``; then phase 10, the
+    serving path, in the same directory on phase 9's checkpoint and val
+    images. Returns the launch counts of each phase."""
     t = time.perf_counter()
     native.lib()  # before the loader's spawned workers load it
     log(f"cli: native ops built in {native.build_seconds:.2f} s")
     with tempfile.TemporaryDirectory(prefix="gkgnet_cli_") as root:
-        return _cli_phase(root, t, smi)
+        cli = _cli_phase(root, t, smi)
+        return cli, serving_phase(root, cli, smi)
 
 
 def _cli_phase(root: str, t0: float, smi: str) -> dict:
@@ -1586,6 +1624,7 @@ def _cli_phase(root: str, t0: float, smi: str) -> dict:
 
     # the test CLI on the epoch's checkpoint, raw and EMA
     test_fwd = 0
+    test_map = {}
     for ema in (False, True):
         out = os.path.join(root, f"scores_{int(ema)}.pkl")
         f0 = knn_mr.launches
@@ -1600,6 +1639,7 @@ def _cli_phase(root: str, t0: float, smi: str) -> dict:
         diff = abs(metrics["mAP"] - val[key])
         check(diff <= CLI_MAP_TOL, f"test CLI mAP {metrics['mAP']} against "
               f"the log's {key} {val[key]}: |diff| {diff} > {CLI_MAP_TOL}")
+        test_map[ema] = metrics["mAP"]
         log(f"cli: test CLI{' --ema' if ema else ''}: scores "
             f"{scores.shape}, mAP {metrics['mAP']:.4f} = the log's {key} "
             f"(|diff| {diff})")
@@ -1608,7 +1648,269 @@ def _cli_phase(root: str, t0: float, smi: str) -> dict:
           f"{2 * 16 * val_batches}")
     log(f"cli: phase 9 passed in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    return dict(launches=(fwd + test_fwd, bwd))
+    return dict(launches=(fwd + test_fwd, bwd), options=options,
+                ckpt=ckpt, val_dir=os.path.join(data, "val"),
+                n_val=n_va, test_map=test_map[False])
+
+
+SERVE_REQUESTS = 8      # POSTs to each server checked against its scorer
+SERVE_TIMED = 320       # POSTs timed after those (5 rounds of the 64 JPEGs)
+PRECISE_BN_BATCHES = 4  # seeded batches of 8 for PreciseBN
+
+
+def reset_launch_counts() -> None:
+    knn_mr.launches = knn_mr.grouped_launches = 0
+    knn_mr.backward_launches = knn_topk.launches = 0
+
+
+def check_counts(what: str, want: tuple[int, int, int, int],
+                 total: Counter) -> None:
+    """The launches since the last reset must be ``want``; they are added
+    to ``total`` (forward and grouped)."""
+    got = (knn_mr.launches, knn_mr.grouped_launches,
+           knn_mr.backward_launches, knn_topk.launches)
+    check(got == want, f"{what}: (forward, grouped, backward, knn_topk) "
+          f"launches {got}, expected {want}")
+    total.update(forward=got[0], grouped=got[1])
+
+
+def http(port: int, path: str, data: bytes | None = None):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="POST" if data else "GET")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def serving_phase(root: str, cli: dict, smi: str) -> dict:
+    """Phase 10: the serving path on phase 9's epoch checkpoint and val
+    JPEGs, in its directory ``root``. Returns the phase's knn_mr and grouped
+    launches."""
+    t0 = time.perf_counter()
+    ckpt = cli["ckpt"]
+    cfg = train_cli.load_config(CLI_CONFIG, cli["options"])
+    test_ds = build_dataset(cfg.data["test"])
+    total = Counter()  # the launches of the paths below, as each is read
+
+    # (a) PreciseBN on the checkpoint's model: 4 seeded batches of 8
+    model, _ = inference.init_model(CLI_CONFIG, ckpt)
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if "running" in k}
+    gen = torch.Generator().manual_seed(0)
+    batches = [torch.randn((8, 576, 576, 3), generator=gen)
+               for _ in range(PRECISE_BN_BATCHES)]
+    reset_launch_counts()
+    t = time.perf_counter()
+    used = precise_bn(model, batches,
+                      generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    pbn_s = time.perf_counter() - t
+    check(used == PRECISE_BN_BATCHES, f"precise_bn used {used} batches")
+    check_counts("precise_bn", (16 * used, 0, 0, 0), total)
+    sd = model.state_dict()
+    bad = [k for k in stats0 if not bool(torch.isfinite(sd[k]).all())]
+    still = [k for k in stats0 if torch.equal(sd[k], stats0[k])]
+    check(not bad and not still and not model.training,
+          f"precise_bn: statistics not finite {bad[:3]}, not moved "
+          f"{still[:3]}")
+    pbn_state = {k: v.cpu() for k, v in sd.items()}
+    log(f"serve: precise_bn over {used} batches of 8 in {pbn_s:.2f} s: "
+        f"{16 * used} knn_mr launches, all {len(stats0)} statistics finite "
+        f"and moved from the checkpoint's")
+    del model, sd, batches
+    torch.cuda.empty_cache()
+
+    # (b) inference on one val JPEG, bitwise the test CLI's eval step
+    model, _ = inference.init_model(CLI_CONFIG, ckpt)
+    reset_launch_counts()
+    scores, preds = inference.inference_model(model, cfg, test_ds.filepath(0))
+    check_counts("inference_model", (16, 0, 0, 0), total)
+    state = create_train_state(model, optimizer=None)
+    want = make_eval_step()(state, torch.from_numpy(
+        test_ds[0]["img"][None]).cuda())[0].cpu().numpy()
+    check(scores.shape == (80,) and np.array_equal(scores, want),
+          f"inference scores differ from the eval step's (max |diff| "
+          f"{np.abs(scores - want).max()})")
+    log(f"serve: inference_model on {os.path.basename(test_ds.filepath(0))}"
+        f": scores bitwise the eval step's; top-1 {preds[0]['class_name']} "
+        f"{preds[0]['score']:.4f}")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # (c) export on the card at batch 1 and 8 (--verify), then the grouped
+    # route at batch 1; each artifact's graph and its launches per forward
+    artifacts = {}
+    for batch, route in ((1, "default"), (8, "default"), (1, "grouped")):
+        out = os.path.join(root, f"gkgnet_s576_b{batch}_{route}.pt2")
+        if route == "grouped":
+            os.environ["GKGNET_GROUPED"] = "1"
+        try:
+            res = export_cli.main([CLI_CONFIG, ckpt, "--out", out, "--batch",
+                                   str(batch)]
+                                  + (["--verify"] if route == "default"
+                                     else []))
+        finally:
+            os.environ.pop("GKGNET_GROUPED", None)
+        ops = Counter(str(n.target) for n in res["program"].graph.nodes
+                      if n.op == "call_function")
+        name = "gkgnet_tpu_torch.knn_mr_fused" + (
+            "_grouped" if route == "grouped" else "") + ".default"
+        sorts = [o for o in ops if "sort" in o or "topk" in o]
+        kernel_ops = {o: c for o, c in ops.items() if "gkgnet_tpu_torch" in o}
+        check(kernel_ops == {name: 16} and not sorts,
+              f"{route} artifact b{batch}: kernel nodes {kernel_ops}, sort "
+              f"or topk nodes {sorts}")
+        clf = load_exported_classifier(out, device="cuda")
+        sample = np.random.default_rng(0).standard_normal(
+            clf.input_shape).astype(np.float32)
+        reset_launch_counts()
+        got = clf(sample)
+        check_counts(f"{route} artifact b{batch}, one forward",
+                     (0, 16, 0, 0) if route == "grouped" else (16, 0, 0, 0),
+                     total)
+        if route == "grouped":
+            check(np.array_equal(got, artifacts[(1, "default")][1]),
+                  "the grouped artifact's scores differ from the default "
+                  "artifact's")
+        check(got.shape == (batch, 80) and bool(np.isfinite(got).all()),
+              f"artifact scores {got.shape}")
+        artifacts[(batch, route)] = (out, got)
+        log(f"serve ({smi}): {route} artifact at batch {batch}: "
+            f"{res['bytes'] / 2**20:.1f} MiB, exported in "
+            f"{res['export_s']:.1f} s, {kernel_ops[name]} {name} nodes and no"
+            f" sort or topk; one forward launched 16 kernels"
+            + (f"; --verify max |artifact - eager| {res['max_diff']:.3e}"
+               if "max_diff" in res else "; scores bitwise the default "
+               "artifact's"))
+        del res
+    torch.cuda.empty_cache()
+
+    # (d) the deployment test CLI over the 64 val images (batch 8)
+    reset_launch_counts()
+    metrics, dep_scores = deploy_test.main(
+        [CLI_CONFIG, artifacts[(8, "default")][0], "--cfg-options",
+         *cli["options"]])
+    n_val = cli["n_val"]
+    check_counts("deployment test", (16 * (-(-n_val // 8)), 0, 0, 0), total)
+    diff = abs(metrics["mAP"] - cli["test_map"])
+    check(dep_scores.shape == (n_val, 80) and diff <= CLI_MAP_TOL,
+          f"deployment test mAP {metrics['mAP']} against the test CLI's "
+          f"{cli['test_map']}: |diff| {diff} > {CLI_MAP_TOL}")
+    log(f"serve: deployment test: {n_val} images, mAP {metrics['mAP']:.4f} "
+        f"= the test CLI's (|diff| {diff})")
+
+    # (e) the server, on the checkpoint and on the batch-1 artifact: the
+    # first requests checked against its scorer (and its warm-up), then
+    # SERVE_TIMED timed over the val JPEGs
+    raws = []
+    for i in range(n_val):
+        with open(test_ds.filepath(i), "rb") as f:
+            raws.append(f.read())
+    checked = raws[:SERVE_REQUESTS]
+    timed = [raws[i % n_val] for i in range(SERVE_TIMED)]
+    for source, arg in (("checkpoint", ["--checkpoint", ckpt]),
+                        ("artifact", ["--artifact",
+                                      artifacts[(1, "default")][0]])):
+        t = time.perf_counter()
+        server = serve.main([CLI_CONFIG, *arg, "--port", "0"], block=False)
+        start_s = time.perf_counter() - t
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = server.server_address[1]
+            check(http(port, "/ping") == (200, {"status": "Healthy"}),
+                  f"{source} server: /ping")
+            reset_launch_counts()
+            answers = [http(port, "/predictions/gkgnet", raw)
+                       for raw in checked]
+            ms = []
+            for raw in timed:
+                t = time.perf_counter()
+                status, _ = http(port, "/predictions/gkgnet", raw)
+                ms.append((time.perf_counter() - t) * 1e3)
+                check(status == 200, f"{source} server: answer {status}")
+            n_req = len(checked) + len(timed)
+            check_counts(f"{source} server, {n_req} requests",
+                         (16 * n_req, 0, 0, 0), total)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        # the request's parts in process, over the val JPEGs: the host's
+        # decode and pipeline, then the device's normalization and forward
+        # (its scores copied back); not on the path, so not counted
+        pre_ms, fwd_ms = [], []
+        for raw in raws:
+            t = time.perf_counter()
+            img = server.preprocess(raw)
+            t1 = time.perf_counter()
+            server.score_fn(img)
+            pre_ms.append((t1 - t) * 1e3)
+            fwd_ms.append((time.perf_counter() - t1) * 1e3)
+        for raw, (status, body) in zip(checked, answers):
+            scores = server.score_bytes(raw)
+            keep = np.where(scores >= 0.5)[0]
+            check(status == 200 and body["pred_label"] == keep.tolist()
+                  and body["pred_score"] == [round(float(scores[i]), 6)
+                                             for i in keep],
+                  f"{source} server: answer {status} {body} against the "
+                  f"scorer's")
+        log(f"serve ({smi}): {source} server: started in {start_s:.1f} s "
+            f"(warm-up included), /ping, {len(checked)} POSTs answered with "
+            f"the scorer's scores, then {len(ms)} timed, 16 knn_mr launches "
+            f"each; ms/request over the {len(ms)} (client clock): p50 "
+            f"{np.percentile(ms, 50):.2f}, p99 {np.percentile(ms, 99):.2f}, "
+            f"max {max(ms):.2f}, mean {np.mean(ms):.2f}; in process over "
+            f"{len(raws)} JPEGs, p50 ms: decode and pipeline (host) "
+            f"{np.percentile(pre_ms, 50):.2f}, normalize and forward "
+            f"(device, scores back) {np.percentile(fwd_ms, 50):.2f}")
+        del server
+        torch.cuda.empty_cache()
+
+    # (f) the open parity question at PreciseBN statistics
+    compare_precise_bn_paths(pbn_state, cfg, smi)
+    log(f"serve: phase 10 passed in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=total["forward"], grouped_launches=total["grouped"])
+
+
+def compare_precise_bn_paths(state_dict: dict, cfg, smi: str) -> None:
+    """GKGNet-S@576 at batch 1 in fp32 (TF32 off), with the checkpoint's
+    weights and PreciseBN's statistics: the logits of the kernel path, the
+    plain path on the card and the plain path on the CPU, printed as
+    compare_fp32_paths prints them at the seeded init (not asserted)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model({**cfg.model, "dtype": "float32"})
+    model.load_state_dict(state_dict)
+    model = model.cuda().eval()
+    x = torch.randn((1, 576, 576, 3),
+                    generator=torch.Generator().manual_seed(0))
+    kernel_op = grapher.knn_mr_fused
+    with torch.no_grad():
+        reset_launch_counts()
+        got = model(x.cuda())[0].cpu()
+        kernel_launches = knn_mr.launches
+        grapher.knn_mr_fused = knn_mr.knn_mr_reference
+        try:
+            plain_card = model(x.cuda())[0].cpu()
+        finally:
+            grapher.knn_mr_fused = kernel_op
+        # the two card runs took their own routes (0 would be no comparison)
+        check(kernel_launches == 16 and knn_mr.launches == 16,
+              f"kernel path {kernel_launches} launches, plain path "
+              f"{knn_mr.launches - kernel_launches}: expected 16 and 0")
+        plain_cpu = copy.deepcopy(model).cpu()(x)[0]
+    scale = float(plain_cpu.abs().max())
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / scale
+
+    log(f"serve ({smi}): s@576 fp32 batch 1, checkpoint weights with "
+        f"PreciseBN statistics: max|logit| {scale:.3e}; max|diff| / "
+        f"max|logit|: kernel vs plain (card) {rel(got, plain_card):.3e}, "
+        f"kernel vs plain (CPU) {rel(got, plain_cpu):.3e}, plain (card) vs "
+        f"plain (CPU) {rel(plain_card, plain_cpu):.3e}")
+    del model
+    torch.cuda.empty_cache()
 
 
 def per_step(rows: list[dict], calls_key: str) -> dict:
@@ -1714,10 +2016,11 @@ def main() -> int:
     grouped = grouped_phase(ref_logits, train.pop("step1"))
     phase = phases_phase()
 
-    # 9. the config-driven CLIs
-    cli_fwd, cli_bwd = cli_phase(smi)["launches"]
+    # 9. the config-driven CLIs; 10. the serving path on their checkpoint
+    cli, served = cli_phase(smi)
+    cli_fwd, cli_bwd = cli["launches"]
 
-    # 10. result lines
+    # 11. result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
     topk = per_step(t_rows, "calls_per_pass")
@@ -1729,9 +2032,11 @@ def main() -> int:
         "source": "gkgnet_tpu_torch/csrc/knn_mr.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:874",
         # the eval path (one forward + 3 requests), the train path (3
-        # steps) and the CLI path (32 steps, the val_loss pass, raw and
-        # EMA evaluations, the test CLI raw and EMA)
-        "launches": eval_launches + train_fwd + cli_fwd,
+        # steps), the CLI path (32 steps, the val_loss pass, raw and EMA
+        # evaluations, the test CLI raw and EMA) and the serving path
+        # (PreciseBN, inference, the artifacts' forwards, the deployment
+        # test, both servers' requests)
+        "launches": eval_launches + train_fwd + cli_fwd + served["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per forward at batch 8: the sum over the 16 calls' shapes
         "ms": fwd["ms"],
@@ -1778,8 +2083,9 @@ def main() -> int:
         "source": "gkgnet_tpu_torch/csrc/knn_mr.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1167",
         # the grouped path: eval (one forward + 3 requests) and train (3
-        # steps)
-        "launches": grouped["eval_launches"] + grouped["train_launches"][0],
+        # steps); the serving path's grouped artifact (one forward)
+        "launches": grouped["eval_launches"] + grouped["train_launches"][0]
+        + served["grouped_launches"],
         # largest |mr - the plain version's mr| over the 16 calls in bf16
         # and in fp32, on the (row, group) pairs whose idx agrees with the
         # plain idx (the rest are near-tie flips, held to the fp64 oracle)
@@ -1811,15 +2117,18 @@ def main() -> int:
     }]
     log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
         f"(one forward + 3 requests), {train_fwd} on the train path (3 "
-        f"steps) and {cli_fwd} on the CLI path; kernel knn_mr_backward: "
+        f"steps), {cli_fwd} on the CLI path and {served['launches']} on "
+        f"the serving path; kernel knn_mr_backward: "
         f"{train_bwd} on the train path and {cli_bwd} on the CLI path; "
         f"checks passed at {len(rows)} shapes each, 16 fp32 forward calls "
         f"and 16 fp32 backward calls on the model's own activations; kernel "
         f"knn_topk: {graph['launches']} launches on the Grapher path, checks "
         f"passed at {len(t_rows)} shapes and on the blocks' fp32 calls; "
         f"kernel knn_mr_fused_grouped: {grouped['eval_launches']} launches "
-        f"on the grouped eval path and {grouped['train_launches'][0]} on its "
-        f"train path, bitwise the folded route and held to the plain "
+        f"on the grouped eval path, {grouped['train_launches'][0]} on its "
+        f"train path and {served['grouped_launches']} from the serving "
+        f"path's grouped artifact, bitwise the folded route and held to the "
+        f"plain "
         f"version at the 16 calls in bf16 and fp32; kernel "
         f"exp_kernel_phases: {phase['launches']} launches on the tool's "
         f"run, every phase held to its plain version")

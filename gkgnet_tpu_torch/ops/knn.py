@@ -16,8 +16,9 @@ Contract:
 
 Node tensors are channel-last ``(B, N, C)``. ``knn_topk_reference`` is the
 plain version of the CUDA kernel behind ``ops.knn_topk.launch``;
-``knn_graph`` normalizes and then takes the kernel for CUDA tensors and the
-plain version for CPU tensors.
+``knn_graph`` normalizes and then calls the registered operator
+``torch.ops.gkgnet_tpu_torch.knn_topk``, which takes the kernel for CUDA
+tensors and the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -85,9 +86,29 @@ def knn_graph(
     """
     x = l2_normalize(x.detach())
     y = x if y is None else l2_normalize(y.detach())
-    if x.device.type == "cpu":
-        return knn_topk_reference(x, y, k=k, bias=bias)
+    return _knn_topk_op(x, y, k, bias)
+
+
+# The registered operator ``torch.ops.gkgnet_tpu_torch.knn_topk``: the
+# dispatcher picks the kernel for CUDA tensors and the plain version for CPU
+# tensors when the call runs, so an exported graph keeps the node (see
+# ``ops/knn_mr.py``). The kernel is looked up at call time.
+@torch.library.custom_op("gkgnet_tpu_torch::knn_topk", mutates_args=(),
+                         device_types="cpu")
+def _knn_topk_op(x: torch.Tensor, y: torch.Tensor, k: int,
+                 bias: torch.Tensor | None) -> torch.Tensor:
+    return knn_topk_reference(x, y, k=k, bias=bias)
+
+
+@_knn_topk_op.register_kernel("cuda")
+def _(x, y, k, bias):
     return knn_topk.launch(x, y, k=k, bias=bias)
+
+
+@_knn_topk_op.register_fake
+def _(x, y, k, bias):
+    knn_topk.check_inputs(x, y, bias, k)
+    return x.new_empty((x.shape[0], x.shape[1], k), dtype=torch.int32)
 
 
 def dilate_edges(idx: torch.Tensor, *, dilation: int,

@@ -11,8 +11,9 @@
   * mr ``(BG, N, D)``: ``max_j(y[idx_j] - x)`` on the raw features in fp32,
     cast to the input type.
 
-``knn_mr_fused`` is differentiable in x and y (an ``autograd.Function``);
-the graph build gets no gradient, as in the JAX package. Its backward, the
+``knn_mr_fused`` is differentiable in x and y (the registered operator
+``torch.ops.gkgnet_tpu_torch.knn_mr_fused`` with its autograd formula); the
+graph build gets no gradient, as in the JAX package. Its backward, the
 port of ``gkgnet_tpu/ops/pallas/knn_mr.py::_bwd_pallas``, recomputes
 ``rel_j = y[idx_j] - x`` in the input type from the saved idx, splits each
 channel's gradient equally among the tied maxima (``g / cnt``, rounded to
@@ -497,69 +498,108 @@ def launch_backward_grouped(x: torch.Tensor, y: torch.Tensor,
     return _launch_bwd(x, y, idx, g, x.shape[0], groups)
 
 
-class _KnnMr(torch.autograd.Function):
-    """``knn_mr_fused`` with its backward: the kernels for CUDA tensors, the
-    plain versions for CPU tensors. No gradient for the graph build, the
-    bias, k or the dilation."""
+# The forwards are registered operators (``torch.library.custom_op``, namespace
+# ``gkgnet_tpu_torch``): the dispatcher picks the kernel for CUDA tensors and
+# the plain version for CPU tensors when the call runs, not when it is traced,
+# so ``torch.export`` keeps one node per call, whatever the export device,
+# and a loaded artifact launches the kernels. The implementations look the
+# launch functions up at call time (a check may patch them).
 
-    @staticmethod
-    def forward(ctx, x, y, bias, k, dilation):
-        if x.device.type == "cpu":
-            idx, mr = knn_mr_reference(x, y, bias, k, dilation)
-        else:
-            idx, mr, _, _ = launch(x, y, bias, k, dilation)
-        ctx.save_for_backward(x, y, idx)
-        ctx.mark_non_differentiable(idx)
-        return idx, mr
 
-    @staticmethod
-    def backward(ctx, _, g):
-        x, y, idx = ctx.saved_tensors
-        g = g.contiguous()
-        if x.device.type == "cpu":
-            gx, gy = knn_mr_backward_reference(x, y, idx, g)
-        else:
-            gx, gy = launch_backward(x, y, idx, g)
-        return gx, gy, None, None, None
+@torch.library.custom_op("gkgnet_tpu_torch::knn_mr_fused", mutates_args=(),
+                         device_types="cpu")
+def _knn_mr_op(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
+               k: int, dilation: int) -> tuple[torch.Tensor, torch.Tensor]:
+    idx, mr = knn_mr_reference(x, y, bias, k, dilation)
+    return idx.contiguous(), mr  # the dilation's view of the sort, copied
+
+
+@_knn_mr_op.register_kernel("cuda")
+def _(x, y, bias, k, dilation):
+    idx, mr, _, _ = launch(x, y, bias, k, dilation)
+    return idx, mr
+
+
+@_knn_mr_op.register_fake
+def _(x, y, bias, k, dilation):
+    # shapes and types only: whether y is x is decided at run time
+    _check(x, y, bias, k, dilation)
+    return (x.new_empty((x.shape[0], x.shape[1], k), dtype=torch.int32),
+            torch.empty_like(x))
+
+
+def _save_rows(ctx, inputs, output) -> None:
+    """The autograd context: x, y and the forward's idx."""
+    x, y = inputs[:2]
+    ctx.save_for_backward(x, y, output[0])
+
+
+def _knn_mr_backward(ctx, _, g):
+    """No gradient for the graph build, the bias, k or the dilation."""
+    x, y, idx = ctx.saved_tensors
+    g = g.contiguous()
+    if x.device.type == "cpu":
+        gx, gy = knn_mr_backward_reference(x, y, idx, g)
+    else:
+        gx, gy = launch_backward(x, y, idx, g)
+    return gx, gy, None, None, None
+
+
+_knn_mr_op.register_autograd(_knn_mr_backward, setup_context=_save_rows)
 
 
 def knn_mr_fused(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
                  k: int, dilation: int = 1
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused kNN graph + max-relative aggregate (see the module docstring),
-    differentiable in x and y. Launches the CUDA kernels for CUDA tensors
-    and runs the plain versions for CPU tensors."""
-    return _KnnMr.apply(x, y, bias, k, dilation)
+    differentiable in x and y: the operator
+    ``torch.ops.gkgnet_tpu_torch.knn_mr_fused``. Launches the CUDA kernels
+    for CUDA tensors and runs the plain versions for CPU tensors."""
+    return _knn_mr_op(x, y, bias, k, dilation)
 
 
-class _KnnMrGrouped(torch.autograd.Function):
-    """``knn_mr_fused_grouped`` with its backward on the unfolded rows as
-    they are (the group-strided kernel for CUDA tensors, the plain version
-    for CPU tensors): no fold or unfold copy, the values of
-    ``_bwd_grouped``'s fold -> folded backward -> unfold."""
+@torch.library.custom_op("gkgnet_tpu_torch::knn_mr_fused_grouped",
+                         mutates_args=(), device_types="cpu")
+def _knn_mr_grouped_op(x: torch.Tensor, y: torch.Tensor,
+                       bias: torch.Tensor | None, k: int, dilation: int,
+                       groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return knn_mr_grouped_reference(x, y, bias, k, dilation, groups)
 
-    @staticmethod
-    def forward(ctx, x, y, bias, k, dilation, groups):
-        if x.device.type == "cpu":
-            idx, mr = knn_mr_grouped_reference(x, y, bias, k, dilation,
-                                               groups)
-        else:
-            idx, mr, _, _ = launch_grouped(x, y, bias, k, dilation, groups)
-        ctx.save_for_backward(x, y, idx)
-        ctx.groups = groups
-        ctx.mark_non_differentiable(idx)
-        return idx, mr
 
-    @staticmethod
-    def backward(ctx, _, g):
-        x, y, idx = ctx.saved_tensors
-        g = g.contiguous()
-        if x.device.type == "cpu":
-            gx, gy = knn_mr_grouped_backward_reference(x, y, idx, g,
-                                                       ctx.groups)
-        else:
-            gx, gy = launch_backward_grouped(x, y, idx, g, ctx.groups)
-        return gx, gy, None, None, None, None
+@_knn_mr_grouped_op.register_kernel("cuda")
+def _(x, y, bias, k, dilation, groups):
+    idx, mr, _, _ = launch_grouped(x, y, bias, k, dilation, groups)
+    return idx, mr
+
+
+@_knn_mr_grouped_op.register_fake
+def _(x, y, bias, k, dilation, groups):
+    _check_grouped(x, y, bias, k, dilation, groups)
+    return (x.new_empty((x.shape[0], x.shape[1], groups, k),
+                        dtype=torch.int32), torch.empty_like(x))
+
+
+def _knn_mr_grouped_backward(ctx, _, g):
+    """On the unfolded rows as they are (the group-strided kernel for CUDA
+    tensors, the plain version for CPU tensors): no fold or unfold copy,
+    the values of ``_bwd_grouped``'s fold -> folded backward -> unfold."""
+    x, y, idx = ctx.saved_tensors
+    g = g.contiguous()
+    if x.device.type == "cpu":
+        gx, gy = knn_mr_grouped_backward_reference(x, y, idx, g, ctx.groups)
+    else:
+        gx, gy = launch_backward_grouped(x, y, idx, g, ctx.groups)
+    return gx, gy, None, None, None, None
+
+
+def _save_grouped_rows(ctx, inputs, output) -> None:
+    """``_save_rows`` and the grouped operator's ``groups``."""
+    _save_rows(ctx, inputs, output)
+    ctx.groups = inputs[5]
+
+
+_knn_mr_grouped_op.register_autograd(_knn_mr_grouped_backward,
+                                     setup_context=_save_grouped_rows)
 
 
 def knn_mr_fused_grouped(x: torch.Tensor, y: torch.Tensor,
@@ -568,10 +608,11 @@ def knn_mr_fused_grouped(x: torch.Tensor, y: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The fold-aware fused kNN graph + max-relative aggregate on unfolded
     ``(B, N, g*D)`` / ``(B, M, g*D)`` rows (see the module docstring),
-    differentiable in x and y: idx ``(B, N, g, k)``, mr ``(B, N, g*D)``.
+    differentiable in x and y: idx ``(B, N, g, k)``, mr ``(B, N, g*D)``;
+    the operator ``torch.ops.gkgnet_tpu_torch.knn_mr_fused_grouped``.
     Launches the CUDA kernels for CUDA tensors and runs the plain versions
     for CPU tensors."""
-    return _KnnMrGrouped.apply(x, y, bias, k, dilation, groups)
+    return _knn_mr_grouped_op(x, y, bias, k, dilation, groups)
 
 
 def ordering_gaps(xn: torch.Tensor, yn: torch.Tensor,

@@ -16,8 +16,9 @@ tensors (for bfloat16 rows the tensor-core scan of ``csrc/knn_scan.cuh``,
 which knn_mr's bf16 kernel shares, so that ``launch(xn, yn, k=k*d)[...,
 ::d]`` is bitwise knn_mr's idx; for float32 rows the CUDA-core scan) and
 raises on anything else, or when the kernel cannot take the input: the
-plain version is ``ops.knn.knn_topk_reference``, and
-``ops.knn.knn_graph`` picks between the two by the tensors' device.
+plain version is ``ops.knn.knn_topk_reference``, and the operator
+``torch.ops.gkgnet_tpu_torch.knn_topk`` (``ops.knn``, which
+``knn_graph`` calls) picks between the two by the tensors' device.
 ``launches`` counts the kernel's launches.
 """
 

@@ -1,1 +1,2 @@
-"""Measurement tools of the port."""
+"""The port's command-line tools (train, test, inference, deployment) and
+measurement tools."""

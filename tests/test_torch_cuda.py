@@ -1007,3 +1007,79 @@ def test_tc_kernels_nan_rows_match_plain(cuda, self_knn):
     assert torch.equal(t_idx[0, 3], p_idx[0, 3])
     assert torch.isnan(t_vals[0, 3]).all()
     assert not (t_idx[3][torch.isfinite(xn[3]).all(-1)] == 64).any()
+
+
+# ------------------------------------------- the kernels as registered ops
+
+
+def _op_inputs(cuda, dtype, grouped=False):
+    g = torch.Generator().manual_seed(31)
+    d = 80 if grouped else 40
+    x = torch.randn((2, 96, d), generator=g).to(dtype).to(cuda)
+    y = torch.randn((2, 70, d), generator=g).to(dtype).to(cuda)
+    bias = (torch.randn((96, 70), generator=g) * 0.1).to(cuda)
+    return x, y, bias
+
+
+@pytest.mark.parametrize("op", ["knn_mr_fused", "knn_mr_fused_grouped",
+                                "knn_topk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_ops_pass_opcheck_on_the_card(cuda, op, dtype):
+    """Schema, autograd registration and the fake function against the
+    kernels' real outputs on CUDA tensors."""
+    x, y, bias = _op_inputs(cuda, dtype, op.endswith("grouped"))
+    if op != "knn_topk":
+        x.requires_grad_()
+        y.requires_grad_()
+    args = {"knn_mr_fused": (x, y, bias, 5, 2),
+            "knn_mr_fused_grouped": (x, y, bias, 5, 2, 2),
+            "knn_topk": (l2_normalize(x), l2_normalize(y), 9, bias)}[op]
+    torch.library.opcheck(
+        getattr(torch.ops.gkgnet_tpu_torch, op).default, args,
+        test_utils=("test_schema", "test_autograd_registration",
+                    "test_faketensor"))
+
+
+@pytest.mark.parametrize("op", ["knn_mr_fused", "knn_mr_fused_grouped",
+                                "knn_topk"])
+def test_exported_op_launches_its_kernel(cuda, op, tmp_path):
+    """An op exported on the card stays one node; the saved and loaded
+    program launches the kernel once per call (the counter counts it) and
+    gives the eager call's bits."""
+    x, y, bias = _op_inputs(cuda, torch.bfloat16, op.endswith("grouped"))
+
+    class Call(torch.nn.Module):
+        def forward(self, x, y):
+            if op == "knn_mr_fused":
+                return knn_mr.knn_mr_fused(x, y, bias, 5, 2)
+            if op == "knn_mr_fused_grouped":
+                return knn_mr.knn_mr_fused_grouped(x, y, bias, 5, 2, 2)
+            return knn_graph(x, y, k=9, bias=bias)
+
+    program = torch.export.export(Call(), (x, y), strict=False)
+    nodes = [str(n.target) for n in program.graph.nodes
+             if n.op == "call_function"
+             and "gkgnet_tpu_torch" in str(n.target)]
+    assert nodes == [f"gkgnet_tpu_torch.{op}.default"]
+    torch.export.save(program, str(tmp_path / "op.pt2"))
+    loaded = torch.export.load(str(tmp_path / "op.pt2")).module()
+    counter = {"knn_mr_fused": "launches",
+               "knn_mr_fused_grouped": "grouped_launches"}.get(op)
+    module = knn_mr if counter else knn_topk
+    counter = counter or "launches"
+    before = getattr(module, counter)
+    got = loaded(x, y)
+    assert getattr(module, counter) == before + 1
+    want = Call()(x, y)
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        assert torch.equal(a, b)
+
+
+def test_registered_op_raises_where_its_kernel_cannot_run(cuda):
+    """No fallback through the dispatcher: k * dilation over the kernel's
+    lists raises on the card, where the CPU runs the plain version."""
+    x, y, _ = _op_inputs(cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="exceeds"):
+        knn_mr.knn_mr_fused(x, y, None, 33, 2)
+    knn_mr.knn_mr_fused(x.cpu(), y.cpu(), None, 33, 2)
