@@ -126,7 +126,35 @@ Phases (each prints its elapsed seconds):
      fp32 (TF32 off), with PreciseBN's statistics, the relative logit
      gaps of the kernel and the plain paths (printed, not asserted; the
      kernel run must launch 16 kernels and the plain run none);
- 11. the kernels line, nvidia-smi's line, and the result line.
+ 11. the VOC path (configs/gkgnet_voc_448.py: s@448, 20 classes, bf16,
+     batch 16) and the tools, in phase 9's directory: (a) a VOCdevkit
+     written from phase 9's 256 train and 64 val JPEGs (write_vocdevkit:
+     each COCO label c an object of VOC class c % 20, a seeded share
+     marked difficult, so that some (image, class) pairs are difficult only
+     (-1 at eval) and some mixed); (b) the kernel rows of phase 3 at
+     VOC@448's shapes (VOC_ROWS, BG 32, the N = 20 label rows), forward
+     (a)-(d) and backward (e)-(g); (c) tools.train.main on the config as it
+     is but for the data paths, runner.max_epochs=1, evaluation.interval=1,
+     checkpoint_config.interval=1 and log_config.interval=8 (two train
+     records): 16 steps at batch 16, 16 + 16 knn_mr launches per step and 16
+     per val batch exactly, no grouped or knn_topk launch, finite losses, a
+     val record with mAP, the checkpoint; ms/step, data_time, img/s, val
+     img/s, peak memory; (d) tools.test.main with --out: (64, 20) scores,
+     mAP equal to the log's (CLI_MAP_TOL); (e) eval_metric on the --out
+     file equal to the test CLI's dict, analyze_results' 5 best and worst,
+     analyze_logs on the epoch's log; (f) vis_edges on one test JPEG (its
+     scores, top-3 classes and (2, 20, 9) edges equal to the eval forward's
+     on the dataset's preprocessed image, VOC class names) and vis_cam (16
+     forward and 16 backward launches, a finite, nonzero saliency), both
+     PNGs written; (g) get_flops --verify (analytic and executed FLOPs),
+     utils.profiling.trace around 2 forwards at batch 16 (a trace file,
+     device time), timeit (ms/forward, img/s, edges/s); (h)
+     verify_dataset over trainval (0 bad files) and print_config; (i)
+     phase 9's epoch checkpoint written as a reference container
+     ({'state_dict': {'module.' + key: ..}, 'meta': ..}), imported with
+     tools.convert_models.from_reference, and the test CLI's scores on it
+     bitwise phase 9's;
+ 12. the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -138,7 +166,9 @@ import copy
 import json
 import math
 import os
+import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -163,8 +193,11 @@ from gkgnet_tpu_torch.core.export import (  # noqa: E402
     load_exported_classifier)
 from gkgnet_tpu_torch.core.hooks import precise_bn  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
-                                           make_eval_step)
-from gkgnet_tpu_torch.data.loader import build_dataloader  # noqa: E402
+                                           make_eval_step, make_train_step)
+from gkgnet_tpu_torch.data.coco import COCO_CLASSES  # noqa: E402
+from gkgnet_tpu_torch.data.loader import (build_dataloader,  # noqa: E402
+                                          default_collate)
+from gkgnet_tpu_torch.data.voc import VOC_CLASSES  # noqa: E402
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
@@ -178,11 +211,20 @@ from gkgnet_tpu_torch.tools import inference  # noqa: E402
 from gkgnet_tpu_torch.tools import make_synthetic_coco  # noqa: E402
 from gkgnet_tpu_torch.tools import test as test_cli  # noqa: E402
 from gkgnet_tpu_torch.tools import train as train_cli  # noqa: E402
+from gkgnet_tpu_torch.tools.analysis_tools import (  # noqa: E402
+    analyze_logs, analyze_results, eval_metric, get_flops)
+from gkgnet_tpu_torch.tools.convert_models import (  # noqa: E402
+    from_reference)
 from gkgnet_tpu_torch.tools.deployment import (  # noqa: E402
     export as export_cli)
 from gkgnet_tpu_torch.tools.deployment import serve  # noqa: E402
 from gkgnet_tpu_torch.tools.deployment import (  # noqa: E402
     test as deploy_test)
+from gkgnet_tpu_torch.tools.misc import (print_config,  # noqa: E402
+                                         verify_dataset)
+from gkgnet_tpu_torch.tools.visualizations import (  # noqa: E402
+    vis_cam, vis_edges)
+from gkgnet_tpu_torch.utils import profiling  # noqa: E402
 from gkgnet_tpu_torch.utils.weights import init_block_parameters  # noqa: E402
 
 BG = 16                   # batch 8 x 2 channel groups
@@ -216,6 +258,23 @@ ROWS = [
     ("stage3_d2_fp32", 1296, 1296, 200, 9, 2, (400, 1296, 1), 0, "fp32",
      "self"),
 ]
+# the same calls of GKGNet-S@448 with 20 classes (configs/gkgnet_voc_448.py,
+# batch 16): 112^2 stage-1 nodes, 20 label rows
+VOC_CONFIG = os.path.join(REPO_DIR, "configs", "gkgnet_voc_448.py")
+VOC_BG = 32               # batch 16 x 2 channel groups
+VOC_ROWS = [
+    ("voc_stage1", 12544, 784, 40, 9, 1, (80, 12544, 4), 2, "bf16",
+     "pooled"),
+    ("voc_stage2", 3136, 784, 80, 9, 1, (160, 3136, 2), 2, "bf16", "pooled"),
+    ("voc_stage3_d2", 784, 784, 200, 9, 2, (400, 784, 1), 4, "bf16", "self"),
+    ("voc_stage3_d3", 784, 784, 200, 9, 3, (400, 784, 1), 2, "bf16", "self"),
+    ("voc_stage4_d3", 196, 196, 320, 9, 3, (640, 196, 1), 2, "bf16", "self"),
+    ("voc_label1", 20, 12544, 40, 9, 1, None, 1, "bf16", "labels"),
+    ("voc_label2", 20, 3136, 80, 9, 1, None, 1, "bf16", "labels"),
+    ("voc_label3", 20, 784, 200, 9, 1, None, 1, "bf16", "labels"),
+    ("voc_label4", 20, 196, 320, 9, 1, None, 1, "bf16", "labels"),
+]
+VOC_DIFFICULT = 0.25      # the share of a written VOC object marked difficult
 
 
 # knn_topk at the shapes of this slice's path: (name, N, M, D, k, bias table
@@ -333,16 +392,19 @@ def print_ptxas_summary(compiler_log: str) -> None:
         print(f"  ptxas {name}: {'; '.join(parts)}", flush=True)
 
 
+BACKWARD_KERNELS = ("rank_edges", "target_offsets", "row_split",
+                    "target_sum")
 OUR_KERNELS = ("knn_mr_kernel", "knn_mr_tc_kernel", "l2norm_rows",
-               "rank_edges", "target_offsets", "row_split", "target_sum",
-               "knn_topk_kernel", "knn_topk_tc_kernel", "row_sq")
+               *BACKWARD_KERNELS, "knn_topk_kernel", "knn_topk_tc_kernel",
+               "row_sq")
 
 
-def profile_device(run, unit: str, iters: int = 3) -> None:
+def profile_device(run, unit: str, iters: int = 3) -> dict:
     """Device time by kernel over a few calls of ``run`` (torch.profiler),
     the share of it in the port's kernels, and the device's busy share of
     the host wall time under the profiler (one stream: kernels do not
-    overlap)."""
+    overlap). Returns the ms per call: ``wall``, ``busy`` and ``ours`` (by
+    kernel name)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -369,6 +431,7 @@ def profile_device(run, unit: str, iters: int = 3) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3 / iters:8.3f} ms "
               f"{e.count // iters:4d}x  {e.key[:100]}", flush=True)
+    return dict(wall=wall_ms, busy=busy_ms, ours=ours)
 
 
 def compare_fp32_paths() -> None:
@@ -431,23 +494,25 @@ def compare_fp32_paths() -> None:
         f"{rel(plain_card, plain_cpu):.3e}")
 
 
-def kernel_rows() -> list[dict]:
-    """Phase 3: every main-path shape of the kernel against its plain
-    version. Returns one dict per row."""
+def kernel_rows(rows: list = ROWS, bg: int = BG, tag: str = "row"
+                ) -> list[dict]:
+    """Phase 3 (and phase 11 at VOC@448's shapes): every main-path shape of
+    the kernel against its plain version, ``bg`` rows of each. Returns one
+    dict per row."""
     results = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for (name, n, m, d, k, dil, table, calls, dt, targets) in ROWS:
+    for (name, n, m, d, k, dil, table, calls, dt, targets) in rows:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        x = torch.randn((BG, n, d), generator=gen, device="cuda").to(dtype)
+        x = torch.randn((bg, n, d), generator=gen, device="cuda").to(dtype)
         y = x if targets == "self" else torch.randn(
-            (BG, m, d), generator=gen, device="cuda").to(dtype)
+            (bg, m, d), generator=gen, device="cuda").to(dtype)
         bias = None if table is None else torch.from_numpy(
             get_relative_pos_table(*table)).cuda()
         check(bias is None or tuple(bias.shape) == (n, m), f"{name} bias")
 
         idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dil)
         torch.cuda.synchronize()
-        check(idx.shape == (BG, n, k) and mr.shape == x.shape
+        check(idx.shape == (bg, n, k) and mr.shape == x.shape
               and mr.dtype == dtype, f"{name}: output shapes")
         # (a) mr against the plain max-relative of the kernel's own idx
         mr_plain = max_relative(x, idx, y)
@@ -456,10 +521,10 @@ def kernel_rows() -> list[dict]:
               f"the plain max-relative of the kernel's idx "
               f"(max |diff| {max_abs_err})")
         # (b) fp64 ordering oracle on ORACLE_ROWS rows (all if fewer)
-        total = BG * n
-        rows = None if total <= ORACLE_ROWS else torch.randperm(
+        total = bg * n
+        sample = None if total <= ORACLE_ROWS else torch.randperm(
             total, generator=gen, device="cuda")[:ORACLE_ROWS]
-        gaps = knn_mr.ordering_gaps(xn, yn, bias, idx, dil, rows)
+        gaps = knn_mr.ordering_gaps(xn, yn, bias, idx, dil, sample)
         n_checked = gaps.shape[0]
         violations = int((gaps > ORACLE_TOL).sum().item())
         worst = gaps.max().item()
@@ -485,7 +550,7 @@ def kernel_rows() -> list[dict]:
         nbytes = (x.nbytes + (0 if targets == "self" else y.nbytes)
                   + (0 if bias is None else bias.nbytes)
                   + idx.nbytes + mr.nbytes)
-        flops = 2.0 * BG * n * m * d
+        flops = 2.0 * bg * n * m * d
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         row = dict(name=name, dtype=dt, N=n, M=m, D=d, kd=k * dil,
@@ -496,7 +561,7 @@ def kernel_rows() -> list[dict]:
                    max_abs_err=max_abs_err, oracle_rows=n_checked,
                    oracle_violations=violations, oracle_worst_gap=worst,
                    idx_rows_equal_plain=same)
-        print("row " + json.dumps(row), flush=True)
+        print(f"{tag} " + json.dumps(row), flush=True)
         results.append(row)
         del x, y, bias, idx, mr, xn, yn, mr_plain, gaps
         torch.cuda.empty_cache()
@@ -556,16 +621,18 @@ def in_degrees(idx: torch.Tensor, m: int) -> tuple[int, float]:
     return int(deg.max()), float(deg.quantile(0.99))
 
 
-def backward_rows() -> list[dict]:
-    """Phase 3, backward: every main-path shape of the backward kernel
-    against its plain version, on tie fixtures. Returns one dict per row."""
+def backward_rows(rows: list = ROWS, bg: int = BG, tag: str = "bwd_row"
+                  ) -> list[dict]:
+    """Phase 3, backward (and phase 11 at VOC@448's shapes): every
+    main-path shape of the backward kernel against its plain version, on
+    tie fixtures, ``bg`` rows of each. Returns one dict per row."""
     results = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for (name, n, m, d, k, dil, table, calls, dt, targets) in ROWS:
+    for (name, n, m, d, k, dil, table, calls, dt, targets) in rows:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        x = torch.randn((BG, n, d), generator=gen, device="cuda")
+        x = torch.randn((bg, n, d), generator=gen, device="cuda")
         y = x if targets == "self" else torch.randn(
-            (BG, m, d), generator=gen, device="cuda")
+            (bg, m, d), generator=gen, device="cuda")
         tie_fixture(x, y)
         x = x.to(dtype)
         y = x if targets == "self" else y.to(dtype)
@@ -573,12 +640,12 @@ def backward_rows() -> list[dict]:
             get_relative_pos_table(*table)).cuda()
         idx, _, _, _ = knn_mr.launch(x, y, bias, k, dil)
         del bias
-        g = torch.randn((BG, n, d), generator=gen, device="cuda").to(dtype)
+        g = torch.randn((bg, n, d), generator=gen, device="cuda").to(dtype)
         out = knn_mr.launch_backward(x, y, idx, g)
         torch.cuda.synchronize()
         max_abs_err, fp64_err, tie_rows = check_backward(name, x, y, idx, g,
                                                          out)
-        check(tie_rows >= BG, f"{name}: the tie fixture gave {tie_rows} "
+        check(tie_rows >= bg, f"{name}: the tie fixture gave {tie_rows} "
               f"rows with a tie")
         # (g) determinism, then times
         again = knn_mr.launch_backward(x, y, idx, g)
@@ -595,7 +662,7 @@ def backward_rows() -> list[dict]:
         gx, gy = out
         nbytes = (x.nbytes + (0 if targets == "self" else y.nbytes)
                   + idx.nbytes + g.nbytes + gx.nbytes + gy.nbytes)
-        flops = 4.0 * BG * n * k * d
+        flops = 4.0 * bg * n * k * d
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS["fp32"] * 1e3
         max_deg, p99_deg = in_degrees(idx, m)
@@ -606,7 +673,7 @@ def backward_rows() -> list[dict]:
                    max_abs_err=max_abs_err, fp64_err=fp64_err,
                    tie_rows=tie_rows, max_in_degree=max_deg,
                    p99_in_degree=p99_deg)
-        print("bwd_row " + json.dumps(row), flush=True)
+        print(f"{tag} " + json.dumps(row), flush=True)
         results.append(row)
         del x, y, idx, g, out, gx, gy
         torch.cuda.empty_cache()
@@ -1485,17 +1552,19 @@ def dir_bytes(path: str) -> int:
                for root, _, files in os.walk(path) for f in files)
 
 
-def cli_phase(smi: str) -> tuple[dict, dict]:
+def cli_phase(smi: str) -> tuple[dict, dict, dict]:
     """Phase 9: the config-driven train and test CLIs on a synthetic set
     made here, on the card nvidia-smi names ``smi``; then phase 10, the
-    serving path, in the same directory on phase 9's checkpoint and val
-    images. Returns the launch counts of each phase."""
+    serving path, and phase 11, the VOC path and the tools, in the same
+    directory on phase 9's checkpoint and images. Returns the launch counts
+    of each phase (and phase 11's kernel rows)."""
     t = time.perf_counter()
     native.lib()  # before the loader's spawned workers load it
     log(f"cli: native ops built in {native.build_seconds:.2f} s")
     with tempfile.TemporaryDirectory(prefix="gkgnet_cli_") as root:
         cli = _cli_phase(root, t, smi)
-        return cli, serving_phase(root, cli, smi)
+        served = serving_phase(root, cli, smi)
+        return cli, served, voc_phase(root, cli, smi)
 
 
 def _cli_phase(root: str, t0: float, smi: str) -> dict:
@@ -1640,6 +1709,8 @@ def _cli_phase(root: str, t0: float, smi: str) -> dict:
         check(diff <= CLI_MAP_TOL, f"test CLI mAP {metrics['mAP']} against "
               f"the log's {key} {val[key]}: |diff| {diff} > {CLI_MAP_TOL}")
         test_map[ema] = metrics["mAP"]
+        if not ema:
+            raw_scores = scores
         log(f"cli: test CLI{' --ema' if ema else ''}: scores "
             f"{scores.shape}, mAP {metrics['mAP']:.4f} = the log's {key} "
             f"(|diff| {diff})")
@@ -1649,8 +1720,8 @@ def _cli_phase(root: str, t0: float, smi: str) -> dict:
     log(f"cli: phase 9 passed in {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     return dict(launches=(fwd + test_fwd, bwd), options=options,
-                ckpt=ckpt, val_dir=os.path.join(data, "val"),
-                n_val=n_va, test_map=test_map[False])
+                ckpt=ckpt, data=data, val_dir=os.path.join(data, "val"),
+                n_val=n_va, test_map=test_map[False], test_scores=raw_scores)
 
 
 SERVE_REQUESTS = 8      # POSTs to each server checked against its scorer
@@ -1666,12 +1737,12 @@ def reset_launch_counts() -> None:
 def check_counts(what: str, want: tuple[int, int, int, int],
                  total: Counter) -> None:
     """The launches since the last reset must be ``want``; they are added
-    to ``total`` (forward and grouped)."""
+    to ``total`` (forward, grouped and backward)."""
     got = (knn_mr.launches, knn_mr.grouped_launches,
            knn_mr.backward_launches, knn_topk.launches)
     check(got == want, f"{what}: (forward, grouped, backward, knn_topk) "
           f"launches {got}, expected {want}")
-    total.update(forward=got[0], grouped=got[1])
+    total.update(forward=got[0], grouped=got[1], backward=got[2])
 
 
 def http(port: int, path: str, data: bytes | None = None):
@@ -1913,6 +1984,335 @@ def compare_precise_bn_paths(state_dict: dict, cfg, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def write_vocdevkit(root: str, splits: dict, seed: int) -> tuple[str, Counter]:
+    """Test scaffolding: a PASCAL VOC 2007 tree under ``root``, made from
+    COCO-style multi-label images. ``splits`` maps a split name to a list
+    of ``(JPEG path, (80,) multi-hot)``; image i is copied to
+    ``JPEGImages/<split>_<i>.jpg`` and gets ``Annotations/<id>.xml`` with one
+    object per COCO label c, named ``VOC_CLASSES[c % 20]`` and marked
+    difficult with probability VOC_DIFFICULT (drawn from ``seed``): a
+    class whose objects are all difficult is -1 at eval and positive at
+    train, one with both kinds is positive. ``ImageSets/Main/<split>.txt``
+    lists the ids. Returns the VOC2007 directory and the count of
+    (image, class) pairs that are ``difficult_only`` or ``mixed``."""
+    voc = os.path.join(root, "VOCdevkit", "VOC2007")
+    for sub in ("Annotations", "JPEGImages",
+                os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    kinds = Counter()
+    for split, items in splits.items():
+        ids = []
+        for i, (src, labels) in enumerate(items):
+            img_id = f"{split}_{i:06d}"
+            shutil.copyfile(src, os.path.join(voc, "JPEGImages",
+                                              f"{img_id}.jpg"))
+            objects, flags = [], {}
+            for c in np.flatnonzero(labels):
+                name = VOC_CLASSES[c % len(VOC_CLASSES)]
+                difficult = bool(rng.random() < VOC_DIFFICULT)
+                flags.setdefault(name, set()).add(difficult)
+                objects.append(f"<object><name>{name}</name><difficult>"
+                               f"{int(difficult)}</difficult></object>")
+            kinds.update("difficult_only" if f == {True} else "mixed"
+                         for f in flags.values() if True in f)
+            with open(os.path.join(voc, "Annotations", f"{img_id}.xml"),
+                      "w") as f:
+                f.write(f"<annotation><filename>{img_id}.jpg</filename>"
+                        f"{''.join(objects)}</annotation>")
+            ids.append(img_id)
+        with open(os.path.join(voc, "ImageSets", "Main", f"{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return voc, kinds
+
+
+def voc_phase(root: str, cli: dict, smi: str) -> dict:
+    """Phase 11: the VOC@448 path and the tools, in phase 9's directory
+    ``root`` on its images and checkpoint. Returns the phase's knn_mr
+    forward and backward launches and its kernel rows."""
+    t0 = time.perf_counter()
+    total = Counter()  # the launches of the paths below, as each is read
+
+    # (a) a VOCdevkit from phase 9's synthetic images
+    splits = {}
+    for split, sub in (("trainval", "train"), ("test", "val")):
+        with open(os.path.join(cli["data"], f"{sub}.data"), "rb") as f:
+            records = pickle.load(f)
+        splits[split] = [(os.path.join(cli["data"], sub, r["file_name"]),
+                          r["objects"]) for r in records]
+    voc, kinds = write_vocdevkit(root, splits, seed=0)
+    options = [f"data.{s}.data_prefix={voc}" for s in ("train", "val",
+                                                       "test")]
+    options += [f"data.train.ann_file={voc}/ImageSets/Main/trainval.txt"]
+    options += [f"data.{s}.ann_file={voc}/ImageSets/Main/test.txt"
+                for s in ("val", "test")]
+    cfg = train_cli.load_config(VOC_CONFIG, options)
+    test_ds = build_dataset(cfg.data["test"])
+    gt = test_ds.get_gt_labels()
+    n_test = len(test_ds)
+    check(kinds["difficult_only"] > 0 and kinds["mixed"] > 0
+          and int((gt == -1).sum()) > 0 and gt.shape == (64, 20),
+          f"the VOC set: {dict(kinds)}, test labels {gt.shape} with "
+          f"{int((gt == -1).sum())} difficult-only entries")
+    log(f"voc: VOCdevkit written: {len(splits['trainval'])} trainval and "
+        f"{n_test} test images, {kinds['difficult_only']} (image, class) "
+        f"pairs difficult only, {kinds['mixed']} with both kinds; "
+        f"{int((gt == -1).sum())} entries of -1 in the test labels")
+
+    # (b) the kernels at VOC@448's shapes (BG 32)
+    rows = kernel_rows(VOC_ROWS, VOC_BG, "voc_row")
+    bwd_rows = backward_rows(VOC_ROWS, VOC_BG, "voc_bwd_row")
+    log("voc: every VOC@448 forward row passed (a)-(d) and every backward "
+        "row (e)-(g)")
+
+    # (c) the train CLI on configs/gkgnet_voc_448.py: the main path
+    work = os.path.join(root, "voc_work")
+    train_args = [VOC_CONFIG, "--work-dir", work, "--cfg-options", *options,
+                  "runner.max_epochs=1", "evaluation.interval=1",
+                  "checkpoint_config.interval=1", "log_config.interval=8"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    summary = train_cli.main(train_args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    steps, batch = summary["steps"], summary["batch"]
+    val_batches = -(-n_test // batch)
+    check(steps == 16 and batch == 16, f"{steps} steps at batch {batch}, "
+          f"expected 16 at 16")
+    check_counts("VOC train CLI", (16 * (steps + val_batches), 0,
+                                   16 * steps, 0), total)
+    with open(summary["log_json"]) as f:
+        records = [json.loads(line) for line in f]
+    train_recs = [r for r in records if r["mode"] == "train"]
+    vals = [r for r in records if r["mode"] == "val"]
+    check(len(train_recs) == 2 and len(vals) == 1,
+          f"log records {[r['mode'] for r in records]}")
+    for r in train_recs:
+        for key in ("loss", "bce_loss", "asy_loss", "grad_norm"):
+            check(math.isfinite(r[key]), f"train {key} = {r[key]}")
+    val = vals[0]
+    check(math.isfinite(val["mAP"]) and "mAP_ema" not in val,
+          f"val record {val}")
+    ckpt = os.path.join(work, "checkpoints")
+    check(os.path.isfile(os.path.join(ckpt, "1", "state.pt")),
+          "the epoch's checkpoint")
+    step_ms = summary["train_s"] * 1e3 / steps
+    later_s = summary["train_s"] - summary["first_data_s"]
+    later_data_s = summary["data_s"] - summary["first_data_s"]
+    losses = ", ".join(f"{r['loss']:.6g}" for r in train_recs)
+    log(f"voc ({smi}): train CLI: {steps} steps at batch {batch} (workers "
+        f"{cfg.data['workers']}, {cfg.data['loader_mode']}), 16 + 16 knn_mr "
+        f"launches per step and 16 per val batch (exact), losses "
+        f"{losses}, val mAP "
+        f"{val['mAP']:.4f}; {wall_s:.1f} s for the whole run; "
+        f"{step_ms:.2f} ms/step wall with the real loader (its start "
+        f"included), {batch * 1e3 / step_ms:.1f} img/s, data_time "
+        f"{summary['data_s'] * 1e3 / steps:.2f} ms/step "
+        f"({100 * summary['data_s'] / summary['train_s']:.1f} %); after the "
+        f"first batch ({summary['first_data_s']:.2f} s): "
+        f"{later_s * 1e3 / steps:.2f} ms/step, {batch * steps / later_s:.1f}"
+        f" img/s, data_time {later_data_s * 1e3 / steps:.2f} ms/step "
+        f"({100 * later_data_s / later_s:.1f} %); val "
+        f"{summary['eval_images'] / summary['eval_s']:.1f} img/s "
+        f"({summary['eval_images']} images in {summary['eval_s']:.2f} s, the "
+        f"val loader included); peak memory {peak / 2**30:.2f} GiB")
+
+    # the CLI's step alone (its state and step function, one trainval batch
+    # through the train pipeline, no loader): host-clock ms/step, then its
+    # device time and busy share under the profiler
+    device = torch.device("cuda")
+    state = train_cli.build_train_state(cfg, 0, device, steps, ema=False)
+    step = make_train_step(
+        dynamic_loss_scale=train_cli.dynamic_loss_scale(cfg))
+    train_ds = build_dataset(cfg.data["train"])
+    rng = np.random.default_rng(0)
+    data = next(train_cli.device_batches(
+        [default_collate([train_ds.prepare_data(i, rng)
+                          for i in range(batch)])], device,
+        cfg.data["train"]))
+    reset_launch_counts()
+    for _ in range(2):
+        step(state, data, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step(state, data, 1)
+    torch.cuda.synchronize()
+    alone_ms = (time.perf_counter() - t) * 1e3 / 5
+    prof = profile_device(lambda: step(state, data, 1), "VOC step", iters=3)
+    check_counts("VOC step alone (2 + 5 + 3)", (160, 0, 160, 0), total)
+    log(f"voc ({smi}): the CLI's step alone at batch {batch}: "
+        f"{alone_ms:.2f} ms/step (host clock, mean of 5), against "
+        f"{later_s * 1e3 / steps:.2f} in the CLI's epoch after its first "
+        f"batch; device busy {prof['busy']:.2f} ms/step "
+        f"({100 * prof['busy'] / alone_ms:.1f} % of the step alone, "
+        f"{100 * prof['busy'] * steps / later_s / 1e3:.1f} % of the "
+        f"epoch's), knn_mr forward and backward "
+        f"{sum(prof['ours'].values()):.2f} ms of it")
+    del state, step, data, train_ds
+    torch.cuda.empty_cache()
+
+    # (d) the test CLI on the epoch's checkpoint, its scores dumped
+    out = os.path.join(root, "voc_scores.pkl")
+    reset_launch_counts()
+    metrics, scores = test_cli.main([VOC_CONFIG, ckpt, "--out", out,
+                                     "--cfg-options", *options])
+    check_counts("VOC test CLI", (16 * val_batches, 0, 0, 0), total)
+    diff = abs(metrics["mAP"] - val["mAP"])
+    check(scores.shape == (n_test, 20) and bool(np.isfinite(scores).all())
+          and os.path.isfile(out) and diff <= CLI_MAP_TOL,
+          f"VOC test CLI: scores {scores.shape}, mAP {metrics['mAP']} "
+          f"against the log's {val['mAP']}")
+    log(f"voc: test CLI: scores {scores.shape}, mAP {metrics['mAP']:.4f} = "
+        f"the log's (|diff| {diff})")
+
+    # (e) the analysis tools on the --out file and the log
+    again = eval_metric.main([VOC_CONFIG, out, "--cfg-options", *options])
+    check(again == metrics, f"eval_metric {again} against the test CLI's "
+          f"{metrics}")
+    report_path = os.path.join(root, "voc_analysis.json")
+    report = analyze_results.main([VOC_CONFIG, out, "--topk", "5", "--out",
+                                   report_path, "--cfg-options", *options])
+    with open(report_path) as f:
+        check(json.load(f) == report and len(report["best"]) == 5
+              and len(report["worst"]) == 5, "analyze_results' report")
+    log_dict = analyze_logs.main(["cal_train_time", summary["log_json"]])[0]
+    check(log_dict[1]["mAP"] == [val["mAP"]]
+          and len(log_dict[1].get("loss", [])) == 2,
+          f"analyze_logs read {sorted(log_dict[1])}")
+    log("voc: eval_metric's dict = the test CLI's; analyze_results wrote "
+        "the 5 best and worst; analyze_logs read the epoch's log")
+
+    # (f) vis_edges and vis_cam on one test JPEG, against the eval forward
+    img = test_ds.filepath(0)
+    reset_launch_counts()
+    drawn = vis_edges.main([img, VOC_CONFIG, ckpt, "--out",
+                            os.path.join(root, "edges.png")])
+    check_counts("vis_edges", (16, 0, 0, 0), total)
+    model, _ = inference.init_model(VOC_CONFIG, ckpt)
+
+    @torch.no_grad()
+    def forward(model, x):
+        return model(x)[0]
+
+    with torch.no_grad():
+        score, edges = model(torch.from_numpy(test_ds[0]["img"][None]).cuda())
+    want = torch.sigmoid(score.float())[0].cpu().numpy()
+    top3 = [int(c) for c in np.argsort(-want)[:3]]
+    check(np.array_equal(drawn["scores"], want)
+          and np.array_equal(drawn["edges"], edges.cpu().numpy())
+          and drawn["edges"].shape == (2, 20, 9)
+          and drawn["class_ids"] == top3 and drawn["names"] == VOC_CLASSES
+          and os.path.isfile(drawn["out"]),
+          f"vis_edges: classes {drawn['class_ids']} against {top3}, edges "
+          f"{drawn['edges'].shape}")
+    reset_launch_counts()
+    t = time.perf_counter()
+    cam = vis_cam.main([img, VOC_CONFIG, ckpt, "--out",
+                        os.path.join(root, "cam.png")])
+    cam_s = time.perf_counter() - t
+    check_counts("vis_cam", (16, 0, 16, 0), total)
+    # the saliency's forward and backward against the eval forward, batch 1
+    imgs = inference.image_batch(model, cfg, img)
+    eval_ms = cuda_ms(lambda: forward(model, imgs), 5, 2)
+    grad_ms = cuda_ms(lambda: vis_cam.cam_and_saliency(model, imgs), 5, 2)
+    prof = profile_device(lambda: vis_cam.cam_and_saliency(model, imgs),
+                          "saliency", iters=3)
+    bwd_ms = sum(v for k, v in prof["ours"].items() if k in BACKWARD_KERNELS)
+    fwd_ms = sum(v for k, v in prof["ours"].items()
+                 if k not in BACKWARD_KERNELS)
+    del model, score, edges, imgs
+    sal = cam["saliency"]
+    size = cfg.model["size"]
+    check(sal.shape == (size, size) and bool(np.isfinite(sal).all())
+          and sal.max() > 0 and bool(np.isfinite(cam["cam"]).all())
+          and os.path.isfile(cam["out"]),
+          f"vis_cam: saliency {sal.shape} max {sal.max()}")
+    log(f"voc: vis_edges: classes {[VOC_CLASSES[c] for c in top3]} and "
+        f"their (2, 20, 9) edges = the eval forward's; vis_cam: class "
+        f"{VOC_CLASSES[cam['class']]}, 16 forward and 16 backward launches "
+        f"(eval mode, BG 2), saliency finite, max 1, "
+        f"{float((sal > 0).mean()):.3f} of the pixels nonzero; {cam_s:.2f} s "
+        f"for the tool (model build included); at batch 1 the eval forward "
+        f"{eval_ms:.2f} ms, the saliency's forward and backward "
+        f"{grad_ms:.2f} ms; under the profiler the device busy "
+        f"{prof['busy']:.2f} ms per saliency, the 16 knn_mr forwards "
+        f"{fwd_ms:.3f} ms and the 16 backwards (BG 2) {bwd_ms:.3f} ms")
+
+    # (g) get_flops --verify, a trace of 2 forwards, timeit at batch 16
+    reset_launch_counts()
+    flops = get_flops.main([VOC_CONFIG, "--verify"])
+    check_counts("get_flops --verify", (16, 0, 0, 0), total)
+    analytic = flops["flops"]["per_image_total"]
+    model, _ = inference.init_model(VOC_CONFIG, ckpt)
+    x = torch.randn((batch, size, size, 3),
+                    generator=torch.Generator().manual_seed(0)).cuda()
+    trace_dir = os.path.join(root, "voc_trace")
+    reset_launch_counts()
+    with profiling.trace(trace_dir) as prof:
+        for _ in range(2):
+            forward(model, x)
+    trace_file = os.path.join(trace_dir, profiling.TRACE_FILE)
+    device_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(os.path.getsize(trace_file) > 0 and device_us > 0,
+          f"trace: {trace_file}, device time {device_us} us")
+    sec = profiling.timeit(forward, model, x, iters=10, warmup=2)
+    check_counts("trace (2) and timeit (12)", (16 * 14, 0, 0, 0), total)
+    edges = profiling.model_edge_count(cfg.model["arch"], size, batch,
+                                       n_classes=20)
+    log(f"voc ({smi}): get_flops: params {flops['params'] / 1e6:.2f} M, "
+        f"analytic {analytic / 1e9:.3f} GFLOPs, executed (FlopCounterMode, "
+        f"batch 1) {flops['executed'] / 1e9:.3f} G, ratio "
+        f"{flops['executed'] / analytic:.4f}; trace of 2 forwards at batch "
+        f"{batch}: {os.path.getsize(trace_file) / 2**20:.1f} MiB, device "
+        f"time {device_us / 2e3:.2f} ms per forward; timeit "
+        f"{sec * 1e3:.2f} ms/forward at batch {batch}, {batch / sec:.1f} "
+        f"img/s, {edges} edges per "
+        f"forward, {edges / sec:.4g} edges/s")
+    del model, x
+    torch.cuda.empty_cache()
+
+    # (h) verify_dataset over trainval; print_config
+    broken = verify_dataset.main([VOC_CONFIG, "--split", "train", "--out",
+                                  os.path.join(root, "broken.txt"),
+                                  "--cfg-options", *options])
+    check(broken == [], f"verify_dataset: {broken[:3]}")
+    text = print_config.main([VOC_CONFIG, "--cfg-options", *options])
+    check('"n_classes": 20' in text and voc in text, "print_config's text")
+    log(f"voc: verify_dataset: {len(splits['trainval'])} trainval images, 0 "
+        f"bad; print_config printed the merged config")
+
+    # (i) phase 9's epoch checkpoint as a reference container, imported
+    state = torch.load(os.path.join(cli["ckpt"], "1", "state.pt"),
+                       map_location="cpu", weights_only=True)
+    pth = os.path.join(root, "reference.pth.tar")
+    torch.save({"state_dict": {"module." + k: v
+                               for k, v in state["model"].items()},
+                "meta": {"epoch": 1, "CLASSES": list(COCO_CLASSES)}}, pth)
+    del state
+    imported = os.path.join(root, "imported")
+    from_reference.main([pth, CLI_CONFIG, imported])
+    reset_launch_counts()
+    _, scores = test_cli.main([CLI_CONFIG, imported, "--cfg-options",
+                               *cli["options"]])
+    check_counts("test CLI on the import", (16 * (-(-cli["n_val"] // 8)), 0,
+                                            0, 0), total)
+    check(np.array_equal(scores, cli["test_scores"]),
+          f"the imported checkpoint's scores differ from phase 9's (max "
+          f"|diff| {np.abs(scores - cli['test_scores']).max()})")
+    log("voc: from_reference on phase 9's epoch checkpoint as a reference "
+        "container (module. prefix, meta): the test CLI's scores bitwise "
+        "phase 9's")
+    log(f"voc: phase 11 passed in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=(total["forward"], total["backward"]), rows=rows,
+                bwd_rows=bwd_rows)
+
+
 def per_step(rows: list[dict], calls_key: str) -> dict:
     """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
     and the bound that holds for the larger part of that bound_ms."""
@@ -2016,11 +2416,13 @@ def main() -> int:
     grouped = grouped_phase(ref_logits, train.pop("step1"))
     phase = phases_phase()
 
-    # 9. the config-driven CLIs; 10. the serving path on their checkpoint
-    cli, served = cli_phase(smi)
+    # 9. the config-driven CLIs; 10. the serving path on their checkpoint;
+    # 11. the VOC path and the tools
+    cli, served, voc = cli_phase(smi)
     cli_fwd, cli_bwd = cli["launches"]
+    voc_fwd, voc_bwd = voc["launches"]
 
-    # 11. result lines
+    # 12. result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
     topk = per_step(t_rows, "calls_per_pass")
@@ -2033,11 +2435,13 @@ def main() -> int:
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:874",
         # the eval path (one forward + 3 requests), the train path (3
         # steps), the CLI path (32 steps, the val_loss pass, raw and EMA
-        # evaluations, the test CLI raw and EMA) and the serving path
+        # evaluations, the test CLI raw and EMA), the serving path
         # (PreciseBN, inference, the artifacts' forwards, the deployment
-        # test, both servers' requests)
-        "launches": eval_launches + train_fwd + cli_fwd + served["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        # test, both servers' requests) and the VOC path (16 steps, val,
+        # the test CLI, the tools, the test CLI on the imported weights)
+        "launches": eval_launches + train_fwd + cli_fwd + served["launches"]
+        + voc_fwd,
+        "max_abs_err": max(r["max_abs_err"] for r in rows + voc["rows"]),
         # per forward at batch 8: the sum over the 16 calls' shapes
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2049,10 +2453,13 @@ def main() -> int:
         "route": "cuda",
         "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
-        "launches": train_bwd + cli_bwd,
+        # the train path, the CLI path and the VOC path (16 steps and
+        # vis_cam's saliency)
+        "launches": train_bwd + cli_bwd + voc_bwd,
         # largest |gy - the ordered plain version's gy| over the rows (0:
         # bitwise; the rows print |gy - exact fp64 sum| as fp64_err)
-        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in bwd_rows + voc["bwd_rows"]),
         # per train step at batch 8: the sum over the 16 calls' shapes
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -2117,10 +2524,12 @@ def main() -> int:
     }]
     log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
         f"(one forward + 3 requests), {train_fwd} on the train path (3 "
-        f"steps), {cli_fwd} on the CLI path and {served['launches']} on "
-        f"the serving path; kernel knn_mr_backward: "
-        f"{train_bwd} on the train path and {cli_bwd} on the CLI path; "
-        f"checks passed at {len(rows)} shapes each, 16 fp32 forward calls "
+        f"steps), {cli_fwd} on the CLI path, {served['launches']} on "
+        f"the serving path and {voc_fwd} on the VOC path; kernel "
+        f"knn_mr_backward: {train_bwd} on the train path, {cli_bwd} on the "
+        f"CLI path and {voc_bwd} on the VOC path; checks passed at "
+        f"{len(rows)} + {len(voc['rows'])} (VOC@448) shapes each, 16 fp32 "
+        f"forward calls "
         f"and 16 fp32 backward calls on the model's own activations; kernel "
         f"knn_topk: {graph['launches']} launches on the Grapher path, checks "
         f"passed at {len(t_rows)} shapes and on the blocks' fp32 calls; "

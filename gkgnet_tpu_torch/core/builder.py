@@ -3,9 +3,8 @@ the registry layer of the reference, models/builder.py +
 datasets/builder.py, as plain dispatch).
 
 What the port does not have yet raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item: the VOC and ImageList datasets (queue 1 item 4), a
-neck, ``train_cfg.augments`` (batch mixup/cutmix) and
-``graph_builder='perturbed'`` (queue 1 item 6).
+``ROADMAP.md`` item: a neck, ``train_cfg.augments`` (batch mixup/cutmix)
+and ``graph_builder='perturbed'`` (queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ import torch
 
 from gkgnet_tpu_torch.data.coco import CocoMultiLabel
 from gkgnet_tpu_torch.data.pipelines import build_pipeline
+from gkgnet_tpu_torch.data.single_label import ImageListDataset
+from gkgnet_tpu_torch.data.voc import VOCMultiLabel
 from gkgnet_tpu_torch.data.wrappers import (
     ClassBalancedDataset,
     ConcatDataset,
@@ -26,8 +27,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "bf16": torch.bfloat16, "fp32": torch.float32,
           "float16": torch.float16, "fp16": torch.float16}
 
-DATASETS = {"COCO": CocoMultiLabel}
-NOT_PORTED_DATASETS = ("VOC", "ImageList")
+DATASETS = {"COCO": CocoMultiLabel, "VOC": VOCMultiLabel,
+            "ImageList": ImageListDataset}
 
 
 def build_dataset(cfg: dict):
@@ -48,9 +49,6 @@ def build_dataset(cfg: dict):
         if pipeline is not None:
             pipeline = build_pipeline(pipeline)
         return DATASETS[t](pipeline=pipeline, **cfg)
-    if t in NOT_PORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset type {t} is not ported yet (ROADMAP.md queue 1 item 4)")
     raise ValueError(f"unknown dataset type {t}")
 
 

@@ -12,6 +12,10 @@ exact resume needs:
   * ``step``: ``TrainState.step``, which seeds each step's random draws;
   * ``ema_params``, ``loss_scale``, ``good_steps``.
 
+A save of a state without an optimizer (``optimizer`` None: the weights
+alone, as ``tools.convert_models.from_reference`` writes) is read by
+``load_params_only``; ``restore_checkpoint`` refuses it.
+
 Tensors are saved on the CPU and restored onto the model's device. The JAX
 package's orbax directories are not read: JAX weights reach the port only
 through ``gkgnet_tpu_torch.utils.weights``.
@@ -63,7 +67,8 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
     os.makedirs(tmp)
     torch.save({
         "model": _cpu(state.model.state_dict()),
-        "optimizer": _cpu(state.optimizer.optimizer.state_dict()),
+        "optimizer": (None if state.optimizer is None
+                      else _cpu(state.optimizer.optimizer.state_dict())),
         "step": state.step,
         "ema_params": _cpu(state.ema_params),
         "loss_scale": state.loss_scale,
@@ -112,6 +117,10 @@ def restore_checkpoint(directory: str, state: TrainState,
     ``state`` in place: the model, the optimizer, the step, the EMA and the
     loss scaler. Returns ``(state, epoch, meta)``."""
     raw, epoch, meta = _load(directory, epoch)
+    if raw["optimizer"] is None:
+        raise ValueError(f"{directory}/{epoch} holds weights only (no "
+                         f"optimizer state): load it with load_params_only "
+                         f"(--load-from), not as a resume")
     state.model.load_state_dict(raw["model"], strict=True)
     state.optimizer.optimizer.load_state_dict(raw["optimizer"])
     state.step = int(raw["step"])

@@ -1,5 +1,5 @@
-"""(Counterpart: ``gkgnet_tpu/core/config.py``, a copy.) Python-file config
-system with ``_base_`` inheritance and dotted-key CLI
+"""(Counterpart: ``gkgnet_tpu/core/config.py``, a copy but for one rule.)
+Python-file config system with ``_base_`` inheritance and dotted-key CLI
 overrides — the semantics of mmcv.Config (reference configs use
 ``_base_ = [...]`` multi-inheritance + ``--cfg-options`` deep merge,
 tools/train.py:58-67) without mmcv.
@@ -8,6 +8,17 @@ A config file is plain Python; its module-level names become the config
 dict. ``_base_`` (str or list) is loaded first and deep-merged under the
 child (child wins; a dict value containing ``_delete_: True`` replaces the
 base dict wholesale).
+
+The rule the JAX package lacks: a child dict that names a ``type`` other
+than a base dataset wrapper's (``DATASET_WRAPPERS``) replaces the wrapper
+wholesale too, as the wrapper's own keys (``dataset``, ``datasets``,
+``times``, ``oversample_thr``) are no arguments of the set that takes its
+place. ``configs/gkgnet_voc_448.py`` needs it: its ``data.train`` (a VOC
+set) lies over the COCO base's ClassBalancedDataset, and a merge keeps that
+wrapper's ``oversample_thr`` and ``dataset``, which the VOC dataset does not
+take (the JAX package's ``build_dataset`` raises there). Any other type
+switch (an optimizer, a model part) merges as in mmcv and the JAX package:
+the base's other keys stay.
 """
 
 from __future__ import annotations
@@ -18,6 +29,14 @@ import types
 from typing import Any
 
 DELETE_KEY = "_delete_"
+DATASET_WRAPPERS = ("ClassBalancedDataset", "RepeatDataset", "ConcatDataset")
+
+
+def _replaces_wrapper(base: dict, child: dict) -> bool:
+    """True when ``base`` is a dataset wrapper and ``child`` names another
+    type."""
+    return base.get("type") in DATASET_WRAPPERS and "type" in child \
+        and child["type"] != base["type"]
 
 
 def _deep_merge(base: dict, child: dict) -> dict:
@@ -26,7 +45,8 @@ def _deep_merge(base: dict, child: dict) -> dict:
         if isinstance(v, dict) and v.get(DELETE_KEY):
             v = {kk: vv for kk, vv in v.items() if kk != DELETE_KEY}
             out[k] = copy.deepcopy(v)
-        elif isinstance(v, dict) and isinstance(out.get(k), dict):
+        elif isinstance(v, dict) and isinstance(out.get(k), dict) \
+                and not _replaces_wrapper(out[k], v):
             out[k] = _deep_merge(out[k], v)
         else:
             out[k] = copy.deepcopy(v)

@@ -56,15 +56,22 @@ def load_image(cfg: Config, img_path: str) -> np.ndarray:
     return results["img"][None]
 
 
+def image_batch(model: GKGNetClassifier, cfg: Config, img_path: str
+                ) -> torch.Tensor:
+    """One image through the test pipeline, on the model's device and
+    normalized there when the pipeline defers it: ``(1, H, W, 3)``."""
+    device = next(model.parameters()).device
+    norm = make_device_normalize(
+        pipeline_device_norm(cfg.data["test"]["pipeline"]))
+    return norm(torch.from_numpy(load_image(cfg, img_path)).to(device))
+
+
 def inference_model(model: GKGNetClassifier, cfg: Config, img_path: str,
                     topk: int = 5) -> tuple[np.ndarray, list[dict]]:
     """The test pipeline and the eval step on one image: the per-class
     sigmoid scores ``(n_classes,)`` and the top-k predictions as
     ``{'class_id', 'class_name', 'score'}`` dicts, best first."""
-    device = next(model.parameters()).device
-    norm = make_device_normalize(
-        pipeline_device_norm(cfg.data["test"]["pipeline"]))
-    imgs = norm(torch.from_numpy(load_image(cfg, img_path)).to(device))
+    imgs = image_batch(model, cfg, img_path)
     state = create_train_state(model, optimizer=None)
     scores = make_eval_step()(state, imgs)[0].cpu().numpy()
     order = np.argsort(-scores)[:topk]

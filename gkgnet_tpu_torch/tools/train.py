@@ -85,6 +85,31 @@ def check_one_card(cfg: Config, multihost: bool = False) -> None:
             f"(data and graph parallelism: ROADMAP.md queue 1 item 7)")
 
 
+def dynamic_loss_scale(cfg: Config) -> bool:
+    return (cfg.get("fp16") or {}).get("loss_scale") == "dynamic"
+
+
+def build_train_state(cfg: Config, seed: int, device: torch.device,
+                      steps_per_epoch: int, ema: bool) -> TrainState:
+    """The config's model, initialized from ``seed`` on ``device``, with
+    its optimizer and learning-rate schedule."""
+    model = build_model(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    lr_cfg = dict(cfg.lr_config)
+    lr_cfg["base_lr"] = cfg.optimizer["lr"]
+    lr_schedule = build_lr_schedule(lr_cfg, steps_per_epoch)
+    opt_cfg = dict(cfg.optimizer)
+    optimizer = build_optimizer(
+        model, lr_schedule, opt_cfg.get("type", "adamw"),
+        opt_cfg.get("weight_decay", 0.05),
+        tuple(opt_cfg.get("betas", (0.9, 0.999))), opt_cfg.get("eps", 1e-8),
+        opt_cfg.get("grad_clip_norm", 5.0),
+        opt_cfg.get("paramwise_no_decay", True))
+    return create_train_state(model, optimizer, ema=ema,
+                              dynamic_loss_scale=dynamic_loss_scale(cfg))
+
+
 def find_pipeline_cfg(d):
     """The pipeline list through dataset-wrapper nesting (train=dict(
     dataset=dict(pipeline=...)) vs val=dict(pipeline=...))."""
@@ -211,24 +236,11 @@ def _train(args, cfg: Config, seed: int, device: torch.device, work_dir: str,
             "RepeatAugSampler truncates to multiples of selected_round=256)")
 
     # ----------------------------------------------------------------- model
-    model = build_model(cfg.model)
-    init_parameters(model, torch.Generator().manual_seed(seed))
-    model = model.to(device)
-    lr_cfg = dict(cfg.lr_config)
-    lr_cfg["base_lr"] = cfg.optimizer["lr"]
-    lr_schedule = build_lr_schedule(lr_cfg, steps_per_epoch)
-    dyn_scale = (cfg.get("fp16") or {}).get("loss_scale") == "dynamic"
-    opt_cfg = dict(cfg.optimizer)
-    optimizer = build_optimizer(
-        model, lr_schedule, opt_cfg.get("type", "adamw"),
-        opt_cfg.get("weight_decay", 0.05),
-        tuple(opt_cfg.get("betas", (0.9, 0.999))), opt_cfg.get("eps", 1e-8),
-        opt_cfg.get("grad_clip_norm", 5.0),
-        opt_cfg.get("paramwise_no_decay", True))
     ema_cfg = cfg.get("ema", {})
     ema_on = bool(args.ema or ema_cfg.get("enabled"))
-    state = create_train_state(model, optimizer, ema=ema_on,
-                               dynamic_loss_scale=dyn_scale)
+    dyn_scale = dynamic_loss_scale(cfg)
+    state = build_train_state(cfg, seed, device, steps_per_epoch, ema_on)
+    model = state.model
 
     start_epoch = 0
     if args.resume_from or cfg.get("resume_from"):

@@ -23,6 +23,7 @@ from gkgnet_tpu.utils.logging import load_json_log as jax_load_json_log
 from gkgnet_tpu_torch.core import checkpoint
 from gkgnet_tpu_torch.tools import test as test_cli
 from gkgnet_tpu_torch.tools import train as train_cli
+from gkgnet_tpu_torch.tools.analysis_tools import analyze_logs
 from gkgnet_tpu_torch.utils.logging import load_json_log
 from test_cli import MINI_CONFIG
 from test_torch_data import _mini_set, assert_same, load_tool
@@ -123,11 +124,19 @@ def test_train_cli_writes_the_jax_records(trained):
         assert json.load(f)["model"]["arch"] == "t"
 
 
-def test_log_reads_with_the_analysis_tool(trained, capsys):
-    analyze_logs = load_tool("analysis_tools/analyze_logs.py")
+@pytest.mark.parametrize("tool", ["port", "jax"])
+def test_log_reads_with_the_analysis_tool(trained, capsys, tool):
+    """The port's analyze_logs reads the log and prints each epoch's
+    iteration window; the JAX tool prints the same lines."""
     path, _ = _records(trained[0])
-    analyze_logs.cal_train_time(analyze_logs.load_json_log(path), None)
-    assert "epoch 1: avg iter window" in capsys.readouterr().out
+    port_logs = analyze_logs.main(["cal_train_time", path])
+    port_out = capsys.readouterr().out
+    assert "epoch 1: avg iter window" in port_out
+    assert port_logs == [load_json_log(path)]
+    if tool == "jax":
+        jax_tool = load_tool("analysis_tools/analyze_logs.py")
+        jax_tool.cal_train_time(jax_tool.load_json_log(path), None)
+        assert capsys.readouterr().out == port_out
 
 
 @pytest.mark.parametrize("ema", [False, True])

@@ -323,6 +323,15 @@ def test_metrics_equal_jax(fn):
 def test_config_fromfile_equals_jax(path):
     got = tconfig.Config.fromfile(path)
     want = jconfig.Config.fromfile(path)
+    if os.path.basename(path) == "gkgnet_voc_448.py":
+        # the port's Config replaces a base dict of another type: the VOC
+        # train set does not keep the COCO base's ClassBalancedDataset keys
+        # (the JAX merge keeps them; see gkgnet_tpu_torch/core/config.py)
+        stray = {"oversample_thr", "dataset"}
+        assert set(want["data"]["train"]) - set(got["data"]["train"]) \
+            == stray
+        for key in stray:
+            del want["data"]["train"][key]
     assert got == want
     opts = {"data.train.dataset.data_prefix": "x", "runner.max_epochs": 3,
             "new.key": [1, 2]}
@@ -417,19 +426,14 @@ def test_build_model_with_jax_weights_gives_jax_logits():
         np.testing.assert_allclose(float(have[k]), float(want[k]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["VOC", "ImageList", "neck", "augments",
-                                  "perturbed"])
+@pytest.mark.parametrize("case", ["neck", "augments", "perturbed"])
 def test_builder_raises_for_what_is_not_ported(case):
     extra = {"neck": dict(neck=dict(type="GAP")),
              "augments": dict(train_cfg=dict(augments=[
                  dict(type="BatchMixup", alpha=0.2)])),
              "perturbed": dict(graph_builder="perturbed")}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        if case in ("VOC", "ImageList"):
-            tbuilder.build_dataset(dict(type=case, data_prefix="x",
-                                        ann_file="y"))
-        else:
-            tbuilder.build_model(dict(MINI_MODEL, **extra[case]))
+        tbuilder.build_model(dict(MINI_MODEL, **extra[case]))
 
 
 # ------------------------------------------------------- logs and the tools
