@@ -154,7 +154,41 @@ Phases (each prints its elapsed seconds):
      ({'state_dict': {'module.' + key: ..}, 'meta': ..}), imported with
      tools.convert_models.from_reference, and the test CLI's scores on it
      bitwise phase 9's;
- 12. the kernels line, nvidia-smi's line, and the result line.
+ 12. arch b@576 (configs/gkgnet_b_coco_576.py: channels 128..1024, 18
+     stage-3 blocks, bf16, batch 8): (a) the config's model, seeded:
+     exactly 28 knn_mr launches per eval forward (24 Graphers, 4 labels),
+     finite (8, 80) logits, ms/forward, peak memory and a profile; every
+     distinct call shape of the forward held to its plain version on the
+     model's own activations (``row`` lines: (a)-(d) of phase 3, the
+     whole-row layout at every one), and at stage 3 (D 256), stage 4 and
+     label 4 (D 512), in bf16 and fp32, the D-chunked scan forced on the
+     same call: bitwise equal, both timed (``chunk_row`` lines); 3 train
+     steps of make_train_step
+     (dual loss, AdamW, EMA, drop_path 0.2): 28 + 28 launches per step,
+     finite losses, every parameter moved; ms/step, peak memory, a
+     profile; every distinct backward call of a step held to its plain
+     version (``bwd_row`` lines: (e)-(g)); (b) GKGNet b@576 without
+     channel groups in bf16 at batch 8, a train-mode forward and a backward
+     of a scalar of its outputs: 28 + 28 launches; its D = 1024 calls (2
+     stage-4 Graphers at N = M = 324, k 9, dilation 5; the stage-4 label
+     call at N 80, M 324) held to the plain version in bf16 and in fp32
+     (``row`` lines, each on the D-chunked scan), knn_topk at D = 1024
+     (``topk_row`` lines: the oracle, the value bound, determinism) and
+     their backward (``bwd_row`` lines: gx bitwise -g, gy bitwise the
+     ordered plain version); (c) two train steps at batch 2 of a t@224
+     config with a prelu arch, an FPN neck and its
+     MultiLabelLinearClsHead, mixup/cutmix and LAMB: with the kNN build
+     (16 knn_mr launches per step) and with graph_builder='perturbed'
+     (none), finite losses and moved parameters; the knn_budget chunk of
+     t@224's stage 1 tiles the plain build bitwise the untiled one (on
+     the CPU; the kernel holds no distance block); (d) the ungrouped
+     backbone at batch 1 in fp32 (TF32 off): each D = 1024 call's kernel
+     result against the plain version computed on the CPU, as
+     compare_fp32_paths holds them (near-tie flips: at most one row or
+     FLIP_SHARE, each within the fp64 oracle; mr bitwise where idx
+     agrees);
+
+then the kernels line, nvidia-smi's line, and the result line.
 
 Any failed check raises: the script exits non-zero and prints no result
 line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
@@ -162,6 +196,7 @@ line. It needs a CUDA device and the gkgnet_tpu_torch package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -199,12 +234,17 @@ from gkgnet_tpu_torch.data.loader import (build_dataloader,  # noqa: E402
                                           default_collate)
 from gkgnet_tpu_torch.data.voc import VOC_CLASSES  # noqa: E402
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
+from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
+from gkgnet_tpu_torch.nn import gkgnet as gkgnet_mod  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
+from gkgnet_tpu_torch.nn.augment import build_batch_augment  # noqa: E402
+from gkgnet_tpu_torch.nn.classifier import init_parameters  # noqa: E402
+from gkgnet_tpu_torch.nn.gkgnet import ARCH_SETTINGS, GKGNet  # noqa: E402
 from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
 from gkgnet_tpu_torch.ops.aggregate import (fold_groups,  # noqa: E402
                                             max_relative, unfold_groups)
-from gkgnet_tpu_torch.ops.knn import (knn_topk_reference,  # noqa: E402
-                                      l2_normalize)
+from gkgnet_tpu_torch.ops.knn import (knn_graph,  # noqa: E402
+                                      knn_topk_reference, l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
 from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
 from gkgnet_tpu_torch.tools import inference  # noqa: E402
@@ -355,7 +395,7 @@ def print_ptxas_summary(compiler_log: str) -> None:
                        r"knn_topk_kernel|l2norm_rows|row_sq|"
                        r"knn_mr_tc_kernel|knn_topk_tc_kernel)"
                        r"I(13__nv_bfloat16|f)?(?:Li(\d+)E)?(?:Lb([01])E)?"
-                       r"(?:Li(\d+)E)?", line)
+                       r"(?:Li(\d+)E)?(?:Lb([01])E)?", line)
         bwd = re.search(r"Compiling entry function '_Z\w*?(rank_edges|"
                         r"target_offsets|row_split|target_sum)(\w*)'", line)
         if bwd:  # the backward's: type, folded or grouped, and its flags
@@ -378,14 +418,19 @@ def print_ptxas_summary(compiler_log: str) -> None:
                     parts.append(f"{args.group(4)} edges in flight")
             name = bwd.group(1) + (f"<{', '.join(parts)}>" if parts else "")
         elif fn:
-            # the tensor-core kernels are bf16 only: no type argument
+            # the tensor-core kernels are bf16 only: no type argument;
+            # knn_topk's one flag is its chunked scan, knn_mr's the grouped
+            # route (its chunked scan is the flag after the phase)
             dtype = "fp32" if fn.group(2) == "f" else "bf16"
             phase = int(fn.group(5) or 0)  # knn_mr_kernel's: 0 the forward
+            topk = fn.group(1).startswith("knn_topk")
             name = f"{fn.group(1)}<{dtype}" + "".join(
                 part for part, on in (
                     (f", KDM={fn.group(3)}", fn.group(3)),
-                    (", grouped", fn.group(4) == "1"),
-                    (f", {phases.PHASES[phase - 1]}", phase)) if on) + ">"
+                    (", grouped", fn.group(4) == "1" and not topk),
+                    (f", {phases.PHASES[phase - 1]}", phase),
+                    (", D-chunked", fn.group(6) == "1"
+                     or (topk and fn.group(4) == "1"))) if on) + ">"
         elif name and ("spill" in line or "registers" in line):
             lines.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     for name, parts in lines.items():
@@ -509,63 +554,76 @@ def kernel_rows(rows: list = ROWS, bg: int = BG, tag: str = "row"
         bias = None if table is None else torch.from_numpy(
             get_relative_pos_table(*table)).cuda()
         check(bias is None or tuple(bias.shape) == (n, m), f"{name} bias")
-
-        idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dil)
-        torch.cuda.synchronize()
-        check(idx.shape == (bg, n, k) and mr.shape == x.shape
-              and mr.dtype == dtype, f"{name}: output shapes")
-        # (a) mr against the plain max-relative of the kernel's own idx
-        mr_plain = max_relative(x, idx, y)
-        max_abs_err = (mr.float() - mr_plain.float()).abs().max().item()
-        check(torch.equal(mr, mr_plain), f"{name}: mr not bitwise equal to "
-              f"the plain max-relative of the kernel's idx "
-              f"(max |diff| {max_abs_err})")
-        # (b) fp64 ordering oracle on ORACLE_ROWS rows (all if fewer)
-        total = bg * n
-        sample = None if total <= ORACLE_ROWS else torch.randperm(
-            total, generator=gen, device="cuda")[:ORACLE_ROWS]
-        gaps = knn_mr.ordering_gaps(xn, yn, bias, idx, dil, sample)
-        n_checked = gaps.shape[0]
-        violations = int((gaps > ORACLE_TOL).sum().item())
-        worst = gaps.max().item()
-        check(violations == 0, f"{name}: {violations} slots off the fp64 "
-              f"order by more than {ORACLE_TOL} (worst {worst:.3e})")
-        # knn_topk on the kernel's own normalized rows, every d-th: the
-        # same selection and arithmetic give bitwise knn_mr's idx
-        t_idx = knn_topk.launch(xn, yn, k=k * dil, bias=bias)[..., ::dil]
-        check(torch.equal(t_idx, idx), f"{name}: knn_topk(xn, yn, k*d)"
-              f"[..., ::d] differs from knn_mr's idx")
-        del t_idx
-        # (c) agreement with the plain version's own idx (not asserted)
-        idx_p, _ = knn_mr.knn_mr_reference(x, y, bias, k, dil)
-        same = (idx_p == idx).all(-1).float().mean().item()
-        del idx_p
-        # (d) times
-        iters = 20 if n * m < 10**7 else 10
-        ms = cuda_ms(lambda: knn_mr.launch(x, y, bias, k, dil), iters, 3)
-        plain_ms = cuda_ms(
-            lambda: knn_mr.knn_mr_reference(x, y, bias, k, dil), 3, 1)
-        # least time for the same work: inputs read once, outputs written
-        # once; the distance products at the dense peak of the input type
-        nbytes = (x.nbytes + (0 if targets == "self" else y.nbytes)
-                  + (0 if bias is None else bias.nbytes)
-                  + idx.nbytes + mr.nbytes)
-        flops = 2.0 * bg * n * m * d
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dt] * 1e3
-        row = dict(name=name, dtype=dt, N=n, M=m, D=d, kd=k * dil,
-                   smem_bytes=knn_mr.shared_memory_bytes(d, k * dil, dtype),
-                   calls_per_forward=calls, ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=max_abs_err, oracle_rows=n_checked,
-                   oracle_violations=violations, oracle_worst_gap=worst,
-                   idx_rows_equal_plain=same)
-        print(f"{tag} " + json.dumps(row), flush=True)
+        row = forward_row(name, x, y, bias, k, dil, calls, gen, tag)
         results.append(row)
-        del x, y, bias, idx, mr, xn, yn, mr_plain, gaps
+        del x, y, bias
         torch.cuda.empty_cache()
     return results
+
+
+def forward_row(name: str, x, y, bias, k: int, dil: int, calls: int, gen,
+                tag: str = "row") -> dict:
+    """(a)-(d) of phase 3 for one knn_mr call on inputs x, y (y is x for
+    self-kNN) and its bias: printed as a ``tag`` line and returned."""
+    bg, n, d = x.shape
+    m = y.shape[1]
+    dtype = x.dtype
+    dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+    idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dil)
+    torch.cuda.synchronize()
+    check(idx.shape == (bg, n, k) and mr.shape == x.shape
+          and mr.dtype == dtype, f"{name}: output shapes")
+    # (a) mr against the plain max-relative of the kernel's own idx
+    mr_plain = max_relative(x, idx, y)
+    max_abs_err = (mr.float() - mr_plain.float()).abs().max().item()
+    check(torch.equal(mr, mr_plain), f"{name}: mr not bitwise equal to "
+          f"the plain max-relative of the kernel's idx "
+          f"(max |diff| {max_abs_err})")
+    # (b) fp64 ordering oracle on ORACLE_ROWS rows (all if fewer)
+    total = bg * n
+    sample = None if total <= ORACLE_ROWS else torch.randperm(
+        total, generator=gen, device="cuda")[:ORACLE_ROWS]
+    gaps = knn_mr.ordering_gaps(xn, yn, bias, idx, dil, sample)
+    n_checked = gaps.shape[0]
+    violations = int((gaps > ORACLE_TOL).sum().item())
+    worst = gaps.max().item()
+    check(violations == 0, f"{name}: {violations} slots off the fp64 "
+          f"order by more than {ORACLE_TOL} (worst {worst:.3e})")
+    # knn_topk on the kernel's own normalized rows, every d-th: the
+    # same selection and arithmetic give bitwise knn_mr's idx
+    t_idx = knn_topk.launch(xn, yn, k=k * dil, bias=bias)[..., ::dil]
+    check(torch.equal(t_idx, idx), f"{name}: knn_topk(xn, yn, k*d)"
+          f"[..., ::d] differs from knn_mr's idx")
+    del t_idx
+    # (c) agreement with the plain version's own idx (not asserted)
+    idx_p, _ = knn_mr.knn_mr_reference(x, y, bias, k, dil)
+    same = (idx_p == idx).all(-1).float().mean().item()
+    del idx_p
+    # (d) times
+    iters = 20 if n * m < 10**7 else 10
+    ms = cuda_ms(lambda: knn_mr.launch(x, y, bias, k, dil), iters, 3)
+    plain_ms = cuda_ms(
+        lambda: knn_mr.knn_mr_reference(x, y, bias, k, dil), 3, 1)
+    # least time for the same work: inputs read once, outputs written
+    # once; the distance products at the dense peak of the input type
+    nbytes = (x.nbytes + (0 if y is x else y.nbytes)
+              + (0 if bias is None else bias.nbytes)
+              + idx.nbytes + mr.nbytes)
+    flops = 2.0 * bg * n * m * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    smem, chunked = knn_mr.block_layout(d, k * dil, dtype)
+    row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, kd=k * dil,
+               smem_bytes=smem, chunked=chunked,
+               calls_per_forward=calls, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=max_abs_err, oracle_rows=n_checked,
+               oracle_violations=violations, oracle_worst_gap=worst,
+               idx_rows_equal_plain=same)
+    print(f"{tag} " + json.dumps(row), flush=True)
+    del idx, mr, xn, yn, mr_plain, gaps
+    return row
 
 
 def tie_fixture(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -641,43 +699,54 @@ def backward_rows(rows: list = ROWS, bg: int = BG, tag: str = "bwd_row"
         idx, _, _, _ = knn_mr.launch(x, y, bias, k, dil)
         del bias
         g = torch.randn((bg, n, d), generator=gen, device="cuda").to(dtype)
-        out = knn_mr.launch_backward(x, y, idx, g)
-        torch.cuda.synchronize()
-        max_abs_err, fp64_err, tie_rows = check_backward(name, x, y, idx, g,
-                                                         out)
-        check(tie_rows >= bg, f"{name}: the tie fixture gave {tie_rows} "
-              f"rows with a tie")
-        # (g) determinism, then times
-        again = knn_mr.launch_backward(x, y, idx, g)
-        check(torch.equal(bits(out[0]), bits(again[0]))
-              and torch.equal(bits(out[1]), bits(again[1])),
-              f"{name}: two launches differ")
-        del again
-        iters = 20 if n * m < 10**7 else 10
-        ms = cuda_ms(lambda: knn_mr.launch_backward(x, y, idx, g), iters, 3)
-        plain_ms = cuda_ms(
-            lambda: knn_mr.knn_mr_backward_reference(x, y, idx, g), 3, 1)
-        # least time: x, y, idx, g read once, gx and gy written once; per
-        # edge and channel a subtraction, a comparison, a split and an add
-        gx, gy = out
-        nbytes = (x.nbytes + (0 if targets == "self" else y.nbytes)
-                  + idx.nbytes + g.nbytes + gx.nbytes + gy.nbytes)
-        flops = 4.0 * bg * n * k * d
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS["fp32"] * 1e3
-        max_deg, p99_deg = in_degrees(idx, m)
-        row = dict(name=name, dtype=dt, N=n, M=m, D=d, k=k,
-                   calls_per_step=calls, ms=ms, plain_ms=plain_ms,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=max_abs_err, fp64_err=fp64_err,
-                   tie_rows=tie_rows, max_in_degree=max_deg,
-                   p99_in_degree=p99_deg)
-        print(f"{tag} " + json.dumps(row), flush=True)
+        row = backward_row(name, x, y, idx, g, calls, tag)
+        check(row["tie_rows"] >= bg, f"{name}: the tie fixture gave "
+              f"{row['tie_rows']} rows with a tie")
         results.append(row)
-        del x, y, idx, g, out, gx, gy
+        del x, y, idx, g
         torch.cuda.empty_cache()
     return results
+
+
+def backward_row(name: str, x, y, idx, g, calls: int, tag: str = "bwd_row"
+                 ) -> dict:
+    """(e)-(g) of phase 3 for one backward call on x, y (y is x for
+    self-kNN), the forward's idx and the output gradient g: printed as a
+    ``tag`` line and returned."""
+    bg, n, d = x.shape
+    m, k = y.shape[1], idx.shape[2]
+    dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    out = knn_mr.launch_backward(x, y, idx, g)
+    torch.cuda.synchronize()
+    max_abs_err, fp64_err, tie_rows = check_backward(name, x, y, idx, g, out)
+    # (g) determinism, then times
+    again = knn_mr.launch_backward(x, y, idx, g)
+    check(torch.equal(bits(out[0]), bits(again[0]))
+          and torch.equal(bits(out[1]), bits(again[1])),
+          f"{name}: two launches differ")
+    del again
+    iters = 20 if n * m < 10**7 else 10
+    ms = cuda_ms(lambda: knn_mr.launch_backward(x, y, idx, g), iters, 3)
+    plain_ms = cuda_ms(
+        lambda: knn_mr.knn_mr_backward_reference(x, y, idx, g), 3, 1)
+    # least time: x, y, idx, g read once, gx and gy written once; per
+    # edge and channel a subtraction, a comparison, a split and an add
+    gx, gy = out
+    nbytes = (x.nbytes + (0 if y is x else y.nbytes)
+              + idx.nbytes + g.nbytes + gx.nbytes + gy.nbytes)
+    flops = 4.0 * bg * n * k * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["fp32"] * 1e3
+    max_deg, p99_deg = in_degrees(idx, m)
+    row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
+               calls_per_step=calls, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=max_abs_err, fp64_err=fp64_err,
+               tie_rows=tie_rows, max_in_degree=max_deg,
+               p99_in_degree=p99_deg)
+    print(f"{tag} " + json.dumps(row), flush=True)
+    return row
 
 
 def topk_value_bounds(xn: torch.Tensor, yn: torch.Tensor,
@@ -857,7 +926,7 @@ def topk_rows() -> list[dict]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
-                   smem_bytes=knn_topk.shared_memory_bytes(d, k, dtype),
+                   smem_bytes=knn_topk.block_layout(d, k, dtype)[0],
                    calls_per_pass=1 if pass_ == "agg" else 0,
                    calls_per_stochastic_pass=1 if pass_ == "stoch" else 0,
                    ms=ms, plain_ms=plain_ms, two_call_ms=two_call_ms,
@@ -2313,6 +2382,430 @@ def voc_phase(root: str, cli: dict, smi: str) -> dict:
                 bwd_rows=bwd_rows)
 
 
+# Phase 12: arch b@576 (configs/gkgnet_b_coco_576.py: channels 128..1024, 18
+# stage-3 blocks, bf16, batch 8, drop_path 0.2), its ungrouped backbone
+# (stage 4 at D = 1024: the D-chunked scan) and a small config of the other
+# new model features.
+B_CONFIG = os.path.join(REPO_DIR, "configs", "gkgnet_b_coco_576.py")
+B_BATCH = 8
+B_SIZE = 576
+B_CALLS = 28              # knn_mr calls per forward: 24 Graphers + 4 labels
+# t@224 with a prelu arch, an FPN neck, mixup/cutmix and LAMB (batch 2):
+# the perturbed build's dense indicator at s@576 would be ~310 GB
+FEATURES_ARCH = "t_prelu"
+FEATURES_MODEL = dict(
+    arch=FEATURES_ARCH, k=9, k_label_gcn=9, num_group=2, n_classes=80,
+    size=224, drop_path=0.1, dtype="bfloat16",
+    neck=dict(type="FPN", out_channels=64, out_indices=(1, 2, 3)),
+    train_cfg=dict(augments=[dict(type="BatchMixup", alpha=0.2, prob=0.5),
+                             dict(type="BatchCutMix", alpha=1.0, prob=0.5)]))
+FEATURES_BUDGET = 1 << 16  # knn_budget: tiles the t@224 stage-1 plain build
+
+
+def record_calls(run) -> tuple[list, list]:
+    """``run()`` with every knn_mr forward launch's ``(x, y, bias, k,
+    dilation)`` and backward launch's ``(x, y, idx, g)`` recorded, in
+    order (the launches themselves are the kernels' and count)."""
+    fwd, bwd = [], []
+    launch, launch_backward = knn_mr.launch, knn_mr.launch_backward
+
+    def rec_fwd(x, y, bias, k, dilation=1):
+        fwd.append((x, y, bias, k, dilation))
+        return launch(x, y, bias, k, dilation)
+
+    def rec_bwd(x, y, idx, g):
+        bwd.append((x, y, idx, g))
+        return launch_backward(x, y, idx, g)
+
+    knn_mr.launch, knn_mr.launch_backward = rec_fwd, rec_bwd
+    try:
+        run()
+    finally:
+        knn_mr.launch, knn_mr.launch_backward = launch, launch_backward
+    return fwd, bwd
+
+
+def call_name(prefix: str, widths: tuple, x, y, bias, dil: int) -> str:
+    """``<prefix>_stage<i>_d<dilation>`` for a spatial call (it has the
+    relative-position bias), ``<prefix>_label<i>`` for a label call;
+    ``widths`` holds each stage's D."""
+    stage = widths.index(x.shape[2]) + 1
+    return (f"{prefix}_stage{stage}_d{dil}" if bias is not None
+            else f"{prefix}_label{stage}")
+
+
+def distinct_calls(calls: list, key) -> dict:
+    """The first call of each distinct ``key(call)``, with the number of
+    calls of that key, in the order first met."""
+    out = {}
+    for call in calls:
+        kk = key(call)
+        out.setdefault(kk, [call, 0])[1] += 1
+    return out
+
+
+def topk_wide_row(name: str, xn, yn, bias, k: int) -> dict:
+    """knn_topk on a call's normalized rows against its plain version (the
+    fp64 oracle, the value bound, two launches bitwise equal), timed."""
+    bg, n, d = xn.shape
+    m = yn.shape[1]
+    dt = "bf16" if xn.dtype == torch.bfloat16 else "fp32"
+    idx, vals = knn_topk.launch(xn, yn, k=k, bias=bias, return_values=True)
+    torch.cuda.synchronize()
+    stats = check_topk(name, xn, yn, bias, idx, vals)
+    again = knn_topk.launch(xn, yn, k=k, bias=bias, return_values=True)
+    check(torch.equal(again[0], idx) and torch.equal(again[1], vals),
+          f"{name}: two launches differ")
+    ms = cuda_ms(lambda: knn_topk.launch(xn, yn, k=k, bias=bias), 20, 3)
+    plain_ms = cuda_ms(lambda: knn_topk_reference(xn, yn, k=k, bias=bias),
+                       3, 1)
+    nbytes = (xn.nbytes + (0 if yn is xn else yn.nbytes)
+              + (0 if bias is None else bias.nbytes) + idx.nbytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * bg * n * m * d / PEAK_FLOPS[dt] * 1e3
+    smem, chunked = knn_topk.block_layout(d, k, xn.dtype)
+    row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
+               smem_bytes=smem, chunked=chunked, calls_per_pass=0,
+               calls_per_stochastic_pass=0, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               **stats)
+    print("topk_row " + json.dumps(row), flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def forced_chunked():
+    """knn_mr's and knn_topk's D-chunked scans at every width, through the
+    modules' test hooks (their results are bitwise the whole-row scans')."""
+    saved = knn_mr._FORCE_CHUNKED, knn_topk._FORCE_CHUNKED
+    knn_mr._FORCE_CHUNKED = knn_topk._FORCE_CHUNKED = True
+    try:
+        yield
+    finally:
+        knn_mr._FORCE_CHUNKED, knn_topk._FORCE_CHUNKED = saved
+
+
+def chunk_row(name: str, x, y, bias, k: int, dil: int) -> dict:
+    """A call whose whole-row layout fits, on that layout and on the
+    D-chunked scan forced: knn_mr's idx, mr and normalized rows and
+    knn_topk's idx and values bitwise equal, and the times of both (CUDA
+    events, in turns: whole, chunked, chunked, whole)."""
+    whole = knn_mr.launch(x, y, bias, k, dil)
+    with forced_chunked():
+        forced = knn_mr.launch(x, y, bias, k, dil)
+    check(not knn_mr.block_layout(x.shape[2], k * dil, x.dtype)[1]
+          and all(torch.equal(bits(a) if a.is_floating_point() else a,
+                              bits(c) if c.is_floating_point() else c)
+                  for a, c in zip(whole, forced)),
+          f"{name}: the chunked scan differs from the whole-row layout")
+    xn, yn = whole[2], whole[3]
+    t_whole = knn_topk.launch(xn, yn, k=k * dil, bias=bias,
+                              return_values=True)
+    with forced_chunked():
+        t_forced = knn_topk.launch(xn, yn, k=k * dil, bias=bias,
+                                   return_values=True)
+    check(torch.equal(t_whole[0], t_forced[0])
+          and torch.equal(bits(t_whole[1]), bits(t_forced[1])),
+          f"{name}: knn_topk's chunked scan differs")
+    times = {}
+    for key, forced, fn in (
+            ("ms", False, lambda: knn_mr.launch(x, y, bias, k, dil)),
+            ("chunked_ms", True, lambda: knn_mr.launch(x, y, bias, k, dil)),
+            ("topk_ms", False, lambda: knn_topk.launch(xn, yn, k=k * dil,
+                                                       bias=bias)),
+            ("topk_chunked_ms", True, lambda: knn_topk.launch(
+                xn, yn, k=k * dil, bias=bias))):
+        with forced_chunked() if forced else contextlib.nullcontext():
+            times[key] = cuda_ms(fn, 20, 3)
+    times["ms"] = (times["ms"] + cuda_ms(lambda: knn_mr.launch(
+        x, y, bias, k, dil), 20, 3)) / 2
+    bg, n, d = x.shape
+    row = dict(name=name, dtype="bf16" if x.dtype == torch.bfloat16
+               else "fp32", BG=bg, N=n, M=y.shape[1], D=d, kd=k * dil,
+               **times)
+    print("chunk_row " + json.dumps(row), flush=True)
+    return row
+
+
+def init_backbone(model: torch.nn.Module, seed: int) -> None:
+    """``init_parameters``' families for a bare GKGNet backbone."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        init_block_parameters(model, gen)
+        model.label_lt.weight.normal_(0.0, 1.0, generator=gen)
+        for seq in model.ffn_label:
+            seq[0].weight.normal_(0.0, seq[0].in_features ** -0.5,
+                                  generator=gen)
+            seq[0].bias.zero_()
+
+
+def arch_b_phase(smi: str) -> dict:
+    """Phase 12: (a) arch b@576 from its config, eval and train; (b) its
+    ungrouped backbone at D = 1024 in bf16 and fp32; (c) one train step of
+    a small config of every other new module, then with the perturbed graph
+    build; (d) the 1024-wide fp32 kernel against the plain version on the
+    CPU. Returns the launch counts and the rows."""
+    t0 = time.perf_counter()
+    cfg = train_cli.load_config(B_CONFIG, [])
+    check(cfg.model["arch"] == "b" and cfg.model["dtype"] == "bfloat16"
+          and cfg.model["drop_path"] == 0.2
+          and cfg.data["samples_per_device"] == B_BATCH,
+          f"{B_CONFIG}: not the arch b recipe")
+    widths = tuple(c // cfg.model["num_group"]
+                   for c in ARCH_SETTINGS["b"]["channels"])
+    rng = np.random.default_rng(12)
+    images = torch.from_numpy(rng.standard_normal(
+        (B_BATCH, B_SIZE, B_SIZE, 3), dtype=np.float32)).cuda()
+    labels = torch.from_numpy(rng.random((B_BATCH, 80)) < 0.05).float().cuda()
+    total = Counter()  # the phase's knn_mr forward and backward launches
+
+    # (a) eval: the config's model, seeded, bf16
+    model = build_model(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, _ = model(images)
+    torch.cuda.synchronize()
+    check_counts("b: one eval forward", (B_CALLS, 0, 0, 0), total)
+    check(logits.shape == (B_BATCH, 80)
+          and bool(torch.isfinite(logits).all()), "b: logits")
+    reset_launch_counts()  # the first forward's are in total already
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(images), 10, 2)
+    eval_peak = torch.cuda.max_memory_allocated()
+    check(knn_mr.launches == 12 * B_CALLS,
+          f"b: {knn_mr.launches} launches in 12 timed forwards")
+    total.update(forward=knn_mr.launches)
+    log(f"b: eval {fwd_ms:.2f} ms/forward at batch {B_BATCH}, "
+        f"{B_BATCH * 1e3 / fwd_ms:.1f} img/s (bf16); {B_CALLS} knn_mr "
+        f"launches per forward; peak memory {eval_peak / 2**30:.2f} GiB")
+    with torch.no_grad():
+        profile_device(lambda: model(images), "forward")
+        calls, _ = record_calls(lambda: model(images))
+    check(len(calls) == B_CALLS, f"b: {len(calls)} recorded calls")
+    rows, chunk_rows = [], []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (n, m, d, kd, dil, biased), ((x, y, bias, k, _), count) in \
+            distinct_calls(calls, lambda c: (
+                c[0].shape[1], c[1].shape[1], c[0].shape[2],
+                c[3] * c[4], c[4], c[2] is not None)).items():
+        name = call_name("b", widths, x, y, bias, dil)
+        rows.append(forward_row(name, x, y, bias, k, dil, count, gen))
+        if name in ("b_stage3_d5", "b_stage4_d5", "b_label4"):
+            # the D-chunked scan's cost where the whole-row layout fits
+            for dtype in (torch.bfloat16, torch.float32):
+                xx = x.to(dtype)
+                chunk_rows.append(chunk_row(
+                    name if dtype == torch.bfloat16 else f"{name}_fp32", xx,
+                    xx if y is x else y.to(dtype), bias, k, dil))
+                del xx
+    check(sum(r["calls_per_forward"] for r in rows) == B_CALLS
+          and not any(r["chunked"] for r in rows),
+          "b: the rows do not cover the forward, or took the chunked scan")
+    del model, calls, logits
+    torch.cuda.empty_cache()
+
+    # (a) train: the config's state (AdamW, EMA), make_train_step, dual loss
+    state = train_cli.build_train_state(cfg, 0, torch.device("cuda"), 1000,
+                                        ema=True)
+    step = make_train_step(ema_momentum=2e-4)
+    batch = {"img": images, "gt_label": labels}
+    p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    reset_launch_counts()
+    for i in range(3):
+        f0, b0 = knn_mr.launches, knn_mr.backward_launches
+        state, logs = step(state, batch, 0)
+        torch.cuda.synchronize()
+        fwd, bwd = knn_mr.launches - f0, knn_mr.backward_launches - b0
+        check(fwd == B_CALLS and bwd == B_CALLS, f"b: train step {i}: {fwd} "
+              f"forward and {bwd} backward launches, expected 28 and 28")
+        values = {k: float(v) for k, v in logs.items()}
+        for key in ("loss", "bce_loss", "asy_loss", "grad_norm"):
+            check(math.isfinite(values[key]), f"b: step {i}: {key}")
+        log(f"b: train step {i}: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in values.items()))
+    check(knn_topk.launches == 0 and knn_mr.grouped_launches == 0,
+          "b: knn_topk or grouped launches in training")
+    unmoved = [k for k, v in state.model.named_parameters()
+               if torch.equal(v.detach(), p0[k])]
+    check(not unmoved, f"b: parameters that did not move: {unmoved[:5]}")
+    del p0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step(state, batch, 0)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 5
+    train_peak = torch.cuda.max_memory_allocated()
+    total.update(forward=knn_mr.launches, backward=knn_mr.backward_launches)
+    log(f"b: train {step_ms:.2f} ms/step at batch {B_BATCH}, "
+        f"{B_BATCH * 1e3 / step_ms:.1f} img/s (bf16, mean of 5 steps, host "
+        f"clock with synchronize); 28 + 28 knn_mr launches per step; peak "
+        f"memory {train_peak / 2**30:.2f} GiB")
+    profile_device(lambda: step(state, batch, 0), "step", iters=2)
+    _, bwd_calls = record_calls(lambda: step(state, batch, 0))
+    check(len(bwd_calls) == B_CALLS, f"b: {len(bwd_calls)} backward calls")
+    bwd_rows = []
+    for (n, m, d, k, self_knn), ((x, y, idx, g), count) in distinct_calls(
+            bwd_calls, lambda c: (c[0].shape[1], c[1].shape[1],
+                                  c[0].shape[2], c[2].shape[2],
+                                  c[1] is c[0])).items():
+        name = f"b_{'self' if self_knn else 'cross'}_N{n}_M{m}_D{d}"
+        bwd_rows.append(backward_row(name, x, y, idx, g, count))
+    del state, step, batch, bwd_calls
+    torch.cuda.empty_cache()
+
+    # (b) the ungrouped backbone: stage 4 at D = 1024
+    wide = GKGNet(arch="b", size=B_SIZE, drop_path=0.2, dtype=torch.bfloat16,
+                  use_multi_group=False, backbone_multi_group=False)
+    init_backbone(wide, 1)
+    wide = wide.cuda().train()
+
+    def wide_step():
+        out = wide(images, torch.Generator(device="cuda").manual_seed(0))
+        (out[0].float().square().mean() + out[1].float().mean()).backward()
+
+    reset_launch_counts()
+    calls, bwd_calls = record_calls(wide_step)
+    torch.cuda.synchronize()
+    check_counts("b ungrouped: a forward and backward",
+                 (B_CALLS, 0, B_CALLS, 0), total)
+    wide_rows, wide_bwd, wide_topk = [], [], []
+    wide_fwd = [c for c in calls if c[0].shape[2] == 1024]
+    check(len(wide_fwd) == 3, f"b ungrouped: {len(wide_fwd)} D = 1024 calls")
+    for (_, _, _, _, dil, _), ((x, y, bias, k, _), count) in distinct_calls(
+            wide_fwd, lambda c: (c[0].shape[1], c[1].shape[1],
+                                 c[0].shape[2], c[3], c[4],
+                                 c[2] is not None)).items():
+        name = call_name("b_ungrouped", (128, 256, 512, 1024), x, y, bias,
+                         dil)
+        for dtype in (torch.bfloat16, torch.float32):
+            xx = x.detach().to(dtype)
+            yy = xx if y is x else y.detach().to(dtype)
+            tag = name if dtype == torch.bfloat16 else f"{name}_fp32"
+            row = forward_row(tag, xx, yy, bias, k, dil, count, gen)
+            check(row["chunked"], f"{tag}: not the chunked scan")
+            wide_rows.append(row)
+            xn, yn = l2_normalize(xx), (l2_normalize(yy) if yy is not xx
+                                        else None)
+            wide_topk.append(topk_wide_row(
+                tag, xn, xn if yn is None else yn, bias, k * dil))
+            del xx, yy, xn, yn
+    for (n, m, d, k, self_knn), ((x, y, idx, g), count) in distinct_calls(
+            [c for c in bwd_calls if c[0].shape[2] == 1024],
+            lambda c: (c[0].shape[1], c[1].shape[1], c[0].shape[2],
+                       c[2].shape[2], c[1] is c[0])).items():
+        name = f"b_ungrouped_{'stage4' if self_knn else 'label4'}"
+        wide_bwd.append(backward_row(name, x, y, idx, g, count))
+    check(len(wide_bwd) == 2, "b ungrouped: the D = 1024 backward calls")
+    log("b ungrouped: the D = 1024 calls (2 stage-4 Graphers, 1 label) "
+        "passed in bf16 and fp32 through the chunked scan, knn_topk at "
+        "D = 1024 too, and their backward gy bitwise the ordered plain "
+        "version")
+    del wide, calls, bwd_calls, wide_fwd
+    torch.cuda.empty_cache()
+
+    # (d) the 1024-wide fp32 kernel against the plain version on the CPU
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wide = GKGNet(arch="b", size=B_SIZE, dtype=torch.float32,
+                  use_multi_group=False, backbone_multi_group=False)
+    init_backbone(wide, 2)
+    wide = wide.cuda().eval()
+    with torch.no_grad():
+        calls, _ = record_calls(lambda: wide(images[:1]))
+    for i, (x, y, bias, k, dil) in enumerate(
+            c for c in calls if c[0].shape[2] == 1024):
+        idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dil)
+        xc = x.cpu()
+        idx_p, mr_p = knn_mr.knn_mr_reference(
+            xc, xc if y is x else y.cpu(), None if bias is None
+            else bias.cpu(), k, dil)
+        same = (idx_p == idx.cpu()).all(-1)
+        flips = int((~same).sum())
+        gap = knn_mr.ordering_gaps(xn, yn, bias, idx, dil).max().item()
+        print(f"  fp32 D=1024 call {i}: N={x.shape[1]} M={y.shape[1]} "
+              f"k*d={k * dil}: idx differs from the plain version's on the "
+              f"CPU on {flips}/{same.numel()} rows; worst fp64 gap "
+              f"{gap:.2e}", flush=True)
+        check(flips <= max(1, FLIP_SHARE * same.numel()),
+              f"fp32 D=1024 call {i}: {flips} rows differ")
+        check(gap <= ORACLE_TOL, f"fp32 D=1024 call {i}: fp64 gap {gap:.2e}")
+        check(torch.equal(mr.cpu()[same], mr_p[same]),
+              f"fp32 D=1024 call {i}: mr differs where idx agrees")
+    del wide, calls
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        tf32
+    torch.cuda.empty_cache()
+
+    # (c) the other new modules: prelu, an FPN neck + linear head,
+    # mixup/cutmix, LAMB; then the perturbed graph build
+    ARCH_SETTINGS[FEATURES_ARCH] = dict(ARCH_SETTINGS["t"], act="prelu")
+    feat_imgs = images[:2, :224, :224].contiguous()
+    feat_batch = {"img": feat_imgs, "gt_label": labels[:2]}
+    for builder in ("knn", "perturbed"):
+        model = build_model(dict(FEATURES_MODEL, graph_builder=builder))
+        init_parameters(model, torch.Generator().manual_seed(4))
+        model = model.cuda()
+        st = create_train_state(model, build_optimizer(model, 1e-3, "lamb"),
+                                ema=True)
+        step = make_train_step(
+            ema_momentum=2e-4, batch_augment=build_batch_augment(
+                FEATURES_MODEL["train_cfg"]["augments"]))
+        p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+        reset_launch_counts()
+        for i in range(2):
+            st, logs = step(st, feat_batch, i)
+            torch.cuda.synchronize()
+            check(math.isfinite(float(logs["loss"])),
+                  f"features ({builder}): step {i} loss")
+        moved = [k for k, v in model.named_parameters()
+                 if not torch.equal(v.detach(), p0[k])]
+        check("head.fc.weight" in moved and "backbone.stem.convs.2.weight"
+              in moved and any(k.startswith("neck.") for k in moved)
+              and len(moved) > len(p0) // 2,
+              f"features ({builder}): {len(moved)}/{len(p0)} moved")
+        want = 2 * 16 if builder == "knn" else 0
+        check(knn_mr.launches == want and knn_topk.launches == 0,
+              f"features ({builder}): {knn_mr.launches} knn_mr launches, "
+              f"expected {want}")
+        total.update(forward=knn_mr.launches,
+                     backward=knn_mr.backward_launches)
+        log(f"features ({builder} graph build): 2 train steps of t@224 "
+            f"(prelu, FPN neck + MultiLabelLinearClsHead, mixup/cutmix, "
+            f"LAMB, batch 2) finite, loss {float(logs['loss']):.6g}, "
+            f"{len(moved)}/{len(p0)} parameters moved, {knn_mr.launches} "
+            f"knn_mr launches")
+        del model, st, step, p0
+    del ARCH_SETTINGS[FEATURES_ARCH]
+    # knn_budget: the plain build tiled by the budget's chunk, on the CPU
+    # (the kernel holds no distance block), bitwise the untiled build
+    chunk = gkgnet_mod._divisor_chunk(3136, 196, FEATURES_BUDGET)
+    xq = torch.randn((4, 3136, 24), generator=torch.Generator().manual_seed(5))
+    yq = torch.randn((4, 196, 24), generator=torch.Generator().manual_seed(6))
+    table = torch.from_numpy(get_relative_pos_table(48, 3136, 4))
+    tiled = knn_graph(xq, yq, k=9, bias=table, query_chunk=chunk)
+    check(chunk is not None and torch.equal(
+        tiled, knn_graph(xq, yq, k=9, bias=table)),
+        f"knn_budget: the tiled plain build ({chunk}) differs")
+    log(f"features: knn_budget {FEATURES_BUDGET} tiles the t@224 stage-1 "
+        f"plain build in chunks of {chunk} query rows, bitwise the untiled "
+        f"build")
+    log(f"b: phase 12 passed in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=(total["forward"], total["backward"]),
+                rows=rows + wide_rows,
+                bwd_rows=bwd_rows + wide_bwd, topk_rows=wide_topk,
+                chunk_rows=chunk_rows,
+                fwd_ms=fwd_ms, step_ms=step_ms, eval_peak=eval_peak,
+                train_peak=train_peak)
+
+
 def per_step(rows: list[dict], calls_key: str) -> dict:
     """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
     and the bound that holds for the larger part of that bound_ms."""
@@ -2422,7 +2915,12 @@ def main() -> int:
     cli_fwd, cli_bwd = cli["launches"]
     voc_fwd, voc_bwd = voc["launches"]
 
-    # 12. result lines
+    # 12. arch b@576, its ungrouped backbone at D = 1024, the other new
+    # model features
+    arch_b = arch_b_phase(smi)
+    b_fwd, b_bwd = arch_b["launches"]
+
+    # result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
     topk = per_step(t_rows, "calls_per_pass")
@@ -2437,11 +2935,14 @@ def main() -> int:
         # steps), the CLI path (32 steps, the val_loss pass, raw and EMA
         # evaluations, the test CLI raw and EMA), the serving path
         # (PreciseBN, inference, the artifacts' forwards, the deployment
-        # test, both servers' requests) and the VOC path (16 steps, val,
+        # test, both servers' requests), the VOC path (16 steps, val,
         # the test CLI, the tools, the test CLI on the imported weights)
+        # and phase 12 (arch b eval and train, the ungrouped backbone, the
+        # features config's knn steps)
         "launches": eval_launches + train_fwd + cli_fwd + served["launches"]
-        + voc_fwd,
-        "max_abs_err": max(r["max_abs_err"] for r in rows + voc["rows"]),
+        + voc_fwd + b_fwd,
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           rows + voc["rows"] + arch_b["rows"]),
         # per forward at batch 8: the sum over the 16 calls' shapes
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2453,13 +2954,13 @@ def main() -> int:
         "route": "cuda",
         "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
-        # the train path, the CLI path and the VOC path (16 steps and
-        # vis_cam's saliency)
-        "launches": train_bwd + cli_bwd + voc_bwd,
+        # the train path, the CLI path, the VOC path (16 steps and
+        # vis_cam's saliency) and phase 12
+        "launches": train_bwd + cli_bwd + voc_bwd + b_bwd,
         # largest |gy - the ordered plain version's gy| over the rows (0:
         # bitwise; the rows print |gy - exact fp64 sum| as fp64_err)
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in bwd_rows + voc["bwd_rows"]),
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           bwd_rows + voc["bwd_rows"] + arch_b["bwd_rows"]),
         # per train step at batch 8: the sum over the 16 calls' shapes
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -2476,7 +2977,9 @@ def main() -> int:
         # the 3 stochastic 'mr' blocks in train
         "launches": graph["launches"],
         # largest |distance - fp64 distance| over the rows' checked values
-        "max_abs_err": max(r["max_abs_err"] for r in t_rows),
+        # (phase 3's and phase 12's D = 1024 rows)
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in t_rows + arch_b["topk_rows"]),
         # per aggregator pass at batch 8: the sum over the 9 blocks' calls
         "ms": topk["ms"],
         "plain_ms": topk["plain_ms"],
@@ -2540,7 +3043,13 @@ def main() -> int:
         f"plain "
         f"version at the 16 calls in bf16 and fp32; kernel "
         f"exp_kernel_phases: {phase['launches']} launches on the tool's "
-        f"run, every phase held to its plain version")
+        f"run, every phase held to its plain version; phase 12: {b_fwd} "
+        f"knn_mr and {b_bwd} backward launches (arch b@576 eval "
+        f"{arch_b['fwd_ms']:.2f} ms/forward, train {arch_b['step_ms']:.2f} "
+        f"ms/step), {len(arch_b['rows'])} forward, "
+        f"{len(arch_b['bwd_rows'])} backward and "
+        f"{len(arch_b['topk_rows'])} knn_topk rows held to the plain "
+        f"versions")
     log(f"done: {time.perf_counter() - T0:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,10 @@
 the registry layer of the reference, models/builder.py +
 datasets/builder.py, as plain dispatch).
 
-What the port does not have yet raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item: a neck, ``train_cfg.augments`` (batch mixup/cutmix)
-and ``graph_builder='perturbed'`` (queue 1 item 6).
+A config's ``model.neck`` becomes the classifier's ``neck_cfg`` and its
+``model.graph_builder`` the graph build; ``model.train_cfg`` belongs to
+the training loop (``train_cfg.augments``:
+``nn.augment.build_batch_augment``).
 """
 
 from __future__ import annotations
@@ -56,17 +57,10 @@ def build_model(cfg: dict) -> GKGNetClassifier:
     cfg = dict(cfg)
     head = cfg.pop("head", None)
     dtype = DTYPES[cfg.pop("dtype", "float32")]
-    if (cfg.pop("train_cfg", None) or {}).get("augments"):
-        raise NotImplementedError(
-            "train_cfg.augments (batch mixup/cutmix, gkgnet_tpu/nn/augment.py)"
-            " is not ported yet (ROADMAP.md queue 1 item 6)")
-    if cfg.pop("neck", None) is not None:
-        raise NotImplementedError(
-            "a neck (gkgnet_tpu/nn/necks.py) is not ported yet (ROADMAP.md "
-            "queue 1 item 6)")
-    builder = cfg.pop("graph_builder", "knn")
-    if builder != "knn":
-        raise NotImplementedError(
-            f"graph_builder='{builder}' is not ported yet (ROADMAP.md queue 1"
-            f" item 6)")
+    # train_cfg.augments is consumed by the training loop (batch-level
+    # mixup/cutmix), not the module
+    cfg.pop("train_cfg", None)
+    neck = cfg.pop("neck", None)
+    if neck is not None:
+        cfg["neck_cfg"] = dict(neck)
     return GKGNetClassifier(dtype=dtype, head_kwargs=head, **cfg)

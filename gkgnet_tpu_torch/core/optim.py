@@ -1,6 +1,6 @@
 """Optimizers with the JAX package's weight-decay rule and gradient clipping
 (counterpart: ``gkgnet_tpu/core/optim.py``, optax
-``chain(clip_by_global_norm, adamw | sgd)``).
+``chain(clip_by_global_norm, adamw | lamb | sgd)``).
 
 Decay applies to a parameter unless the leaf name of its JAX variable is
 ``bias``, ``scale`` or ``alpha``. The rule reads the JAX leaf names
@@ -13,6 +13,11 @@ Clipping is optax's: when the global norm ``n`` of the gradients is not
 below ``max_norm``, each gradient becomes ``(g / n) * max_norm``
 (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to n and is not used). The
 learning rate is set from the schedule before each step.
+
+``Lamb`` is ``optax.lamb``, written out because torch has none: Adam's
+bias-corrected moments, the decay added to the update where the mask
+allows it, the update scaled per parameter by the trust ratio
+``|p| / |u|`` (1 where either norm is 0), then ``-lr`` times it.
 """
 
 from __future__ import annotations
@@ -39,6 +44,47 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     1e-6 relative)."""
     norms = torch._foreach_norm(tensors, 2, dtype=torch.float64)
     return torch.linalg.vector_norm(torch.stack(norms)).float()
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb: ``scale_by_adam`` (eps outside the root, no eps_root),
+    ``add_decayed_weights`` (a group's ``weight_decay``),
+    ``scale_by_trust_ratio`` and ``-lr``, over each parameter as one
+    leaf."""
+
+    def __init__(self, params, lr: float = 1e-3,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+                t = state["step"]
+                mu = (1.0 - b1) * g + b1 * state["mu"]
+                nu = (1.0 - b2) * (g * g) + b2 * state["nu"]
+                state["mu"], state["nu"] = mu, nu
+                u = (mu / (1.0 - b1 ** t)) / (
+                    torch.sqrt(nu / (1.0 - b2 ** t)) + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p_norm = torch.linalg.vector_norm(p)
+                u_norm = torch.linalg.vector_norm(u)
+                ratio = torch.where((p_norm == 0) | (u_norm == 0), 1.0,
+                                    p_norm / u_norm)
+                p.add_(-group["lr"] * (u * ratio))
 
 
 class Optimizer:
@@ -83,7 +129,7 @@ def build_optimizer(model: nn.Module,
                     betas: tuple[float, float] = (0.9, 0.999),
                     eps: float = 1e-8, grad_clip_norm: float | None = 5.0,
                     paramwise_no_decay: bool = True) -> Optimizer:
-    """AdamW (or SGD with momentum ``betas[0]``) over the model's
+    """AdamW, LAMB (or SGD with momentum ``betas[0]``) over the model's
     parameters in two groups, decayed and not, with clipping at
     ``grad_clip_norm``."""
     mask = no_decay_mask(model) if paramwise_no_decay else {}
@@ -96,9 +142,10 @@ def build_optimizer(model: nn.Module,
     lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
     if optimizer == "adamw":
         opt = torch.optim.AdamW(groups, lr=lr0, betas=betas, eps=eps)
+    elif optimizer == "lamb":
+        opt = Lamb(groups, lr=lr0, betas=betas, eps=eps)
     elif optimizer == "sgd":
         opt = torch.optim.SGD(groups, lr=lr0, momentum=betas[0])
     else:
-        raise ValueError(f"unknown optimizer {optimizer} (LAMB is not "
-                         f"ported)")
+        raise ValueError(f"unknown optimizer {optimizer}")
     return Optimizer(opt, learning_rate, grad_clip_norm)

@@ -1,11 +1,13 @@
 """Training core: ``TrainState`` and the train and eval steps (counterpart:
 ``gkgnet_tpu/core/trainer.py``).
 
-One ``train_step`` is: forward in train mode (batch-moment BatchNorm,
-DropPath drawn from a generator seeded from ``(seed, step)``) -> dual loss
--> backward (through the graph-conv kernels' own backward) -> clip by
-global norm -> optimizer step at the schedule's rate -> EMA of the
-parameters. The compute dtype follows the model: fp32 master parameters,
+One ``train_step`` is: the optional batch augment (mixup/cutmix of the
+images and labels on the device) -> forward in train mode (batch-moment
+BatchNorm; DropPath, stochastic dilation and the perturbed graph build
+drawn from a generator seeded from ``(seed, step)``, which the augment
+draws from first) -> the head's loss -> backward (through the graph-conv
+kernels' own backward) -> clip by global norm -> optimizer step at the
+schedule's rate -> EMA of the parameters. The compute dtype follows the model: fp32 master parameters,
 cast at use; no autocast and no GradScaler.
 
 The optional dynamic loss scaler is the mmcv one the JAX package mirrors:
@@ -84,14 +86,18 @@ def ema_update(ema_params: dict[str, torch.Tensor], model: nn.Module,
 def make_train_step(loss_fn: Callable | None = None,
                     ema_momentum: float | None = None, ema_warmup: int = 100,
                     dynamic_loss_scale: bool = False,
-                    scale_growth_interval: int = 2000):
+                    scale_growth_interval: int = 2000,
+                    batch_augment: Callable | None = None):
     """Returns ``train_step(state, batch, seed=0) -> (state, log_vars)``.
 
     ``batch``: dict with ``img`` (B, H, W, 3) and ``gt_label`` (B, C) on the
     model's device. The state is updated in place and returned. log_vars
-    holds 0-d tensors (``bce_loss``, ``asy_loss``, ``loss``, ``grad_norm``,
-    and ``loss_scale`` with dynamic scaling) and ``lr`` as a float.
-    ``loss_fn`` defaults to the model's head loss.
+    holds 0-d tensors (the head's losses, e.g. ``bce_loss`` and
+    ``asy_loss``, ``loss``, ``grad_norm``, and ``loss_scale`` with dynamic
+    scaling) and ``lr`` as a float. ``loss_fn`` defaults to the model's
+    head loss. ``batch_augment``: ``(imgs, labels, generator) -> (imgs,
+    labels)``, ``nn.augment.build_batch_augment``'s, applied before the
+    forward.
     """
 
     def train_step(state: TrainState, batch: dict, seed: int = 0):
@@ -102,12 +108,13 @@ def make_train_step(loss_fn: Callable | None = None,
         if dynamic_loss_scale:
             stats = [t.clone() for t in _bn_stats(model)]
         state.optimizer.optimizer.zero_grad(set_to_none=True)
-        cls_score, _ = model(batch["img"],
-                             generator=step_generator(seed, state.step,
-                                                      device))
+        gen = step_generator(seed, state.step, device)
+        imgs, gt = batch["img"], batch["gt_label"]
+        if batch_augment is not None:
+            imgs, gt = batch_augment(imgs, gt, gen)
+        cls_score, _ = model(imgs, generator=gen)
         head_loss = loss_fn or model.build_loss_head().loss
-        total, log_vars = parse_losses(head_loss(cls_score,
-                                                 batch["gt_label"]))
+        total, log_vars = parse_losses(head_loss(cls_score, gt))
         if dynamic_loss_scale:
             (total * state.loss_scale).backward()
         else:

@@ -59,7 +59,10 @@
 //      rows of the kept columns and write max_j(y_j - x) in fp32, rounded
 //      once to the input type.
 //   Its bound: shared-memory loads and fp32 issue (one load per fmaf), far
-//   above the bytes' and the fp32 operations' bounds. The blocks that read
+//   above the bytes' and the fp32 operations' bounds. The transposed tile
+//   is 260 bytes a channel, so past D = 795 (arch b without channel
+//   groups: D = 1024) the folded forward stages it kChunk = 128 channels
+//   at a time (kChunked), the same sums in the same order. The blocks that read
 //   the same bias rows for different groups run together (the grid's
 //   fastest axis is the batch-group axis), so the bias comes from L2.
 //   The selection helpers (the register lists, their lexicographic order,
@@ -121,6 +124,7 @@ namespace {
 
 using knn_select::from_f32;
 using knn_select::insert;
+using knn_select::kChunk;
 using knn_select::kdm_bucket;
 using knn_select::kFull;
 using knn_select::kThreads;
@@ -205,8 +209,13 @@ constexpr int kFixedColumn = 7;  // gfix gathers columns 7, 8, ..., 6 + k
 // (B, N, g, k); xn/yn and their squares are the folded scratch all the
 // same, so only the epilogue's reads of the raw rows and its writes move.
 // The phases' arguments (acc_init, dist_weight, out) come last, so the
-// forward's parameters keep their offsets.
-template <typename T, int KDM, bool kGrouped, int kPhase>
+// forward's parameters keep their offsets. kChunked (the folded forward
+// only): the target tile is staged kChunk channels at a time, for rows
+// whose whole transposed tile does not fit in shared memory; the products
+// are the same fmaf steps in the same order, so every distance is bitwise
+// the unchunked kernel's.
+template <typename T, int KDM, bool kGrouped, int kPhase,
+          bool kChunked = false>
 __global__ void __launch_bounds__(kThreads)
 knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
               const T* __restrict__ xn, const T* __restrict__ yn,
@@ -216,6 +225,8 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
               int n, int m, int d, int k, int dilation, int groups,
               float acc_init, float dist_weight, float* __restrict__ out) {
   static_assert(kPhase == kForward || !kGrouped, "phases run folded");
+  static_assert(!kChunked || (kPhase == kForward && !kGrouped),
+                "the chunked scan runs the folded forward");
   constexpr bool kSelect =
       kPhase == kForward || kPhase == kSel || kPhase == kSelg;
   constexpr bool kGather =
@@ -223,7 +234,8 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
   constexpr bool kSumDist = kPhase == kDist || kPhase == kGfix;
   extern __shared__ float smem[];
   float* ys = smem;                       // [d][kTileP] target tile, fp32
-  float* xs = ys + d * kTileP;            // [kWarps][d] normalized queries
+                                          // (chunked: [kChunk][kTileP])
+  float* xs = ys + (kChunked ? kChunk : d) * kTileP;  // [kWarps][d] queries
   float* ysq_s = xs + kWarps * d;         // [kTile]
   int* sel = reinterpret_cast<int*>(ysq_s + kTile);  // [kWarps][KDM]
 
@@ -263,6 +275,49 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
   for (int j0 = 0; j0 < m; j0 += kTile) {
     const int tw = min(kTile, m - j0);
+    if constexpr (kChunked) {
+      float acc0 = 0.f;
+      float acc1 = 0.f;
+      for (int e0 = 0; e0 < d; e0 += kChunk) {
+        const int w = min(kChunk, d - e0);
+        __syncthreads();  // the previous chunk (and xw on the first pass)
+        const T* src = yn_b + (long long)j0 * d + e0;
+        for (int t = threadIdx.x; t < tw * w; t += kThreads) {
+          const int jj = t / w;
+          const int e = t - jj * w;
+          ys[e * kTileP + jj] = to_f32(src[(long long)jj * d + e]);
+        }
+        if (e0 == 0) {
+          for (int t = threadIdx.x; t < tw; t += kThreads) {
+            ysq_s[t] = ysq_b[j0 + t];
+          }
+        }
+        __syncthreads();
+        if (active) {
+#pragma unroll 4
+          for (int e = 0; e < w; ++e) {
+            const float xv = xw[e0 + e];
+            acc0 = fmaf(xv, ys[e * kTileP + lane], acc0);
+            acc1 = fmaf(xv, ys[e * kTileP + lane + 32], acc1);
+          }
+        }
+      }
+      if (active) {  // as below: columns at or past tw are dropped
+        const int c0 = lane;
+        const int c1 = lane + 32;
+        if (c0 < tw) {
+          float dist = xq - 2.f * acc0 + ysq_s[c0];
+          if (brow != nullptr) dist += brow[j0 + c0];
+          insert<KDM>(ld, lc, dist, j0 + c0);
+        }
+        if (c1 < tw) {
+          float dist = xq - 2.f * acc1 + ysq_s[c1];
+          if (brow != nullptr) dist += brow[j0 + c1];
+          insert<KDM>(ld, lc, dist, j0 + c1);
+        }
+      }
+      continue;
+    }
     __syncthreads();  // the previous tile (and xw on the first pass) done
     const T* src = yn_b + (long long)j0 * d;
     for (int t = threadIdx.x; t < tw * d; t += kThreads) {
@@ -413,12 +468,28 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
-size_t main_smem_bytes(int d, int kdm) {
-  return sizeof(float) * ((size_t)d * kTileP + (size_t)kWarps * d + kTile) +
+// The CUDA-core kernel's dynamic shared memory: the transposed target tile
+// (chunked: kChunk of its channels), the warps' query rows, y_sq and the
+// selected columns.
+size_t main_smem_bytes(int d, int kdm, bool chunked = false) {
+  return sizeof(float) * ((size_t)(chunked ? kChunk : d) * kTileP +
+                          (size_t)kWarps * d + kTile) +
          sizeof(int) * (size_t)kWarps * kdm;
 }
 
-template <typename T, int KDM, bool kGrouped, int kPhase = kForward>
+// Whether the CUDA-core kernel takes the chunked scan: only where the
+// whole tile does not fit (or when forced), so that every width that fits
+// keeps its kernel.
+bool main_chunked(int d, int kdm, bool force_chunked) {
+  int dev = 0, optin = 232448;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return force_chunked || main_smem_bytes(d, kdm) > (size_t)optin;
+}
+
+template <typename T, int KDM, bool kGrouped, int kPhase = kForward,
+          bool kChunked = false>
 cudaError_t launch_main(const void* x, const void* y, const void* xn,
                         const void* yn, const void* xsq, const void* ysq,
                         const void* bias, int bias_mode, void* idx, void* mr,
@@ -426,15 +497,16 @@ cudaError_t launch_main(const void* x, const void* y, const void* xn,
                         int groups, cudaStream_t stream,
                         float acc_init = 0.f, float dist_weight = 0.f,
                         void* out = nullptr) {
-  const size_t smem = main_smem_bytes(d, KDM);
+  const size_t smem = main_smem_bytes(d, KDM, kChunked);
   if (smem > 48 * 1024) {  // above the default dynamic limit: opt in
     cudaError_t err = cudaFuncSetAttribute(
-        knn_mr_kernel<T, KDM, kGrouped, kPhase>,
+        knn_mr_kernel<T, KDM, kGrouped, kPhase, kChunked>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(bg, (n + kWarps - 1) / kWarps);
-  knn_mr_kernel<T, KDM, kGrouped, kPhase><<<grid, kThreads, smem, stream>>>(
+  knn_mr_kernel<T, KDM, kGrouped, kPhase, kChunked>
+      <<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(xn), static_cast<const T*>(yn),
       static_cast<const float*>(xsq), static_cast<const float*>(ysq),
@@ -540,8 +612,11 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
 // columns in its shared sel rows), the epilogue does knn_mr_kernel's work
 // for the warp's rows: the lanes gather the raw target rows of the kept
 // columns (max_relative8, max_relative_pair) and write max_j(y_j - x) (or
-// the phase's checksum). The arguments are knn_mr_kernel's.
-template <int KDM, bool kGrouped, int kPhase>
+// the phase's checksum). The arguments are knn_mr_kernel's. kChunked (the
+// folded forward only): knn_scan.cuh's chunked scan, for rows too wide for
+// its whole-row layout; the epilogue reads no staged row, so it is the
+// same.
+template <int KDM, bool kGrouped, int kPhase, bool kChunked = false>
 __global__ void __launch_bounds__(knn_scan::kMaxWarps * 32)
 knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ y,
@@ -554,6 +629,8 @@ knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
                  float acc_init, float dist_weight, float* __restrict__ out) {
   using knn_scan::kRows;
   static_assert(kPhase == kForward || !kGrouped, "phases run folded");
+  static_assert(!kChunked || (kPhase == kForward && !kGrouped),
+                "the chunked scan runs the folded forward");
   constexpr bool kSelect =
       kPhase == kForward || kPhase == kSel || kPhase == kSelg;
   constexpr bool kGather =
@@ -561,7 +638,7 @@ knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr bool kSumDist = kPhase == kDist || kPhase == kGfix;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int warps = blockDim.x >> 5;
-  const knn_scan::Layout lay = knn_scan::layout(d, KDM, warps);
+  const knn_scan::Layout lay = knn_scan::layout_for<kChunked>(d, KDM, warps);
   const int bg = blockIdx.x;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -578,8 +655,13 @@ knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
   unsigned lk[KDM];
   int lc[KDM];
   float dsum_a = 0.f, dsum_b = 0.f;  // dist, gfix: this lane's distances
-  knn_scan::scan<KDM, kSelect, kSumDist>(rows, row0, kd, smem_tc,
-                                         lay, lk, lc, dsum_a, dsum_b);
+  if constexpr (kChunked) {
+    knn_scan::scan_chunked<KDM, kSelect, kSumDist>(
+        rows, row0, kd, smem_tc, lay, lk, lc, dsum_a, dsum_b);
+  } else {
+    knn_scan::scan<KDM, kSelect, kSumDist>(rows, row0, kd, smem_tc,
+                                           lay, lk, lc, dsum_a, dsum_b);
+  }
   if (wrow0 >= n) return;  // whole warp: no block-wide barrier follows
 
   if constexpr (kSumDist) {  // the quad's sums: the rows' totals
@@ -599,8 +681,8 @@ knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
   int* sel = reinterpret_cast<int*>(smem_tc + lay.sel) + warp * kRows * KDM;
   if constexpr (kSelect) {
-    knn_scan::merge_rows<KDM>(rows, row0, kd, dilation, smem_tc, lay, lk, lc,
-                              sel, KDM, nullptr);
+    knn_scan::merge_rows<KDM, kChunked>(rows, row0, kd, dilation, smem_tc,
+                                        lay, lk, lc, sel, KDM, nullptr);
   } else {
     for (int i = lane; i < kRows * k; i += 32) {
       sel[(i / k) * KDM + i % k] = kFixedColumn + i % k;
@@ -708,24 +790,23 @@ knn_mr_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int KDM, bool kGrouped, int kPhase = kForward>
-cudaError_t launch_tc(const void* x, const void* y, const void* xn,
-                      const void* yn, const void* xsq, const void* ysq,
-                      const void* bias, int bias_mode, void* idx, void* mr,
-                      int bg, int n, int m, int d, int k, int dilation,
-                      int groups, cudaStream_t stream, float acc_init = 0.f,
-                      float dist_weight = 0.f, void* out = nullptr) {
-  const knn_scan::Config cfg = knn_scan::config(d, KDM);
-  if (cfg.smem == 0) return cudaErrorInvalidValue;
+template <int KDM, bool kGrouped, int kPhase, bool kChunked = false>
+cudaError_t launch_tc_as(const knn_scan::Config& cfg, const void* x,
+                         const void* y, const void* xn, const void* yn,
+                         const void* xsq, const void* ysq, const void* bias,
+                         int bias_mode, void* idx, void* mr, int bg, int n,
+                         int m, int d, int k, int dilation, int groups,
+                         cudaStream_t stream, float acc_init,
+                         float dist_weight, void* out) {
   if (cfg.smem > 48 * 1024) {  // above the default dynamic limit: opt in
     cudaError_t err = cudaFuncSetAttribute(
-        knn_mr_tc_kernel<KDM, kGrouped, kPhase>,
+        knn_mr_tc_kernel<KDM, kGrouped, kPhase, kChunked>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
     if (err != cudaSuccess) return err;
   }
   const int rows = cfg.warps * knn_scan::kRows;
   const dim3 grid(bg, (n + rows - 1) / rows);
-  knn_mr_tc_kernel<KDM, kGrouped, kPhase>
+  knn_mr_tc_kernel<KDM, kGrouped, kPhase, kChunked>
       <<<grid, cfg.warps * 32, cfg.smem, stream>>>(
           static_cast<const __nv_bfloat16*>(x),
           static_cast<const __nv_bfloat16*>(y),
@@ -736,6 +817,33 @@ cudaError_t launch_tc(const void* x, const void* y, const void* xn,
           static_cast<__nv_bfloat16*>(mr), n, m, d, k, dilation, groups,
           acc_init, dist_weight, static_cast<float*>(out));
   return cudaGetLastError();
+}
+
+// The launch shape of knn_scan::config, and the chunked instantiation
+// where it takes the chunked layout (the folded forward only: the grouped
+// kernel and the phases fail there).
+template <int KDM, bool kGrouped, int kPhase = kForward>
+cudaError_t launch_tc(const void* x, const void* y, const void* xn,
+                      const void* yn, const void* xsq, const void* ysq,
+                      const void* bias, int bias_mode, void* idx, void* mr,
+                      int bg, int n, int m, int d, int k, int dilation,
+                      int groups, cudaStream_t stream, float acc_init = 0.f,
+                      float dist_weight = 0.f, void* out = nullptr,
+                      bool force_chunked = false) {
+  const knn_scan::Config cfg = knn_scan::config(d, KDM, force_chunked);
+  if (cfg.smem == 0) return cudaErrorInvalidValue;
+  if (cfg.chunked) {
+    if constexpr (kPhase == kForward && !kGrouped) {
+      return launch_tc_as<KDM, false, kForward, true>(
+          cfg, x, y, xn, yn, xsq, ysq, bias, bias_mode, idx, mr, bg, n, m,
+          d, k, dilation, groups, stream, acc_init, dist_weight, out);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  return launch_tc_as<KDM, kGrouped, kPhase>(
+      cfg, x, y, xn, yn, xsq, ysq, bias, bias_mode, idx, mr, bg, n, m, d, k,
+      dilation, groups, stream, acc_init, dist_weight, out);
 }
 
 // f(std::integral_constant<int, L>{}) for the list length L that T's
@@ -768,7 +876,7 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
                     void* xn, void* yn, void* xsq, void* ysq, void* idx,
                     void* mr, int bg, int n, int m, int d, int k,
                     int dilation, int bias_mode, int y_is_x, int groups,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, bool force_chunked = false) {
   const long long rows_x = (long long)bg * n;
   const long long rows_y = y_is_x ? 0 : (long long)bg * m;
   const long long blocks = (rows_x + rows_y + kWarps - 1) / kWarps;
@@ -786,7 +894,16 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
       return launch_tc<L, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
                                     bias_mode, idx, mr, bg, n, m, d, k,
-                                    dilation, groups, stream);
+                                    dilation, groups, stream, 0.f, 0.f,
+                                    nullptr, force_chunked);
+    } else if (main_chunked(d, L, force_chunked)) {
+      if constexpr (kGrouped) {
+        return cudaErrorInvalidValue;  // the grouped kernel is not chunked
+      } else {
+        return launch_main<T, L, false, kForward, true>(
+            x, y, xn, ynp, xsq, ysqp, bias, bias_mode, idx, mr, bg, n, m, d,
+            k, dilation, groups, stream);
+      }
     } else {
       return launch_main<T, L, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
                                          bias_mode, idx, mr, bg, n, m, d, k,
@@ -855,18 +972,24 @@ extern "C" {
 // float32), contiguous; bias fp32 per bias_mode; xn/xsq (bg, n, d)/(bg, n)
 // and yn/ysq (bg, m, d)/(bg, m) scratch (unused for y when y_is_x);
 // outputs idx (bg, n, k) int32 and mr (bg, n, d) of the input type.
-// Requires 1 <= k * dilation <= min(m, 64). Returns a cudaError_t code.
+// Requires 1 <= k * dilation <= min(m, 64). force_chunked: take the
+// chunked scan at any width (its results are bitwise the unchunked
+// kernel's); without it the chunked scan runs only where the whole-row
+// layout does not fit. Returns a cudaError_t code.
 int knn_mr_forward(const void* x, const void* y, const void* bias, void* xn,
                    void* yn, void* xsq, void* ysq, void* idx, void* mr,
                    int bg, int n, int m, int d, int k, int dilation,
-                   int bias_mode, int is_bf16, int y_is_x, void* stream) {
+                   int bias_mode, int is_bf16, int y_is_x, int force_chunked,
+                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return forward<__nv_bfloat16, false>(x, y, bias, xn, yn, xsq, ysq, idx,
                                          mr, bg, n, m, d, k, dilation,
-                                         bias_mode, y_is_x, 1, s);
+                                         bias_mode, y_is_x, 1, s,
+                                         force_chunked != 0);
   return forward<float, false>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n,
-                               m, d, k, dilation, bias_mode, y_is_x, 1, s);
+                               m, d, k, dilation, bias_mode, y_is_x, 1, s,
+                               force_chunked != 0);
 }
 
 // The fold-aware forward: x (b, n, groups*d), y (b, m, groups*d) unfolded,
@@ -912,16 +1035,22 @@ int knn_phase(int phase, const void* x, const void* y, void* xn, void* yn,
                           d, k, s);
 }
 
-// Dynamic shared memory of one main-kernel block at row width d and
-// k*d = kd, in bf16 (is_bf16) or fp32 (0 when k*d exceeds 64 or no block
-// shape fits).
-long long knn_mr_smem_bytes(int d, int kd, int is_bf16) {
+// Dynamic shared memory of one folded forward block at row width d and
+// k*d = kd, in bf16 (is_bf16) or fp32, with the layout the forward takes
+// (force_chunked: as knn_mr_forward's): negative where that layout is the
+// chunked one, 0 when k*d exceeds 64 or no block shape fits.
+long long knn_mr_smem_bytes(int d, int kd, int is_bf16, int force_chunked) {
   if (is_bf16) {
     const int len = knn_scan::list_slots(kd);
-    return len ? knn_scan::config(d, len).smem : 0;
+    if (!len) return 0;
+    const knn_scan::Config cfg = knn_scan::config(d, len, force_chunked != 0);
+    return cfg.chunked ? -(long long)cfg.smem : cfg.smem;
   }
   const int kdm = kdm_bucket(kd);
-  return kdm ? (long long)main_smem_bytes(d, kdm) : 0;
+  if (!kdm) return 0;
+  const bool chunked = main_chunked(d, kdm, force_chunked != 0);
+  const long long smem = (long long)main_smem_bytes(d, kdm, chunked);
+  return chunked ? -smem : smem;
 }
 
 const char* knn_mr_error_string(int code) {

@@ -59,6 +59,25 @@
 // the tile loads', and one after the last tile frees the tile buffers for
 // the merge.
 //
+// Wide rows (the chunked instantiation, kChunked). The layout above
+// stages whole rows, 2 bytes a channel for each of up to 64 query rows and
+// 2 x 64 target rows, so it stops fitting near D = 780 (arch b without
+// channel groups has D = 1024). The chunked scan stages both the query
+// rows and the target tiles kDC = 128 channels at a time, in a ring of two
+// (target chunk, query chunk) buffers fed by cp.async: the pipeline's
+// stages are the (tile, chunk) pairs in order, and each warp's mma
+// accumulators carry a tile's products from one chunk to the next. The
+// mma steps are the same, in the same order (the depth in chunks of 16,
+// from zero), so a distance is bitwise the unchunked scan's, and so are
+// idx, mr and knn_topk's values. Its staging does not grow with D; the
+// merge region, which reuses it, holds 8 bytes a channel per warp (a NaN
+// row's fp32 copy) and outgrows it past D ~2,200 at 4 warps, so the bf16
+// kernels take D up to ~28,000 at 1 warp. It runs only where the
+// unchunked layout does not fit (config), so every call that fitted keeps
+// its kernel. scan_chunked shares no code with scan: a helper or lambda
+// shared by both changes the instructions nvcc emits for scan, and the
+// unchunked kernels are held to their SASS (tools/compare_sass.py).
+//
 // knn_topk(xn, yn, k*d)[..., ::d] is bitwise knn_mr's idx on the same
 // normalized rows: both kernels take their distances and their selection
 // from this file; chip_smoke.py checks it at every knn_mr shape.
@@ -89,6 +108,7 @@ constexpr int kDistStride = 72;  // fp32 words per row of a warp's distance
                                  // tile: conflict-free float2 stores
 constexpr unsigned kEmpty = 0xffffffffu;  // key of an empty list slot
 constexpr unsigned kDead = 0u;            // key of a slot past k*d
+constexpr int kDC = 128;         // channels per stage of the chunked scan
 
 // The list length a k*d takes (the template instantiations); 0 above 64.
 inline int list_slots(int kd) {
@@ -143,25 +163,60 @@ __host__ __device__ inline Layout layout(int d, int kdm, int warps) {
   return l;
 }
 
+// The chunked scan's layout: the same regions, but the target tiles and
+// the query rows are staged kDC channels at a time, both in two buffers:
+// y [2][kBN][row_stride(kDC)], then q [2][warps * 16][row_stride(kDC)];
+// after the scan the merge region starts at y, as in layout.
+__host__ __device__ inline Layout layout_chunked(int d, int kdm, int warps) {
+  const int s = row_stride(kDC);
+  const int staged = 2 * (kBN + warps * kRows) * s * 2;
+  const int merge = warps * merge_bytes(d, kdm);
+  Layout l;
+  l.y = 0;
+  l.q = l.y + 2 * kBN * s * 2;
+  l.ysq = l.y + (staged > merge ? staged : merge);
+  l.dist = l.ysq + 2 * kBN * 4;
+  l.sel = l.dist + warps * kRows * kDistStride * 4;
+  l.total = l.sel + warps * kRows * kdm * 4;
+  return l;
+}
+
+template <bool kChunked>
+__host__ __device__ inline Layout layout_for(int d, int kdm, int warps) {
+  if constexpr (kChunked) {
+    return layout_chunked(d, kdm, warps);
+  } else {
+    return layout(d, kdm, warps);
+  }
+}
+
 // The launch shape: 4 warps per block where they fit in shared memory,
 // else 2, else 1. A call has N / 16 warps per batch-group whatever the
 // block, so fewer warps per block add no parallelism at small N: they only
-// stage each tile more often (PERF.md has the measurements). smem is 0
-// when no shape fits (bf16 rows of more than about 780 channels).
+// stage each tile more often (PERF.md has the measurements). Where no
+// shape of the unchunked layout fits (bf16 rows of more than about 780
+// channels), or with force_chunked, the chunked layout, whose size does
+// not depend on D but for the merge's rows (4 warps at D = 1024 and
+// k*d = 45: 104,960 bytes). smem is 0 when nothing fits.
 struct Config {
   int warps;
   int smem;
+  bool chunked;
 };
 
-inline Config config(int d, int kdm) {
+inline Config config(int d, int kdm, bool force_chunked = false) {
   int dev = 0, optin = 232448;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
-  int warps = kMaxWarps;
-  while (warps > 1 && layout(d, kdm, warps).total > optin) warps >>= 1;
-  const int smem = layout(d, kdm, warps).total;
-  return {warps, smem <= optin ? smem : 0};
+  for (int c = force_chunked ? 1 : 0; c < 2; ++c) {
+    for (int warps = kMaxWarps; warps >= 1; warps >>= 1) {
+      const int smem = c == 1 ? layout_chunked(d, kdm, warps).total
+                                 : layout(d, kdm, warps).total;
+      if (smem <= optin) return {warps, smem, c == 1};
+    }
+  }
+  return {1, 0, false};
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -268,6 +323,30 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
       const int rr = i / d;
       const int e = i - rr * d;
       dst[rr * s + e] = src[(long long)rr * d + e];
+    }
+  }
+}
+
+// The chunked scan's copy: channels [c0, c0 + w) of `rows` rows of d
+// channels from src to shared memory (row stride s), as stage_rows copies
+// whole rows.
+__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
+                                            int rows, int d, int c0, int w,
+                                            int s) {
+  if ((d & 7) == 0 && (w & 7) == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int chunks = w >> 3;
+    for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+      const int rr = i / chunks;
+      const int cc = i - rr * chunks;
+      cp_async16(dst + rr * s + cc * 8,
+                 src + (long long)rr * d + c0 + cc * 8);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+      const int rr = i / w;
+      const int e = i - rr * w;
+      dst[rr * s + e] = src[(long long)rr * d + c0 + e];
     }
   }
 }
@@ -503,6 +582,247 @@ __device__ __forceinline__ void scan(const Rows& r, int row0, int kd,
   __syncthreads();  // every warp done with the tiles: the region is free
 }
 
+// scan's work on one tile once a warp's products are in acc: the
+// distances (acc holds <x, y> of rows g and g + 8 with the tile's columns
+// 8 sub + 2t and 8 sub + 2t + 1), the distance sums, and the selection into
+// the lanes' lists, with the rows' thresholds td_a / td_b: scan's tile
+// loop, line for line, for scan_chunked (scan keeps its own copy, see the
+// top of the file).
+template <int KDM, bool kSelect, bool kSumDist>
+__device__ __forceinline__ void take_tile(
+    const float (&acc)[kSub][4], const float* yq, int j0, int tw,
+    float xq_a, float xq_b, const float* brow_a, const float* brow_b,
+    bool pairs, float* dist_w, const float* drow, unsigned (&lk)[KDM],
+    int (&lc)[KDM], float& td_a, float& td_b, float& dsum_a,
+    float& dsum_b) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = lane & 1;
+  // pass bits: column 8 sub + 2t + c of row g at bit 4 sub + c, of row
+  // g + 8 two bits above
+  unsigned pass = 0u;
+#pragma unroll
+  for (int sub = 0; sub < kSub; ++sub) {
+    const int cl = sub * 8 + 2 * t;  // tile-local column of c0; c1 next
+    const float2 yq2 = *reinterpret_cast<const float2*>(yq + cl);
+    float da0 = distance(xq_a, acc[sub][0], yq2.x);
+    float da1 = distance(xq_a, acc[sub][1], yq2.y);
+    float db0 = distance(xq_b, acc[sub][2], yq2.x);
+    float db1 = distance(xq_b, acc[sub][3], yq2.y);
+    const bool v0 = cl < tw;
+    const bool v1 = cl + 1 < tw;
+    if (brow_a != nullptr) {  // warp-uniform
+      const int j = j0 + cl;
+      float ba0 = 0.f, ba1 = 0.f, bb0 = 0.f, bb1 = 0.f;
+      if (pairs) {
+        if (v0) {
+          const float2 pa = *reinterpret_cast<const float2*>(brow_a + j);
+          const float2 pb = *reinterpret_cast<const float2*>(brow_b + j);
+          ba0 = pa.x;
+          ba1 = pa.y;
+          bb0 = pb.x;
+          bb1 = pb.y;
+        }
+      } else {
+        if (v0) {
+          ba0 = brow_a[j];
+          bb0 = brow_b[j];
+        }
+        if (v1) {
+          ba1 = brow_a[j + 1];
+          bb1 = brow_b[j + 1];
+        }
+      }
+      da0 += ba0;
+      da1 += ba1;
+      db0 += bb0;
+      db1 += bb1;
+    }
+    if constexpr (kSumDist) {
+      if (v0) {
+        dsum_a += da0;
+        dsum_b += db0;
+      }
+      if (v1) {
+        dsum_a += da1;
+        dsum_b += db1;
+      }
+    }
+    if constexpr (kSelect) {
+      pass |= (unsigned)(da0 <= td_a) << (4 * sub);
+      pass |= (unsigned)(da1 <= td_a) << (4 * sub + 1);
+      pass |= (unsigned)(db0 <= td_b) << (4 * sub + 2);
+      pass |= (unsigned)(db1 <= td_b) << (4 * sub + 3);
+      *reinterpret_cast<float2*>(dist_w + g * kDistStride + cl) =
+          make_float2(da0, da1);
+      *reinterpret_cast<float2*>(dist_w + (g + 8) * kDistStride + cl) =
+          make_float2(db0, db1);
+    }
+  }
+
+  if constexpr (kSelect) {
+    if (tw < kBN) {  // the last tile: drop the columns past m
+      unsigned valid = 0u;
+#pragma unroll
+      for (int sub = 0; sub < kSub; ++sub) {
+        const int cl = sub * 8 + 2 * t;
+        valid |= (cl < tw ? 5u : 0u) << (4 * sub);
+        valid |= (cl + 1 < tw ? 10u : 0u) << (4 * sub);
+      }
+      pass &= valid;
+    }
+    __syncwarp();  // the warp's distance tile written
+    // The owner's candidates, in column order: bit 4 sub + q for
+    // column 8 sub + 4h + q, from its two source lanes' bits of its row.
+    const unsigned w0 = __shfl_sync(kFull, pass, 4 * g + 2 * h);
+    const unsigned w1 = __shfl_sync(kFull, pass, 4 * g + 2 * h + 1);
+    const int sh = (t >> 1) * 2;
+    unsigned cand = ((w0 >> sh) & 0x33333333u) |
+                    (((w1 >> sh) & 0x33333333u) << 2);
+    while (cand != 0u) {
+      const int bit = __ffs(cand) - 1;
+      cand &= cand - 1u;
+      const int cl = (bit >> 2) * 8 + 4 * h + (bit & 3);
+      insert_key<KDM>(lk, lc, key_of(drow[cl]), j0 + cl);
+    }
+    // the row's threshold: the lower of its two owners' last entries
+    unsigned tk = lk[KDM - 1];
+    tk = min(tk, __shfl_xor_sync(kFull, tk, 1));
+    const float td = tk == kEmpty ? INFINITY : from_key(tk);
+    td_a = __shfl_sync(kFull, td, 4 * g);
+    td_b = __shfl_sync(kFull, td, 4 * g + 2);
+  }
+}
+
+// scan for rows too wide for its layout (layout_chunked; see the top of
+// the file): the same contract, the same barriers (the last one after the
+// last tile frees the staging for merge_rows), and each tile's products
+// accumulated over its kDC-channel chunks before take_tile.
+template <int KDM, bool kSelect, bool kSumDist>
+__device__ __forceinline__ void scan_chunked(const Rows& r, int row0, int kd,
+                                             unsigned char* smem,
+                                             const Layout& lay,
+                                             unsigned (&lk)[KDM],
+                                             int (&lc)[KDM], float& dsum_a,
+                                             float& dsum_b) {
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int s = row_stride(kDC);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
+  bf16* y_s = reinterpret_cast<bf16*>(smem + lay.y);
+  float* ysq_s = reinterpret_cast<float*>(smem + lay.ysq);
+  float* dist_w = reinterpret_cast<float*>(smem + lay.dist) +
+                  warp * kRows * kDistStride;
+
+  // zeros in the query rows past n, in both buffers (the chunks fill the
+  // rows_q rows)
+  const int rows_q = min(warps * kRows, r.n - row0);
+  const int q_buf = warps * kRows * s;  // one query buffer
+  const int pad = (warps * kRows - rows_q) * s;
+  for (int i = threadIdx.x; i < 2 * pad; i += blockDim.x) {
+    const int b = i / pad;
+    q_s[b * q_buf + rows_q * s + i - b * pad] = __float2bfloat16_rn(0.f);
+  }
+
+  // stage st is chunk st % nch of tile st / nch; the tile's y_sq lands
+  // with its last chunk, in that stage's slot
+  const int tiles = (r.m + kBN - 1) / kBN;
+  const int nch = (r.d + kDC - 1) / kDC;
+  auto load_stage = [&](int st, int slot) {
+    const int tile = st / nch;
+    const int c0 = (st - tile * nch) * kDC;
+    const int w = min(kDC, r.d - c0);
+    const int j0 = tile * kBN;
+    const int tw = min(kBN, r.m - j0);
+    bf16* qd = q_s + slot * q_buf;
+    bf16* yd = y_s + slot * kBN * s;
+    stage_chunk(qd, r.xn + (long long)row0 * r.d, rows_q, r.d, c0, w, s);
+    stage_chunk(yd, r.yn + (long long)j0 * r.d, tw, r.d, c0, w, s);
+    zero_padding(qd, rows_q, w, s);  // channels [w, padded_depth(w))
+    zero_padding(yd, tw, w, s);
+    if (c0 + w == r.d) {
+      float* dst = ysq_s + slot * kBN;
+      for (int i = threadIdx.x; i < tw; i += blockDim.x) {
+        cp_async4(dst + i, r.ysq + j0 + i);
+      }
+    }
+  };
+  load_stage(0, 0);
+  cp_async_commit();
+
+  const bool active = row0 + warp * kRows < r.n;  // warp-uniform
+  const int ra = min(row0 + warp * kRows + g, r.n - 1);  // clamped rows:
+  const int rb = min(row0 + warp * kRows + g + 8, r.n - 1);  // safe reads
+  const float xq_a = r.xsq[ra];
+  const float xq_b = r.xsq[rb];
+  const float* brow_a = r.bias != nullptr ? r.bias + (long long)ra * r.m
+                                          : nullptr;
+  const float* brow_b = r.bias != nullptr ? r.bias + (long long)rb * r.m
+                                          : nullptr;
+  const bool pairs =  // bias column pairs 8-byte aligned
+      (r.m & 1) == 0 && (reinterpret_cast<uintptr_t>(r.bias) & 7) == 0;
+
+#pragma unroll
+  for (int p = 0; p < KDM; ++p) {
+    const bool dead = p < KDM - kd;
+    lk[p] = dead ? kDead : kEmpty;
+    lc[p] = dead ? INT_MIN : INT_MAX;
+  }
+  // the thresholds of rows g and g + 8: a distance passes at or below
+  float td_a = INFINITY, td_b = INFINITY;
+  const float* drow = dist_w + owned_row(lane) * kDistStride;
+
+  int st = 0;  // the pipeline's stage
+  for (int tile = 0; tile < tiles; ++tile) {
+    float acc[kSub][4];
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    }
+    int slot = 0;
+    for (int ch = 0; ch < nch; ++ch, ++st) {
+      cp_async_wait_all();
+      __syncthreads();  // the stage landed; the other buffers are free
+      slot = st & 1;
+      if (st + 1 < tiles * nch) {
+        load_stage(st + 1, slot ^ 1);
+        cp_async_commit();
+      }
+      if (active) {
+        const bf16* qa = q_s + slot * q_buf +
+                         (warp * kRows + (lane & 15)) * s +
+                         ((lane >> 4) << 3);
+        const bf16* yb = y_s + slot * kBN * s +
+                         ((lane & 7) + ((lane >> 4) << 3)) * s +
+                         (((lane >> 3) & 1) << 3);
+        const int nks = padded_depth(min(kDC, r.d - ch * kDC)) >> 4;
+        for (int ks = 0; ks < nks; ++ks) {
+          unsigned a[4];
+          ldmatrix_x4(a, qa + ks * 16);
+#pragma unroll
+          for (int sp = 0; sp < kSub / 2; ++sp) {
+            unsigned bb[4];
+            ldmatrix_x4(bb, yb + sp * 16 * s + ks * 16);
+            mma_bf16(acc[2 * sp], a, bb[0], bb[1]);
+            mma_bf16(acc[2 * sp + 1], a, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    if (active) {
+      const int j0 = tile * kBN;
+      take_tile<KDM, kSelect, kSumDist>(
+          acc, ysq_s + slot * kBN, j0, min(kBN, r.m - j0), xq_a, xq_b,
+          brow_a, brow_b, pairs, dist_w, drow, lk, lc, td_a, td_b, dsum_a,
+          dsum_b);
+    }
+  }
+  __syncthreads();  // every warp done with the stages: the region is free
+}
+
 // Lexicographic (key, column) order, for merging two lanes' lists.
 __device__ __forceinline__ bool key_less(unsigned k1, int c1, unsigned k2,
                                          int c2) {
@@ -515,7 +835,8 @@ __device__ __forceinline__ bool key_less(unsigned k1, int c1, unsigned k2,
 // distance into vals_w (same stride); rows at or past n are skipped. A row
 // with fewer than kd numbers takes its NaN columns in column order
 // (select_nan_columns), with NaN distances. The warp calls it whole.
-template <int KDM>
+// kChunked: after scan_chunked, which staged no whole query row.
+template <int KDM, bool kChunked = false>
 __device__ __forceinline__ void merge_rows(const Rows& r, int row0, int kd,
                                            int dilation, unsigned char* smem,
                                            const Layout& lay,
@@ -569,8 +890,14 @@ __device__ __forceinline__ void merge_rows(const Rows& r, int row0, int kd,
     const int row = owned_row(src);
     const int qr = wrow0 + row;
     __syncwarp();  // the lists (or the previous row's query) read
-    for (int e = lane; e < r.d; e += 32) {
-      xw[e] = __bfloat162float(q_s[(warp * kRows + row) * s + e]);
+    if constexpr (kChunked) {
+      for (int e = lane; e < r.d; e += 32) {
+        xw[e] = __bfloat162float(r.xn[(long long)qr * r.d + e]);
+      }
+    } else {
+      for (int e = lane; e < r.d; e += 32) {
+        xw[e] = __bfloat162float(q_s[(warp * kRows + row) * s + e]);
+      }
     }
     __syncwarp();
     knn_select::select_nan_columns<bf16>(

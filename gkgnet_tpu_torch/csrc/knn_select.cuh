@@ -15,7 +15,8 @@
 //
 // The two fp32 kernels' target scans and merges compute the same fp32
 // distances in the same order (x_sq - 2 * <x, y> + y_sq (+ bias), products
-// summed by fmaf over the channels from a transposed fp32 tile), so
+// summed by fmaf over the channels from a transposed fp32 tile, staged
+// whole or, for rows too wide for it, kChunk channels at a time), so
 // knn_topk(xn, yn, k*d)[..., ::d] is bitwise knn_mr's idx on the same
 // normalized fp32 rows; the bf16 kernels hold the same contract through
 // knn_scan.cuh's one scan. chip_smoke.py checks both at every knn_mr shape.
@@ -36,6 +37,9 @@ constexpr int kWarps = 8;          // query rows per block (one warp each)
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;          // target rows per shared-memory tile
 constexpr int kTileP = kTile + 1;  // padded stride: conflict-free transpose
+constexpr int kChunk = 128;        // channels per staged chunk of the
+                                   // chunked scans (rows too wide for a
+                                   // whole transposed tile)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -28,8 +28,8 @@
 // merge writes its k nearest in order, with their distances, straight to
 // idx and vals. Shared memory per block (knn_scan::layout): at D = 640 and
 // k = 27, 2 warps' query rows and two 64-row tiles, 216 KB; 1 warp for
-// wider rows, and none fits past about 780 bf16 channels (the wrapper
-// raises).
+// wider rows, and past about 780 bf16 channels the header's D-chunked
+// scan, whose staging does not grow with D.
 //
 // fp32: knn_topk_kernel, the CUDA-core design (one warp per query row,
 // kWarps rows per block), as the TPU kernel keeps fp32 at full precision:
@@ -54,9 +54,11 @@
 //   Shared-memory loads and fp32 issue bound it (one load per fmaf). The
 //   target tile is d * 65 fp32 values: at D = 640 a block takes 187 KB of
 //   dynamic shared memory (opted in above 48 KB; 227 KB is the card's
-//   limit, so D <= 795). This design computed the bf16 calls too until the
-//   tensor-core kernel took them; its fp32 instantiations compile to the
-//   code they had then.
+//   limit, so D <= 795). Wider rows take scan_targets_chunked, which
+//   stages kChunk = 128 channels of the tile at a time (33 KB) beside the
+//   warps' whole query rows (32 bytes a channel), so D <= ~6,100. This
+//   design computed the bf16 calls too until the tensor-core kernel took
+//   them; its fp32 instantiations compile to the code they had then.
 //
 // Launch discipline: both kernels run on the caller's stream, allocate
 // nothing and do not synchronize; knn_topk_forward returns
@@ -70,6 +72,7 @@
 namespace {
 
 using knn_select::insert;
+using knn_select::kChunk;
 using knn_select::kdm_bucket;
 using knn_select::kFull;
 using knn_select::kThreads;
@@ -163,6 +166,67 @@ __device__ __forceinline__ void scan_targets(
   }
 }
 
+// scan_targets for rows too wide for a whole transposed tile: the tile
+// is staged kChunk channels at a time and each lane's two sums carry over
+// the chunks, the same fmaf steps in the same order (knn_mr_kernel's
+// chunked scan, line for line), so every distance is bitwise
+// scan_targets'.
+template <typename T, int KDM>
+__device__ __forceinline__ void scan_targets_chunked(
+    const float* xw, float xq, const T* __restrict__ y_b,
+    const float* __restrict__ ysq_b, const float* brow, int m, int d,
+    bool active, float* ys, float* ysq_s, int lane, float (&ld)[KDM],
+    int (&lc)[KDM]) {
+#pragma unroll
+  for (int p = 0; p < KDM; ++p) {
+    ld[p] = INFINITY;
+    lc[p] = INT_MAX;
+  }
+  for (int j0 = 0; j0 < m; j0 += kTile) {
+    const int tw = min(kTile, m - j0);
+    float acc0 = 0.f;
+    float acc1 = 0.f;
+    for (int e0 = 0; e0 < d; e0 += kChunk) {
+      const int w = min(kChunk, d - e0);
+      __syncthreads();  // the previous chunk (and xw on the first pass)
+      const T* src = y_b + (long long)j0 * d + e0;
+      for (int t = threadIdx.x; t < tw * w; t += kThreads) {
+        const int jj = t / w;
+        const int e = t - jj * w;
+        ys[e * kTileP + jj] = to_f32(src[(long long)jj * d + e]);
+      }
+      if (e0 == 0) {
+        for (int t = threadIdx.x; t < tw; t += kThreads) {
+          ysq_s[t] = ysq_b[j0 + t];
+        }
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll 4
+        for (int e = 0; e < w; ++e) {
+          const float xv = xw[e0 + e];
+          acc0 = fmaf(xv, ys[e * kTileP + lane], acc0);
+          acc1 = fmaf(xv, ys[e * kTileP + lane + 32], acc1);
+        }
+      }
+    }
+    if (active) {  // columns at or past tw are dropped here
+      const int c0 = lane;
+      const int c1 = lane + 32;
+      if (c0 < tw) {
+        float dist = xq - 2.f * acc0 + ysq_s[c0];
+        if (brow != nullptr) dist += brow[j0 + c0];
+        insert<KDM>(ld, lc, dist, j0 + c0);
+      }
+      if (c1 < tw) {
+        float dist = xq - 2.f * acc1 + ysq_s[c1];
+        if (brow != nullptr) dist += brow[j0 + c1];
+        insert<KDM>(ld, lc, dist, j0 + c1);
+      }
+    }
+  }
+}
+
 // The ranks r..k-1 of a row whose distances ran out of numbers: its NaN
 // columns in column order, with NaN values.
 template <typename T>
@@ -238,7 +302,8 @@ __device__ __forceinline__ void merge_lists(
 
 // bias_mode: 0 none, 1 shared (N, M), 2 batched (BG, N, M); fp32.
 // vals: nullptr, or (BG, N, k) fp32 for the selected distances.
-template <typename T, int KDM>
+// kChunked: scan_targets_chunked, for rows too wide for a whole tile.
+template <typename T, int KDM, bool kChunked = false>
 __global__ void __launch_bounds__(kThreads)
 knn_topk_kernel(const T* __restrict__ x, const T* __restrict__ y,
                 const float* __restrict__ xsq, const float* __restrict__ ysq,
@@ -247,7 +312,8 @@ knn_topk_kernel(const T* __restrict__ x, const T* __restrict__ y,
                 int d, int k) {
   extern __shared__ float smem[];
   float* ys = smem;                       // [d][kTileP] target tile, fp32
-  float* xs = ys + d * kTileP;            // [kWarps][d] queries
+                                          // (chunked: [kChunk][kTileP])
+  float* xs = ys + (kChunked ? kChunk : d) * kTileP;  // [kWarps][d] queries
   float* ysq_s = xs + kWarps * d;         // [kTile]
 
   const int bg = blockIdx.x;
@@ -270,32 +336,49 @@ knn_topk_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
   float ld[KDM];
   int lc[KDM];
-  scan_targets<T, KDM>(xw, xq, y_b, ysq_b, brow, m, d, active, ys, ysq_s,
-                       lane, ld, lc);
+  if constexpr (kChunked) {
+    scan_targets_chunked<T, KDM>(xw, xq, y_b, ysq_b, brow, m, d, active, ys,
+                                 ysq_s, lane, ld, lc);
+  } else {
+    scan_targets<T, KDM>(xw, xq, y_b, ysq_b, brow, m, d, active, ys, ysq_s,
+                         lane, ld, lc);
+  }
   if (!active) return;  // no block-wide barrier follows
   merge_lists<T, KDM>(ld, lc, k, xw, xq, y_b, ysq_b, brow, m, d, lane,
                       idx + qrow * k,
                       vals != nullptr ? vals + qrow * k : nullptr);
 }
 
-size_t main_smem_bytes(int d) {
-  return sizeof(float) * ((size_t)d * kTileP + (size_t)kWarps * d + kTile);
+size_t main_smem_bytes(int d, bool chunked = false) {
+  return sizeof(float) *
+         ((size_t)(chunked ? kChunk : d) * kTileP + (size_t)kWarps * d +
+          kTile);
 }
 
-template <typename T, int KDM>
-cudaError_t launch_main(const void* x, const void* y, const void* xsq,
-                        const void* ysq, const void* bias, int bias_mode,
-                        void* idx, void* vals, int bg, int n, int m, int d,
-                        int k, cudaStream_t stream) {
-  const size_t smem = main_smem_bytes(d);
+// Whether the CUDA-core kernel takes the chunked scan: only where the
+// whole tile does not fit (or when forced), as knn_mr.cu decides it.
+bool main_chunked(int d, bool force_chunked) {
+  int dev = 0, optin = 232448;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return force_chunked || main_smem_bytes(d) > (size_t)optin;
+}
+
+template <typename T, int KDM, bool kChunked = false>
+cudaError_t launch_main_as(const void* x, const void* y, const void* xsq,
+                           const void* ysq, const void* bias, int bias_mode,
+                           void* idx, void* vals, int bg, int n, int m,
+                           int d, int k, cudaStream_t stream) {
+  const size_t smem = main_smem_bytes(d, kChunked);
   if (smem > 48 * 1024) {  // above the default dynamic limit: opt in
     cudaError_t err = cudaFuncSetAttribute(
-        knn_topk_kernel<T, KDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        knn_topk_kernel<T, KDM, kChunked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(bg, (n + kWarps - 1) / kWarps);
-  knn_topk_kernel<T, KDM><<<grid, kThreads, smem, stream>>>(
+  knn_topk_kernel<T, KDM, kChunked><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const float*>(xsq), static_cast<const float*>(ysq),
       static_cast<const float*>(bias), bias_mode, static_cast<int*>(idx),
@@ -303,11 +386,25 @@ cudaError_t launch_main(const void* x, const void* y, const void* xsq,
   return cudaGetLastError();
 }
 
+template <typename T, int KDM>
+cudaError_t launch_main(const void* x, const void* y, const void* xsq,
+                        const void* ysq, const void* bias, int bias_mode,
+                        void* idx, void* vals, int bg, int n, int m, int d,
+                        int k, cudaStream_t stream, bool force_chunked) {
+  if (main_chunked(d, force_chunked)) {
+    return launch_main_as<T, KDM, true>(x, y, xsq, ysq, bias, bias_mode, idx,
+                                        vals, bg, n, m, d, k, stream);
+  }
+  return launch_main_as<T, KDM>(x, y, xsq, ysq, bias, bias_mode, idx, vals,
+                                bg, n, m, d, k, stream);
+}
+
 // The bf16 kernel on knn_scan.cuh's tensor-core scan and row-threshold
 // selection (16 query rows per warp, 1-4 warps per block): each row's
 // merge writes its k nearest in order, with their distances, straight to
-// idx and vals. The arguments are knn_topk_kernel's.
-template <int KDM>
+// idx and vals. The arguments are knn_topk_kernel's. kChunked: the
+// header's chunked scan, for rows too wide for its whole-row layout.
+template <int KDM, bool kChunked = false>
 __global__ void __launch_bounds__(knn_scan::kMaxWarps * 32)
 knn_topk_tc_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ y,
@@ -319,7 +416,7 @@ knn_topk_tc_kernel(const __nv_bfloat16* __restrict__ x,
   using knn_scan::kRows;
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int warps = blockDim.x >> 5;
-  const knn_scan::Layout lay = knn_scan::layout(d, KDM, warps);
+  const knn_scan::Layout lay = knn_scan::layout_for<kChunked>(d, KDM, warps);
   const int bg = blockIdx.x;
   const int row0 = blockIdx.y * warps * kRows;
   const int wrow0 = row0 + (threadIdx.x >> 5) * kRows;
@@ -333,44 +430,65 @@ knn_topk_tc_kernel(const __nv_bfloat16* __restrict__ x,
   unsigned lk[KDM];
   int lc[KDM];
   float dsum_a = 0.f, dsum_b = 0.f;  // unused: no distance sums here
-  knn_scan::scan<KDM, true, false>(rows, row0, k, smem_tc, lay, lk,
-                                   lc, dsum_a, dsum_b);
+  if constexpr (kChunked) {
+    knn_scan::scan_chunked<KDM, true, false>(rows, row0, k, smem_tc, lay,
+                                             lk, lc, dsum_a, dsum_b);
+  } else {
+    knn_scan::scan<KDM, true, false>(rows, row0, k, smem_tc, lay, lk,
+                                     lc, dsum_a, dsum_b);
+  }
   if (wrow0 >= n) return;  // whole warp: no block-wide barrier follows
   const long long first = ((long long)bg * n + wrow0) * k;
-  knn_scan::merge_rows<KDM>(rows, row0, k, 1, smem_tc, lay, lk, lc,
-                            idx + first, k,
-                            vals != nullptr ? vals + first : nullptr);
+  knn_scan::merge_rows<KDM, kChunked>(rows, row0, k, 1, smem_tc, lay, lk, lc,
+                                      idx + first, k,
+                                      vals != nullptr ? vals + first
+                                                      : nullptr);
+}
+
+template <int KDM, bool kChunked = false>
+cudaError_t launch_tc_as(const knn_scan::Config& cfg, const void* x,
+                         const void* y, const void* xsq, const void* ysq,
+                         const void* bias, int bias_mode, void* idx,
+                         void* vals, int bg, int n, int m, int d, int k,
+                         cudaStream_t stream) {
+  if (cfg.smem > 48 * 1024) {  // above the default dynamic limit: opt in
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_topk_tc_kernel<KDM, kChunked>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = cfg.warps * knn_scan::kRows;
+  const dim3 grid(bg, (n + rows - 1) / rows);
+  knn_topk_tc_kernel<KDM, kChunked>
+      <<<grid, cfg.warps * 32, cfg.smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(x),
+          static_cast<const __nv_bfloat16*>(y),
+          static_cast<const float*>(xsq), static_cast<const float*>(ysq),
+          static_cast<const float*>(bias), bias_mode, static_cast<int*>(idx),
+          static_cast<float*>(vals), n, m, d, k);
+  return cudaGetLastError();
 }
 
 template <int KDM>
 cudaError_t launch_tc(const void* x, const void* y, const void* xsq,
                       const void* ysq, const void* bias, int bias_mode,
                       void* idx, void* vals, int bg, int n, int m, int d,
-                      int k, cudaStream_t stream) {
-  const knn_scan::Config cfg = knn_scan::config(d, KDM);
+                      int k, cudaStream_t stream, bool force_chunked) {
+  const knn_scan::Config cfg = knn_scan::config(d, KDM, force_chunked);
   if (cfg.smem == 0) return cudaErrorInvalidValue;
-  if (cfg.smem > 48 * 1024) {  // above the default dynamic limit: opt in
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_topk_tc_kernel<KDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        cfg.smem);
-    if (err != cudaSuccess) return err;
+  if (cfg.chunked) {
+    return launch_tc_as<KDM, true>(cfg, x, y, xsq, ysq, bias, bias_mode, idx,
+                                   vals, bg, n, m, d, k, stream);
   }
-  const int rows = cfg.warps * knn_scan::kRows;
-  const dim3 grid(bg, (n + rows - 1) / rows);
-  knn_topk_tc_kernel<KDM><<<grid, cfg.warps * 32, cfg.smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(y), static_cast<const float*>(xsq),
-      static_cast<const float*>(ysq), static_cast<const float*>(bias),
-      bias_mode, static_cast<int*>(idx), static_cast<float*>(vals), n, m, d,
-      k);
-  return cudaGetLastError();
+  return launch_tc_as<KDM>(cfg, x, y, xsq, ysq, bias, bias_mode, idx, vals,
+                           bg, n, m, d, k, stream);
 }
 
 template <typename T>
 cudaError_t forward(const void* x, const void* y, const void* bias,
                     void* xsq, void* ysq, void* idx, void* vals, int bg,
                     int n, int m, int d, int k, int bias_mode, int y_is_x,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, bool force_chunked) {
   const long long rows_x = (long long)bg * n;
   const long long rows_y = y_is_x ? 0 : (long long)bg * m;
   const long long blocks = (rows_x + rows_y + kWarps - 1) / kWarps;
@@ -384,22 +502,22 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
     switch (knn_scan::list_slots(k)) {
       case 8:
         return launch_tc<8>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
-                            n, m, d, k, stream);
+                            n, m, d, k, stream, force_chunked);
       case 12:
         return launch_tc<12>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
-                             n, m, d, k, stream);
+                             n, m, d, k, stream, force_chunked);
       case 16:
         return launch_tc<16>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
-                             n, m, d, k, stream);
+                             n, m, d, k, stream, force_chunked);
       case 24:
         return launch_tc<24>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
-                             n, m, d, k, stream);
+                             n, m, d, k, stream, force_chunked);
       case 32:
         return launch_tc<32>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
-                             n, m, d, k, stream);
+                             n, m, d, k, stream, force_chunked);
       case 64:
         return launch_tc<64>(x, y, xsq, ysqp, bias, bias_mode, idx, vals, bg,
-                             n, m, d, k, stream);
+                             n, m, d, k, stream, force_chunked);
       default:
         return cudaErrorInvalidValue;
     }
@@ -407,16 +525,16 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
     switch (kdm_bucket(k)) {
       case 8:
         return launch_main<T, 8>(x, y, xsq, ysqp, bias, bias_mode, idx, vals,
-                                 bg, n, m, d, k, stream);
+                                 bg, n, m, d, k, stream, force_chunked);
       case 16:
         return launch_main<T, 16>(x, y, xsq, ysqp, bias, bias_mode, idx,
-                                  vals, bg, n, m, d, k, stream);
+                                  vals, bg, n, m, d, k, stream, force_chunked);
       case 32:
         return launch_main<T, 32>(x, y, xsq, ysqp, bias, bias_mode, idx,
-                                  vals, bg, n, m, d, k, stream);
+                                  vals, bg, n, m, d, k, stream, force_chunked);
       case 64:
         return launch_main<T, 64>(x, y, xsq, ysqp, bias, bias_mode, idx,
-                                  vals, bg, n, m, d, k, stream);
+                                  vals, bg, n, m, d, k, stream, force_chunked);
       default:
         return cudaErrorInvalidValue;
     }
@@ -431,28 +549,38 @@ extern "C" {
 // float32), contiguous (y may be x: y_is_x); bias fp32 per bias_mode;
 // xsq (bg, n) and ysq (bg, m) fp32 scratch (ysq unused when y_is_x);
 // outputs idx (bg, n, k) int32 and, unless vals is null, vals (bg, n, k)
-// fp32. Requires 1 <= k <= min(m, 64). Returns a cudaError_t code.
+// fp32. Requires 1 <= k <= min(m, 64). force_chunked: take the chunked
+// scan at any width (its results are bitwise the unchunked kernel's);
+// without it the chunked scan runs only where the whole-row layout does
+// not fit. Returns a cudaError_t code.
 int knn_topk_forward(const void* x, const void* y, const void* bias,
                      void* xsq, void* ysq, void* idx, void* vals, int bg,
                      int n, int m, int d, int k, int bias_mode, int is_bf16,
-                     int y_is_x, void* stream) {
+                     int y_is_x, int force_chunked, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return forward<__nv_bfloat16>(x, y, bias, xsq, ysq, idx, vals, bg, n, m,
-                                  d, k, bias_mode, y_is_x, s);
+                                  d, k, bias_mode, y_is_x, s,
+                                  force_chunked != 0);
   return forward<float>(x, y, bias, xsq, ysq, idx, vals, bg, n, m, d, k,
-                        bias_mode, y_is_x, s);
+                        bias_mode, y_is_x, s, force_chunked != 0);
 }
 
 // Dynamic shared memory of one main-kernel block at row width d and k
-// neighbours, in bf16 (is_bf16) or fp32 (0 when k exceeds 64, or in bf16
-// when no block shape fits).
-long long knn_topk_smem_bytes(int d, int k, int is_bf16) {
+// neighbours, in bf16 (is_bf16) or fp32, with the layout the kernel takes
+// (force_chunked: as knn_topk_forward's): negative where that layout is
+// the chunked one, 0 when k exceeds 64 or no block shape fits.
+long long knn_topk_smem_bytes(int d, int k, int is_bf16, int force_chunked) {
   if (is_bf16) {
     const int len = knn_scan::list_slots(k);
-    return len ? knn_scan::config(d, len).smem : 0;
+    if (!len) return 0;
+    const knn_scan::Config cfg = knn_scan::config(d, len, force_chunked != 0);
+    return cfg.chunked ? -(long long)cfg.smem : cfg.smem;
   }
-  return kdm_bucket(k) ? (long long)main_smem_bytes(d) : 0;
+  if (!kdm_bucket(k)) return 0;
+  const bool chunked = main_chunked(d, force_chunked != 0);
+  const long long smem = (long long)main_smem_bytes(d, chunked);
+  return chunked ? -smem : smem;
 }
 
 const char* knn_topk_error_string(int code) {

@@ -13,6 +13,14 @@ computed once per model (numpy) and held as a non-persistent fp32 buffer,
 one table per stage shared by the blocks of the stage. Stochastic depth
 grows linearly over the blocks, ``np.linspace(0, drop_path, n_blocks)``;
 the label blocks of stage i take the rate of the stage's first block.
+
+``use_multi_group`` / ``backbone_multi_group`` fold ``num_group`` channel
+groups in the label / spatial graph convs (off: one group, so arch b's
+stage 4 builds its graph on all 1024 channels). ``out_indices`` and
+``return_stage_feats`` return the end-of-stage maps for a neck;
+``graph_builder`` picks the hard kNN or the perturbed soft build;
+``knn_budget`` bounds the plain graph build's distance block (a spatial
+stage whose N x M exceeds it tiles its query rows, ``_divisor_chunk``).
 """
 
 from __future__ import annotations
@@ -41,15 +49,33 @@ ARCH_SETTINGS = {
 REDUCE_RATIOS = (4, 2, 1, 1)
 
 
+def _divisor_chunk(n: int, m: int, budget_elems: int = 1 << 22) -> int | None:
+    """The largest divisor c of n with c * m <= budget, or None where no
+    tiling is needed (n * m within the budget) or possible (no divisor
+    below n fits)."""
+    if n * m <= budget_elems:
+        return None
+    best = 1
+    for c in range(1, n + 1):
+        if n % c == 0 and c * m <= budget_elems and c > best:
+            best = c
+    return best if best < n else None
+
+
 class GKGNet(nn.Module):
     """Multi-label Vision-GNN backbone. ``forward`` returns
     ``(label_embeddings (B, n_classes, C3), gap_features (B, C3),
-    edge_index)``."""
+    edge_index)``, and with ``return_stage_feats`` also the tuple of the
+    end-of-stage maps (NHWC) of the stages in ``out_indices``."""
 
     def __init__(self, arch: str = "s", k: int = 9, k_label_gcn: int = 9,
                  num_group: int = 2, n_classes: int = 80, size: int = 576,
                  num_gcn: int = 1, drop_path: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_multi_group: bool = True,
+                 backbone_multi_group: bool = True,
+                 out_indices: tuple = (3,), return_stage_feats: bool = False,
+                 graph_builder: str = "knn", knn_budget: int = 1 << 22):
         super().__init__()
         opt = ARCH_SETTINGS[arch]
         blocks, channels = opt["blocks"], opt["channels"]
@@ -57,6 +83,8 @@ class GKGNet(nn.Module):
         stochastic, epsilon = opt["use_stochastic"], opt["epsilon"]
         self.dtype = dtype
         self.n_classes = n_classes
+        self.out_indices = tuple(out_indices)
+        self.return_stage_feats = return_stage_feats
         max_dilation = 49 // k
         hw = size // 4
         dpr = np.linspace(0, drop_path, sum(blocks))
@@ -87,6 +115,8 @@ class GKGNet(nn.Module):
                 self._plan.append((i, False, False))
                 stage_n //= 4
             r_i = REDUCE_RATIOS[i]
+            chunk = _divisor_chunk(stage_n, stage_n // (r_i * r_i),
+                                   knn_budget)
             for j in range(blocks[i]):
                 dilation = min(grapher_idx // 4 + 1, max_dilation)
                 n_targets = stage_n // (r_i * r_i)
@@ -99,7 +129,9 @@ class GKGNet(nn.Module):
                 self.backbone.append(nn.Sequential(
                     Grapher(channels[i], k, dilation, conv, act, "batch",
                             bias, stochastic, epsilon, r_i, drop_path=rate,
-                            num_group=num_group, dtype=dtype),
+                            use_multi_group=backbone_multi_group,
+                            num_group=num_group, graph_builder=graph_builder,
+                            dtype=dtype, knn_chunk=chunk),
                     FFN(channels[i], channels[i] * 4, act, rate, dtype)))
                 self._plan.append((i, True, j == blocks[i] - 1))
                 grapher_idx += 1
@@ -108,7 +140,9 @@ class GKGNet(nn.Module):
             self.gcn_label.append(nn.ModuleList(
                 GrapherLabel(channels[i], k_label_gcn, 1, "mr", act, "batch",
                              bias, stochastic, epsilon, drop_path=label_rate,
-                             num_group=num_group, dtype=dtype)
+                             use_multi_group=use_multi_group,
+                             num_group=num_group, graph_builder=graph_builder,
+                             dtype=dtype)
                 for _ in range(n_label_gcn)))
             if i < len(blocks) - 1:
                 self.ffn_label.append(nn.Sequential(
@@ -123,6 +157,7 @@ class GKGNet(nn.Module):
         x = self.stem(x)
         x = x + self.pos_embed.permute(0, 2, 3, 1).to(self.dtype)
         edge_index = None
+        stage_feats = []
         for module, (stage, is_block, ends_stage) in zip(self.backbone,
                                                          self._plan):
             if not is_block:
@@ -139,5 +174,10 @@ class GKGNet(nn.Module):
                     label_emb = torch.nn.functional.linear(
                         label_emb, lin.weight.to(self.dtype),
                         lin.bias.to(self.dtype))
+                if stage in self.out_indices:
+                    stage_feats.append(x)
         gap = x.float().mean(dim=(1, 2))
+        if self.return_stage_feats:
+            return (label_emb, gap.to(self.dtype), edge_index,
+                    tuple(stage_feats))
         return label_emb, gap.to(self.dtype), edge_index

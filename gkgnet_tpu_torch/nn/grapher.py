@@ -20,9 +20,17 @@ Three routes, chosen as the JAX package chooses them:
     come back in the folded ``(B*g, N, k)`` layout;
   * every other aggregator ('edge', 'sage', 'gin', 'gat'), and 'mr' with
     stochastic dilation in training (epsilon > 0), builds the graph with
-    ``knn_graph`` (the knn_topk CUDA kernel for CUDA tensors), subsamples
+    ``knn_graph`` (the knn_topk CUDA kernel for CUDA tensors; a spatial
+    conv's ``knn_chunk`` tiles the plain build's query rows), subsamples
     it with ``dilate_edges`` and aggregates in plain PyTorch. Only 'mr'
     composes with group folding.
+
+``graph_builder='perturbed'`` (with 'mr' only) replaces the graph by the
+differentiable soft gather of ``ops.perturbed_topk.soft_knn_gather``: the
+perturbed top-k of the (bias-free) distances in training, drawn from the
+generator, the hard top-k in eval; the aggregate is
+``max_k(x_j - x)`` of the soft neighbours of the L2-normalized targets, as
+in the JAX package, and the conv returns no edge indices.
 """
 
 from __future__ import annotations
@@ -39,8 +47,10 @@ from gkgnet_tpu_torch.ops.aggregate import (fold_groups, gather_nodes,
                                             sum_neighbors, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import dilate_edges, knn_graph
 from gkgnet_tpu_torch.ops.knn_mr import knn_mr_fused, knn_mr_fused_grouped
+from gkgnet_tpu_torch.ops.perturbed_topk import soft_knn_gather
 
 CONVS = ("mr", "edge", "sage", "gin", "gat")
+GRAPH_BUILDERS = ("knn", "perturbed")
 
 
 def _grouped_enabled() -> bool:
@@ -50,11 +60,25 @@ def _grouped_enabled() -> bool:
     return os.environ.get("GKGNET_GROUPED", "0") == "1"
 
 
-def _require_ported(graph_builder: str) -> None:
-    if graph_builder != "knn":
-        raise NotImplementedError(
-            f"graph_builder='{graph_builder}' (perturbed top-k) comes with "
-            f"the off-path model features slice")
+def _check_builder(graph_builder: str, conv: str) -> None:
+    if graph_builder not in GRAPH_BUILDERS:
+        raise ValueError(f"unknown graph_builder '{graph_builder}'")
+    if graph_builder == "perturbed" and conv != "mr":
+        raise ValueError("graph_builder='perturbed' requires conv='mr'")
+
+
+def _soft_maxrel(conv: nn.Module, xn: torch.Tensor, y: torch.Tensor | None,
+                 generator: torch.Generator | None) -> torch.Tensor:
+    """The perturbed graph build's 'mr' aggregate ``max_k(x_j - x)`` over
+    the soft neighbours x_j (``soft_knn_gather``, with the reference's
+    num_samples 20 and sigma 0.1), in the dtype of the nodes."""
+    if conv.training and generator is None:
+        raise ValueError("the perturbed graph build at train time needs a "
+                         "generator")
+    x_j = soft_knn_gather(xn, xn if y is None else y, conv.k,
+                          dilation=conv.dilation, generator=generator,
+                          training=conv.training)
+    return torch.amax(x_j.to(xn.dtype) - xn[:, :, None, :], dim=2)
 
 
 class GraphAggregate(nn.Module):
@@ -163,7 +187,8 @@ def _build_edges(conv: nn.Module, xn: torch.Tensor, y: torch.Tensor | None,
     if _fused_route(conv):
         return knn_mr_fused(xn, xn if y is None else y, bias, conv.k,
                             conv.dilation)
-    idx = knn_graph(xn, y, k=conv.k * conv.dilation, bias=bias)
+    idx = knn_graph(xn, y, k=conv.k * conv.dilation, bias=bias,
+                    query_chunk=conv.knn_chunk)
     idx = dilate_edges(idx, dilation=conv.dilation,
                        stochastic=conv.stochastic, epsilon=conv.epsilon,
                        generator=generator, training=conv.training)
@@ -180,25 +205,34 @@ class SpatialGraphConv(nn.Module):
                  norm: str | None = "batch", use_bias: bool = True,
                  stochastic: bool = False, epsilon: float = 0.0, r: int = 1,
                  num_group: int = 2, graph_builder: str = "knn",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 knn_chunk: int | None = None):
+        """``knn_chunk``: query rows per tile of the plain graph build."""
         super().__init__()
-        _require_ported(graph_builder)
+        _check_builder(graph_builder, conv)
         self.k, self.dilation, self.r, self.num_group = k, dilation, r, num_group
         self.conv, self.stochastic, self.epsilon = conv, stochastic, epsilon
+        self.graph_builder, self.knn_chunk = graph_builder, knn_chunk
         self.out_channels = out_channels
         self.gconv = GraphAggregate(conv, in_channels, out_channels, act,
                                     norm, use_bias, num_group, dtype)
 
     def forward(self, x: torch.Tensor, rel_pos: torch.Tensor | None,
                 generator: torch.Generator | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``generator`` feeds the stochastic dilation's draws."""
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``generator`` feeds the stochastic dilation's and the perturbed
+        build's draws. The edge indices are None with the perturbed build."""
         b, h, w, c = x.shape
         g = self.num_group
         x_nodes = x.reshape(b, h * w, c)
         y_nodes = None
         if self.r > 1:
             y_nodes = avg_pool_nhwc(x, self.r).reshape(b, -1, c)
+        if self.graph_builder == "perturbed":
+            xn = fold_groups(x_nodes, g)
+            y = None if y_nodes is None else fold_groups(y_nodes, g)
+            out = self.gconv(xn, None, y, _soft_maxrel(self, xn, y, generator))
+            return out.reshape(b, h, w, self.out_channels), None
         if _grouped_route(self):
             x_nodes = x_nodes.contiguous()  # the kernel takes contiguous rows
             out, idx = _run_grouped(
@@ -223,15 +257,21 @@ class LabelGraphConv(nn.Module):
                  num_group: int = 2, graph_builder: str = "knn",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _require_ported(graph_builder)
+        _check_builder(graph_builder, conv)
         self.k, self.dilation, self.num_group = k, dilation, num_group
         self.conv, self.stochastic, self.epsilon = conv, stochastic, epsilon
+        self.graph_builder, self.knn_chunk = graph_builder, None
         self.gconv = GraphAggregate(conv, in_channels, out_channels, act,
                                     norm, use_bias, num_group, dtype)
 
     def forward(self, labels: torch.Tensor, feats: torch.Tensor,
                 generator: torch.Generator | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        if self.graph_builder == "perturbed":
+            g = self.num_group
+            xn, yn = fold_groups(labels, g), fold_groups(feats, g)
+            return self.gconv(xn, None, yn,
+                              _soft_maxrel(self, xn, yn, generator)), None
         if _grouped_route(self):
             return _run_grouped(self, labels.contiguous(),
                                 feats.contiguous(), None)
@@ -253,13 +293,15 @@ class Grapher(nn.Module):
                  stochastic: bool = False, epsilon: float = 0.0, r: int = 1,
                  drop_path: float = 0.0, use_multi_group: bool = True,
                  num_group: int = 2, graph_builder: str = "knn",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 knn_chunk: int | None = None):
         super().__init__()
         self.fc1 = ConvNorm(in_channels, in_channels, dtype)
         self.graph_conv = SpatialGraphConv(
             in_channels, in_channels * 2, k, dilation, conv, act, norm,
             use_bias, stochastic, epsilon, r,
-            num_group if use_multi_group else 1, graph_builder, dtype)
+            num_group if use_multi_group else 1, graph_builder, dtype,
+            knn_chunk)
         self.fc2 = ConvNorm(in_channels * 2, in_channels, dtype)
         self.drop_path = DropPath(drop_path)
 

@@ -11,7 +11,9 @@ from a seeded generator.
     moments, updating the running statistics in place.
   * ``PointwiseConv``: 1x1 (grouped) convolution over the last axis as a
     matmul; ``BasicConv`` uses groups=4.
-  * ``Activation``: exact-erf GELU (and relu).
+  * ``Activation``: relu, exact-erf GELU, leakyrelu, prelu (a learned
+    fp32 slope ``weight`` of shape (1,), torch ``nn.PReLU``'s name) and
+    hswish.
   * ``Stem``/``Downsample``: 3x3 convolutions on NHWC tensors.
   * ``DropPath``: per-sample stochastic depth on a residual branch, drawn
     from a ``torch.Generator`` the caller passes in.
@@ -88,18 +90,33 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
-class Activation(nn.Module):
-    """relu, or gelu with the exact erf (the activation of every arch);
-    the reference's other activations are not ported."""
+ACTIVATIONS = ("relu", "leakyrelu", "prelu", "gelu", "hswish")
 
-    def __init__(self, act: str = "relu"):
+
+class Activation(nn.Module):
+    """relu, leakyrelu (slope ``neg_slope``), prelu (a learned slope,
+    initially ``neg_slope``, cast to the input's dtype), gelu with the
+    exact erf, or hswish ``x * clip(x + 3, 0, 6) / 6``."""
+
+    def __init__(self, act: str = "relu", neg_slope: float = 0.2):
         super().__init__()
         self.act = act.lower()
-        if self.act not in ("relu", "gelu"):
-            raise NotImplementedError(f"activation [{act}] is not ported")
+        self.neg_slope = neg_slope
+        if self.act not in ACTIVATIONS:
+            raise NotImplementedError(f"activation [{act}] is not found")
+        if self.act == "prelu":
+            self.weight = nn.Parameter(torch.full((1,), float(neg_slope)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.gelu(x) if self.act == "gelu" else F.relu(x)
+        if self.act == "gelu":
+            return F.gelu(x)
+        if self.act == "relu":
+            return F.relu(x)
+        if self.act == "leakyrelu":
+            return F.leaky_relu(x, self.neg_slope)
+        if self.act == "prelu":
+            return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+        return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
 
 
 class PointwiseConv(nn.Module):

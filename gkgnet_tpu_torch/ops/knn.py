@@ -49,13 +49,30 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def knn_topk_reference(x: torch.Tensor, y: torch.Tensor, *, k: int,
                        bias: torch.Tensor | None = None,
-                       return_values: bool = False):
+                       return_values: bool = False,
+                       query_chunk: int | None = None):
     """Plain version of the kernel: for already-normalized queries
     ``(BG, N, D)`` and targets ``(BG, M, D)``, the ``k`` targets with the
     smallest fp32 distance (+ bias ``(N, M)`` or ``(BG, N, M)``) by a stable
     sort: the lowest index first among ties, NaN last. Returns idx
-    ``(BG, N, k)`` int32, or ``(idx, vals)`` with the fp32 distances."""
+    ``(BG, N, k)`` int32, or ``(idx, vals)`` with the fp32 distances.
+
+    ``query_chunk``: where it divides N (and is less), the queries are
+    taken that many rows at a time, so that no ``(BG, N, M)`` block is
+    held; each row's result does not depend on the others, so the tiles
+    give bitwise the untiled result (the JAX package's ``knn_graph``
+    tiling)."""
     knn_topk.check_inputs(x, y, bias, k)
+    n = x.shape[1]
+    if query_chunk is not None and n % query_chunk == 0 and n > query_chunk:
+        parts = [knn_topk_reference(
+            x[:, i:i + query_chunk], y, k=k, return_values=return_values,
+            bias=None if bias is None else bias[..., i:i + query_chunk, :])
+            for i in range(0, n, query_chunk)]
+        if not return_values:
+            return torch.cat(parts, dim=1)
+        return (torch.cat([p[0] for p in parts], dim=1),
+                torch.cat([p[1] for p in parts], dim=1))
     dist = pairwise_sqdist(x, y)
     if bias is not None:
         dist = dist + bias.float()
@@ -70,6 +87,7 @@ def knn_graph(
     *,
     k: int,
     bias: torch.Tensor | None = None,
+    query_chunk: int | None = None,
 ) -> torch.Tensor:
     """For every query node the indices of its ``k`` nearest targets, on
     L2-normalized features; no gradient flows through it.
@@ -79,6 +97,9 @@ def knn_graph(
       y: target nodes ``(B, M, C)``; ``None`` for self-kNN (y = x).
       k: neighbours per query (callers pass ``k * dilation`` here).
       bias: optional additive distance bias ``(N, M)`` or ``(B, N, M)``.
+      query_chunk: tile the plain build's queries in chunks of this many
+        rows where it divides N (``knn_topk_reference``); the kernel holds
+        no distance block and takes the call whole.
 
     Returns:
       ``(B, N, k)`` int32 indices into the target set: from the CUDA kernel
@@ -86,7 +107,7 @@ def knn_graph(
     """
     x = l2_normalize(x.detach())
     y = x if y is None else l2_normalize(y.detach())
-    return _knn_topk_op(x, y, k, bias)
+    return _knn_topk_op(x, y, k, bias, query_chunk)
 
 
 # The registered operator ``torch.ops.gkgnet_tpu_torch.knn_topk``: the
@@ -96,17 +117,18 @@ def knn_graph(
 @torch.library.custom_op("gkgnet_tpu_torch::knn_topk", mutates_args=(),
                          device_types="cpu")
 def _knn_topk_op(x: torch.Tensor, y: torch.Tensor, k: int,
-                 bias: torch.Tensor | None) -> torch.Tensor:
-    return knn_topk_reference(x, y, k=k, bias=bias)
+                 bias: torch.Tensor | None,
+                 query_chunk: int | None = None) -> torch.Tensor:
+    return knn_topk_reference(x, y, k=k, bias=bias, query_chunk=query_chunk)
 
 
 @_knn_topk_op.register_kernel("cuda")
-def _(x, y, k, bias):
+def _(x, y, k, bias, query_chunk=None):
     return knn_topk.launch(x, y, k=k, bias=bias)
 
 
 @_knn_topk_op.register_fake
-def _(x, y, k, bias):
+def _(x, y, k, bias, query_chunk=None):
     knn_topk.check_inputs(x, y, bias, k)
     return x.new_empty((x.shape[0], x.shape[1], k), dtype=torch.int32)
 

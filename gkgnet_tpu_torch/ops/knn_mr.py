@@ -33,7 +33,8 @@ On a CUDA tensor the wrappers launch the hand-written kernels in
 ``csrc/knn_mr.cu`` (forward, folded and grouped: for bfloat16 rows the
 tensor-core scan of ``csrc/knn_scan.cuh``, its products exact and summed in
 fp32 by the tensor cores; for float32 rows the CUDA-core scan, summed by
-fmaf) and ``csrc/knn_mr_bwd.cu`` (backward, folded and group-strided: an
+fmaf; rows too wide for their whole-row layouts, D past ~780, take the
+D-chunked instantiations, bitwise the same) and ``csrc/knn_mr_bwd.cu`` (backward, folded and group-strided: an
 inverse edge list built by its own counting sort, each target's sum in
 ascending edge id), and raise if they cannot; on a CPU tensor they run
 ``knn_mr_reference``, ``knn_mr_grouped_reference``,
@@ -67,6 +68,12 @@ backward_launches = 0
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
 MAX_BWD_K = 64  # largest k of the backward kernel's per-channel tie masks
 MAX_BWD_CHUNKS = 256  # most 16-byte chunks of a row in the backward kernel
+
+# A test hook: the folded forward takes its D-chunked scan at every width
+# (the results are bitwise the same); by default it takes it only where the
+# whole-row layout does not fit.
+_FORCE_CHUNKED = False
+
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -74,24 +81,29 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("knn_mr")
     if lib.knn_mr_forward.argtypes is None:
         lib.knn_mr_forward.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.knn_mr_forward.restype = ctypes.c_int
         lib.knn_mr_forward_grouped.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.knn_mr_forward_grouped.restype = ctypes.c_int
         lib.knn_mr_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_error_string.restype = ctypes.c_char_p
-        lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.knn_mr_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def shared_memory_bytes(d: int, kd: int,
-                        dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one block of the kernel at row width ``d``
-    and ``k * dilation = kd`` in ``dtype`` (bfloat16, else the float32
-    kernel); 0 where no block fits (builds the kernel if needed)."""
-    return _lib().knn_mr_smem_bytes(d, kd, int(dtype == torch.bfloat16))
+def block_layout(d: int, kd: int, dtype: torch.dtype = torch.float32
+                 ) -> tuple[int, bool]:
+    """``(bytes, chunked)``: the dynamic shared memory of one block of the
+    folded forward at row width ``d`` and ``k * dilation = kd`` in
+    ``dtype`` (bfloat16, else the float32 kernel), and whether that block
+    runs the D-chunked scan (taken where the whole-row layout does not fit,
+    or under ``_FORCE_CHUNKED``); 0 bytes where no block fits. Builds the
+    kernel if needed."""
+    b = _lib().knn_mr_smem_bytes(d, kd, int(dtype == torch.bfloat16),
+                                 int(_FORCE_CHUNKED))
+    return abs(b), b < 0
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
@@ -193,7 +205,8 @@ def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
             bias.data_ptr() if bias is not None else None,
             xn.data_ptr(), yn.data_ptr(), xsq.data_ptr(), ysq.data_ptr(),
             idx.data_ptr(), mr.data_ptr(), bg, n, m, d, k, dilation,
-            bias_mode, int(x.dtype == torch.bfloat16), int(y_is_x), stream)
+            bias_mode, int(x.dtype == torch.bfloat16), int(y_is_x),
+            int(_FORCE_CHUNKED), stream)
     _raise_on(err, lib, "knn_mr kernel")
     launches += 1
     return idx, mr, xn, yn

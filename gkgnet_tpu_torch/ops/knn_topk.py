@@ -14,7 +14,8 @@
 It launches the hand-written CUDA kernel in ``csrc/knn_topk.cu`` on CUDA
 tensors (for bfloat16 rows the tensor-core scan of ``csrc/knn_scan.cuh``,
 which knn_mr's bf16 kernel shares, so that ``launch(xn, yn, k=k*d)[...,
-::d]`` is bitwise knn_mr's idx; for float32 rows the CUDA-core scan) and
+::d]`` is bitwise knn_mr's idx; for float32 rows the CUDA-core scan;
+rows too wide for their whole-row layouts take the D-chunked ones) and
 raises on anything else, or when the kernel cannot take the input: the
 plain version is ``ops.knn.knn_topk_reference``, and the operator
 ``torch.ops.gkgnet_tpu_torch.knn_topk`` (``ops.knn``, which
@@ -36,26 +37,36 @@ launches = 0
 MAX_K = 64                  # largest k the kernel's register lists hold
 MAX_SMEM_BYTES = 232448     # dynamic shared memory one block may opt into
 
+# A test hook: the kernels take their D-chunked scan at every width (the
+# results are bitwise the same); by default they take it only where the
+# whole-row layout does not fit.
+_FORCE_CHUNKED = False
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("knn_topk")
     if lib.knn_topk_forward.argtypes is None:
         lib.knn_topk_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.knn_topk_forward.restype = ctypes.c_int
         lib.knn_topk_error_string.argtypes = [ctypes.c_int]
         lib.knn_topk_error_string.restype = ctypes.c_char_p
-        lib.knn_topk_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.knn_topk_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.knn_topk_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def shared_memory_bytes(d: int, k: int = 1,
-                        dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one block of the kernel at row width ``d``
-    and ``k`` neighbours in ``dtype`` (bfloat16, else the float32 kernel);
-    0 where no block fits (builds the kernel if needed)."""
-    return _lib().knn_topk_smem_bytes(d, k, int(dtype == torch.bfloat16))
+def block_layout(d: int, k: int = 1, dtype: torch.dtype = torch.float32
+                 ) -> tuple[int, bool]:
+    """``(bytes, chunked)``: the dynamic shared memory of one block of the
+    kernel at row width ``d`` and ``k`` neighbours in ``dtype`` (bfloat16,
+    else the float32 kernel), and whether that block runs the D-chunked
+    scan (taken where the whole-row layout does not fit, or under
+    ``_FORCE_CHUNKED``); 0 bytes where no block fits. Builds the
+    kernel if needed."""
+    b = _lib().knn_topk_smem_bytes(d, k, int(dtype == torch.bfloat16),
+                                   int(_FORCE_CHUNKED))
+    return abs(b), b < 0
 
 
 def check_inputs(x: torch.Tensor, y: torch.Tensor,
@@ -101,7 +112,7 @@ def launch(x: torch.Tensor, y: torch.Tensor, *, k: int,
         raise ValueError(f"N = {n} query rows exceed the kernel's grid")
     lib = _lib()
     is_bf16 = x.dtype == torch.bfloat16 and y.dtype == torch.bfloat16
-    smem = lib.knn_topk_smem_bytes(d, k, int(is_bf16))
+    smem, _ = block_layout(d, k, torch.bfloat16 if is_bf16 else torch.float32)
     if smem == 0 or smem > MAX_SMEM_BYTES:
         raise ValueError(f"D = {d}: a block would need {smem} bytes of "
                          f"shared memory, over the card's {MAX_SMEM_BYTES}")
@@ -124,7 +135,7 @@ def launch(x: torch.Tensor, y: torch.Tensor, *, k: int,
             xsq.data_ptr(), ysq.data_ptr(), idx.data_ptr(),
             vals.data_ptr() if vals is not None else None,
             bg, n, m, d, k, bias_mode, int(x.dtype == torch.bfloat16),
-            int(y_is_x), stream)
+            int(y_is_x), int(_FORCE_CHUNKED), stream)
     if err != 0:
         raise RuntimeError(f"knn_topk kernel launch failed: "
                            f"{lib.knn_topk_error_string(err).decode()} "

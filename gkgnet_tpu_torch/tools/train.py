@@ -34,6 +34,7 @@ from gkgnet_tpu_torch.core.checkpoint import (load_params_only,
                                               save_checkpoint)
 from gkgnet_tpu_torch.core.config import Config, parse_cfg_option
 from gkgnet_tpu_torch.core.optim import build_optimizer
+from gkgnet_tpu_torch.nn.augment import build_batch_augment
 from gkgnet_tpu_torch.core.schedules import build_lr_schedule
 from gkgnet_tpu_torch.core.trainer import (TrainState, create_train_state,
                                            make_device_normalize,
@@ -255,10 +256,13 @@ def _train(args, cfg: Config, seed: int, device: torch.device, work_dir: str,
                                 for n, p in model.named_parameters()}
         logger.info(f"loaded weights from {path}")
 
+    # batch-level mixup/cutmix from train_cfg.augments
     train_step = make_train_step(
         ema_momentum=ema_cfg.get("momentum", 2e-4),
         ema_warmup=ema_cfg.get("warmup", 100),
-        dynamic_loss_scale=dyn_scale)
+        dynamic_loss_scale=dyn_scale,
+        batch_augment=build_batch_augment(
+            cfg.get("model", {}).get("train_cfg", {}).get("augments")))
     eval_step = make_eval_step()
     # with EMA on, raw and EMA weights are both scored
     # (reference apis/train.py:187-207)

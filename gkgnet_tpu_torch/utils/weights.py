@@ -19,6 +19,14 @@ transforms:
     ``graph_conv.gconv.{nn,nn1,nn2}.<i>``, the gat attention ``gconv/a``
     (a 1x1 conv) -> ``graph_conv.gconv.a``, the gin ``gconv/eps`` (1,) ->
     ``graph_conv.gconv.eps`` as it is
+  * a prelu's ``act*/alpha`` (1,) -> the activation's ``weight`` (torch
+    ``nn.PReLU``'s name): ``stem.convs.{2,5}``, ``ffn.act``,
+    ``gconv.nn.<3i+2>``
+  * the linear heads' ``head/fc`` -> ``head.fc`` (a Dense)
+  * the neck's leaves -> ``neck.*`` under the JAX module names: its convs
+    (``neck.proj0``, ``neck.fuse``, ...) as 3x3 / 1x1 convs, the
+    projection's ``neck/kernel`` (C_cls, Cin, P) and ``neck/bias`` as they
+    are
 
 ``init_block_parameters(module, generator)`` is the seeded init of any
 module of the port (a standalone Grapher as well as the classifier).
@@ -33,12 +41,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from gkgnet_tpu_torch.nn.layers import BatchNorm, Conv3x3, PointwiseConv
+from gkgnet_tpu_torch.nn.layers import (Activation, BatchNorm, Conv3x3,
+                                        PointwiseConv)
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "embedding": "weight", "mean": "running_mean", "var": "running_var",
-         "eps": "eps"}
-_STEM = {"conv0": 0, "norm0": 1, "conv1": 3, "norm1": 4, "conv2": 6, "norm2": 7}
+         "eps": "eps", "alpha": "weight"}
+_STEM = {"conv0": 0, "norm0": 1, "act0": 2, "conv1": 3, "norm1": 4,
+         "act1": 5, "conv2": 6, "norm2": 7}
 _CONV_NORM = {"conv": "0", "norm": "1"}
 
 
@@ -54,20 +64,26 @@ def _block_path(p: list[str]) -> list[str]:
     """Path inside a Grapher, GrapherLabel or FFN -> mmcls sub-keys."""
     if p[0] in ("fc1", "fc2"):                    # ConvNorm
         return [p[0], _CONV_NORM[p[1]]]
+    if p[0] == "act":                             # an FFN's prelu
+        return ["act"]
     if p[0] == "graph_conv":
         if len(p) == 2 or p[2] == "a":            # gin eps, gat attention
             return p[:3]
-        m = re.fullmatch(r"(conv|norm)(\d+)", p[3])  # gconv.nn*: BasicConv
-        idx = 3 * int(m.group(2)) + (0 if m.group(1) == "conv" else 1)
+        # gconv.nn*: a BasicConv, conv / norm / act of each stage
+        m = re.fullmatch(r"(conv|norm|act)(\d+)", p[3])
+        idx = 3 * int(m.group(2)) + {"conv": 0, "norm": 1, "act": 2}[m.group(1)]
         return ["graph_conv", "gconv", p[2], str(idx)]
     if p[0] == "ffn":                             # FFN inside GrapherLabel
-        return ["ffn", p[1], _CONV_NORM[p[2]]]
+        return ["ffn"] + _block_path(p[1:])
     raise KeyError(f"unmapped module path {p}")
 
 
 def torch_key(path: tuple[str, ...]) -> str:
     """JAX variable path (without the collection) -> mmcls state_dict key."""
     *mods, leaf = path
+    if mods[0] == "neck":
+        return ".".join(["neck", *mods[1:], leaf if len(mods) == 1
+                         else _LEAF[leaf]])
     if mods[0] == "head":
         if leaf.startswith("fc1_"):
             return f"head.fc1.{_LEAF[leaf[4:]]}"
@@ -101,16 +117,18 @@ def torch_key(path: tuple[str, ...]) -> str:
 def jax_leaf_names(model: nn.Module) -> dict[str, str]:
     """Parameter name -> the leaf name of the JAX variable it is loaded from
     (the inverse of the last step of ``torch_key``): ``kernel``, ``bias``,
-    ``scale``, ``embedding``, ``pos_embed``, ``eps``, ``fc1_kernel`` or
-    ``fc1_bias``."""
+    ``scale``, ``embedding``, ``pos_embed``, ``eps``, ``alpha`` (a prelu's
+    slope), ``fc1_kernel`` or ``fc1_bias``."""
     names = {}
     for mod_name, module in model.named_modules():
         for p_name, _ in module.named_parameters(recurse=False):
             key = f"{mod_name}.{p_name}" if mod_name else p_name
             if key in ("head.fc1.weight", "head.fc1.bias"):
                 leaf = "fc1_kernel" if p_name == "weight" else "fc1_bias"
-            elif p_name in ("pos_embed", "eps"):
+            elif p_name in ("pos_embed", "eps", "kernel"):
                 leaf = p_name
+            elif isinstance(module, Activation):
+                leaf = "alpha"
             elif isinstance(module, BatchNorm):
                 leaf = {"weight": "scale", "bias": "bias"}[p_name]
             elif isinstance(module, nn.Embedding):
@@ -125,6 +143,8 @@ def to_torch_layout(path: tuple[str, ...], value) -> np.ndarray:
     """One JAX leaf -> the torch layout of its state_dict entry."""
     a = np.asarray(value, dtype=np.float32)
     leaf = path[-1]
+    if path[0] == "neck" and len(path) == 2:      # the projection's leaves
+        return a
     if leaf == "pos_embed":
         return a.transpose(0, 3, 1, 2)
     if leaf != "kernel":

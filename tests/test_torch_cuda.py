@@ -9,6 +9,7 @@ imports no JAX, and each test decides inside a fixture whether a card is
 present.
 """
 
+import contextlib
 import os
 import sys
 
@@ -17,8 +18,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (check_topk, folded_route, tie_fixture,  # noqa: E402
-                        topk_fixture)
+from chip_smoke import (check_topk, folded_route, forced_chunked,  # noqa: E402
+                        tie_fixture, topk_fixture)
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
                                            make_train_step)
@@ -537,12 +538,12 @@ def test_topk_kernel_rejects_bad_inputs(cuda, case):
         k = 65
     elif case == "k_over_m":
         k = 101
-    elif case == "too_wide":
-        x = torch.randn((2, 16, 800), device=cuda)
-        y = torch.randn((2, 100, 800), device=cuda)
-    else:  # the tensor-core kernel's query rows and tiles do not fit
-        x = torch.randn((2, 16, 800), device=cuda).to(torch.bfloat16)
-        y = torch.randn((2, 100, 800), device=cuda).to(torch.bfloat16)
+    elif case == "too_wide":  # the warps' fp32 query rows do not fit
+        x = torch.randn((2, 16, 6400), device=cuda)
+        y = torch.randn((2, 100, 6400), device=cuda)
+    else:  # even the chunked scan's merge rows do not fit, at 1 warp
+        x = torch.randn((2, 16, 30000), device=cuda).to(torch.bfloat16)
+        y = torch.randn((2, 100, 30000), device=cuda).to(torch.bfloat16)
     before = knn_topk.launches
     with pytest.raises(ValueError):
         knn_topk.launch(x, y, k=k, bias=bias)
@@ -1007,6 +1008,160 @@ def test_tc_kernels_nan_rows_match_plain(cuda, self_knn):
     assert torch.equal(t_idx[0, 3], p_idx[0, 3])
     assert torch.isnan(t_vals[0, 3]).all()
     assert not (t_idx[3][torch.isfinite(xn[3]).all(-1)] == 64).any()
+
+
+# --------------- the D-chunked scan: rows too wide for a whole-row layout
+
+# (n, m or None for y = x, d, k, dilation, bias): arch b@576 without
+# channel groups (its stage-4 spatial calls and its stage-4 label call at
+# D = 1024, with a batch of 1 here), and 1000 channels, whose last chunk of
+# 104 is not a multiple of 16.
+WIDE_SHAPES = [
+    (324, None, 1024, 9, 5, True),
+    (80, 324, 1024, 9, 1, False),
+    (100, 200, 1000, 9, 2, False),
+]
+
+
+def _wide_case(cuda, n, m, d, dtype, bias, seed):
+    x, y, b = _inputs(1, n, m, d, "shared" if bias else None, dtype, seed)
+    x = x.to(cuda)
+    y = x if m is None else y.to(cuda)
+    return x, y, None if b is None else b.to(cuda)
+
+
+def _check_wide(name, x, y, bias, k, dilation, chunked=False):
+    """knn_mr and knn_topk on one input against their plain versions: mr
+    bitwise the plain max-relative of the kernel's idx, the fp64 oracle,
+    idx the plain version's but at near-ties (at most 1 % of the rows),
+    knn_topk(xn, yn, k*d)[..., ::d] bitwise knn_mr's idx and its values
+    within their fp32 bound. Returns the outputs."""
+    with forced_chunked() if chunked else contextlib.nullcontext():
+        idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dilation)
+    torch.cuda.synchronize()
+    assert torch.equal(mr, max_relative(x, idx, y)), name
+    assert knn_mr.ordering_gaps(xn, yn, bias, idx, dilation).max().item() \
+        <= ORACLE_TOL, name
+    with forced_chunked() if chunked else contextlib.nullcontext():
+        t_idx, t_vals = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
+                                        return_values=True)
+    assert torch.equal(t_idx[..., ::dilation], idx), name
+    check_topk(name, xn, yn, bias, t_idx, t_vals, max_flip_share=1e-2)
+    return idx, mr, xn, t_idx, t_vals
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,m,d,k,dilation,bias", WIDE_SHAPES)
+def test_wide_rows_take_the_chunked_scan(cuda, n, m, d, k, dilation, bias,
+                                         dtype):
+    """D = 1024 and 1000: the whole-row layouts do not fit, the kernels
+    take the chunked scan and meet the contract of every other width."""
+    for mod, kk in ((knn_mr, k * dilation), (knn_topk, k * dilation)):
+        smem, chunked = mod.block_layout(d, kk, dtype)
+        assert chunked and 0 < smem <= knn_topk.MAX_SMEM_BYTES
+    x, y, b = _wide_case(cuda, n, m, d, dtype, bias, seed=30)
+    _check_wide(f"D={d}", x, y, b, k, dilation)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_wide_backward_matches_plain(cuda, dtype):
+    """The backward at D = 1024 (arch b's ungrouped stage 4) on the chunked
+    forward's idx: gx bitwise -g, gy bitwise the ordered plain version."""
+    x, y, idx, g = _bwd_case(1, 324, 324, 1024, 9, 5, dtype, self_knn=True)
+    _check_bwd_kernel(x, y, idx, g)
+
+
+def _boundary(mod, dtype, kd):
+    """The widest multiple of 8 channels that the whole-row layout of
+    ``mod``'s kernel takes."""
+    d = 8
+    while not mod.block_layout(d + 8, kd, dtype)[1]:
+        d += 8
+    return d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("mod", [knn_mr, knn_topk],
+                         ids=["knn_mr", "knn_topk"])
+def test_chunking_boundary(cuda, mod, dtype):
+    """The widths on either side of a kernel's chunking boundary (k*d =
+    45): the last one its whole-row layout takes and the first one it does
+    not, each against the plain versions, and bitwise what the chunked
+    scan forced on the same input gives."""
+    k, dilation = 9, 5
+    d = _boundary(mod, dtype, k * dilation)
+    for width in (d, d + 8):
+        x, y, b = _wide_case(cuda, 324, None, width, dtype, True, seed=31)
+        got = _check_wide(f"D={width}", x, y, b, k, dilation)
+        forced = _check_wide(f"D={width} chunked", x, y, b, k, dilation,
+                             chunked=True)
+        for a, c in zip(got, forced):
+            assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(c) if c.is_floating_point() else c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bg,n,m,d,k,dilation,bias_kind", [
+    (2, 100, 70, 40, 9, 1, "shared"),
+    (2, 37, 300, 200, 9, 3, "batched"),    # 2 chunks, the last of 72
+    (2, 324, None, 320, 9, 3, "shared"),    # arch s stage 4, self-kNN
+    (1, 64, 130, 129, 4, 2, None),          # a last chunk of 1 channel
+])
+def test_chunked_scan_is_bitwise_the_unchunked(cuda, bg, n, m, d, k,
+                                               dilation, bias_kind, dtype):
+    """The chunked scan forced at widths the whole-row layout takes: the
+    same mma / fmaf steps in the same order, so idx, mr, the normalized
+    rows and knn_topk's idx and values are bitwise the unchunked kernels'."""
+    x, y, bias = _inputs(bg, n, m, d, bias_kind, dtype, seed=32)
+    x = x.to(cuda)
+    y = x if m is None else y.to(cuda)
+    bias = None if bias is None else bias.to(cuda)
+    plain = knn_mr.launch(x, y, bias, k, dilation)
+    with forced_chunked():
+        forced = knn_mr.launch(x, y, bias, k, dilation)
+    for a, c in zip(plain, forced):
+        assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                           _bits(c) if c.is_floating_point() else c)
+    xn, yn = plain[2], plain[3]
+    t = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
+                        return_values=True)
+    with forced_chunked():
+        tc = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
+                             return_values=True)
+    assert torch.equal(t[0], tc[0]) and torch.equal(_bits(t[1]),
+                                                    _bits(tc[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_chunked_scan_nan_rows_match_plain(cuda, dtype):
+    """NaN rows at D = 1024 through the chunked scan (whose NaN tail reads
+    the query row from device memory, not from a staged row): a NaN query
+    row takes columns 0, d, 2d, ... with a NaN mr, a NaN target row is
+    never chosen; idx and mr bitwise the plain versions' on those rows."""
+    g = torch.Generator().manual_seed(33)
+    k, dilation = 9, 2
+    x = torch.randn((2, 80, 1024), generator=g)
+    y = torch.randn((2, 324, 1024), generator=g)
+    x[0, 3] = float("nan")
+    y[1, 64] = float("nan")
+    x, y = x.to(dtype).to(cuda), y.to(dtype).to(cuda)
+    idx, mr, xn, yn = knn_mr.launch(x, y, None, k, dilation)
+    ref_idx, ref_mr = knn_mr.knn_mr_reference(x, y, None, k, dilation)
+    assert idx[0, 3].tolist() == list(range(0, 2 * k, 2))
+    assert torch.equal(idx[0, 3], ref_idx[0, 3])
+    assert torch.isnan(mr[0, 3]).all()
+    assert not (idx[1] == 64).any()
+    torch.testing.assert_close(mr, max_relative(x, idx, y), rtol=0, atol=0,
+                               equal_nan=True)
+    t_idx, t_vals = knn_topk.launch(xn, yn, k=k * dilation,
+                                    return_values=True)
+    assert torch.equal(t_idx[..., ::dilation], idx)
+    assert torch.isnan(t_vals[0, 3]).all()
 
 
 # ------------------------------------------- the kernels as registered ops

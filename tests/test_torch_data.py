@@ -428,12 +428,36 @@ def test_build_model_with_jax_weights_gives_jax_logits():
 
 @pytest.mark.parametrize("case", ["neck", "augments", "perturbed"])
 def test_builder_raises_for_what_is_not_ported(case):
-    extra = {"neck": dict(neck=dict(type="GAP")),
+    """The three model options the builder once refused build as in the
+    JAX package: a neck (then the linear multi-label head, and the same
+    parameter tree; an unknown neck type raises ValueError in both),
+    ``train_cfg.augments`` (the training loop's, not the module's) and
+    ``graph_builder='perturbed'``."""
+    extra = {"neck": dict(head=None, neck=dict(
+                 type="GlobalAveragePooling", out_indices=(3,))),
              "augments": dict(train_cfg=dict(augments=[
                  dict(type="BatchMixup", alpha=0.2)])),
              "perturbed": dict(graph_builder="perturbed")}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tbuilder.build_model(dict(MINI_MODEL, **extra[case]))
+    cfg = dict(MINI_MODEL, **extra[case])
+    jm, tm = jbuilder.build_model(cfg), tbuilder.build_model(cfg)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                            jnp.zeros((1, 128, 128, 3))))
+    load_jax_variables(tm, jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), dict(shapes)))
+    if case == "neck":
+        assert type(tm.head).__name__ == "MultiLabelLinearClsHead"
+        bad = dict(cfg, neck=dict(type="GAP"))
+        with pytest.raises(ValueError, match="unknown neck type"):
+            tbuilder.build_model(bad)
+        with pytest.raises(ValueError, match="unknown neck type"):
+            jax.eval_shape(lambda: jbuilder.build_model(bad).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 3))))
+    elif case == "augments":
+        assert type(tm.head).__name__ == "LabelQueryHead"
+    else:
+        assert jm.graph_builder == "perturbed"
+        assert {m.graph_builder for m in tm.modules()
+                if hasattr(m, "graph_builder")} == {"perturbed"}
 
 
 # ------------------------------------------------------- logs and the tools

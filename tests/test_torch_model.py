@@ -170,9 +170,9 @@ def test_grapher_label_matches_jax():
 @pytest.mark.parametrize("case", ["conv", "graph_builder", "stochastic"])
 def test_unported_options_raise(case):
     """What the port rejects, as the JAX package does: an unknown
-    aggregator, a non-'mr' aggregator with folded groups, the perturbed
-    graph builder (not ported), and stochastic dilation in training
-    without a generator."""
+    aggregator, a non-'mr' aggregator with folded groups, an unknown graph
+    builder and the perturbed one with an aggregator other than 'mr', and
+    stochastic dilation in training without a generator."""
     if case == "stochastic":
         block = tgrapher.Grapher(16, 3, 2, stochastic=True, epsilon=0.5)
         x = torch.zeros((1, 4, 4, 16))
@@ -185,8 +185,11 @@ def test_unported_options_raise(case):
         with pytest.raises(ValueError):
             tgrapher.Grapher(16, 3, 1, conv="edge", use_multi_group=True)
         return
-    with pytest.raises(NotImplementedError):
-        tgrapher.Grapher(16, 3, 1, graph_builder="perturbed")
+    with pytest.raises(ValueError, match="unknown graph_builder"):
+        tgrapher.Grapher(16, 3, 1, graph_builder="soft")
+    with pytest.raises(ValueError, match="requires conv='mr'"):
+        tgrapher.Grapher(16, 3, 1, conv="edge", use_multi_group=False,
+                         graph_builder="perturbed")
 
 
 SMALL = dict(arch="t", k=2, k_label_gcn=2, n_classes=6, size=128)
