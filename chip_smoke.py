@@ -187,6 +187,41 @@ Phases (each prints its elapsed seconds):
      compare_fp32_paths holds them (near-tie flips: at most one row or
      FLIP_SHARE, each within the fp64 oracle; mr bitwise where idx
      agrees);
+ 13. data and graph parallelism (gkgnet_tpu_torch/parallel/): worlds of
+     ranks spawned on this one card, over gloo through pinned host buffers
+     (ranks sharing a card measure the partition's overhead, not its
+     scaling): (a) a world of 2 (data 1 x graph 2): every bf16 call of
+     ROWS at BG 16 through the gather and ring schedules and the
+     label-sharded build, idx and mr bitwise the unpartitioned kernel's on
+     the same inputs in the same process, each gather shard's backward gx
+     bitwise -g and its gy summed over the graph group within PAR_GY_REL
+     of the unpartitioned gy (``par_row`` lines: ms and launches per
+     rank); (b) in the same world, entry()'s eval forward at batch 8 under
+     graph_sharding: logits bitwise phase 4's, and train_entry()'s first
+     step: loss bitwise phase 5's, exact launch counts, the two ranks'
+     gradients bitwise alike (against phase 5's: printed, bf16); then the
+     t@128 fp32 step (dryrun_multichip's model): the two ranks' gradients
+     bitwise alike and within PAR_GRAD_REL of the one-process step's per
+     leaf; (c) dryrun_multichip_prod(4, device="cuda"): data 2 x graph 2,
+     global batch 8: an eval forward and 2 train steps on the gather
+     schedule and an eval forward on the ring, with the launches per rank
+     worked out from the routes (par_expected) and asserted, the ring's
+     logits bitwise the gather's, the parameters after the steps bitwise
+     alike on the 4 ranks, the first step's loss within PAR_LOSS_RTOL of
+     the one-process step's (the second's printed), ms and peak memory per
+     rank; then, in a world of 4 beside (e), the t@128 fp32 step on data 2
+     x graph 2: each data rank's graph ranks enter the train step's data
+     mean with bitwise-equal gradients and leave it with the data ranks'
+     mean, bitwise (against the one-process step: printed); (d) in phase
+     9's
+     directory: the train CLI through torch.distributed.run on 4 ranks
+     (mesh.data=2 mesh.graph=2) for an epoch of 16 images, then the test
+     CLI on 4 ranks and on 1 rank of its checkpoint: the scores' largest
+     gap printed, the mAPs within PAR_CLI_MAP_TOL; (e) one train step of
+     configs/gkgnet_coco_768_dist.py on a world of 4 at its own batch, peak
+     memory per rank, or a line saying the ranks did not fit (not a
+     gate); (f) an NCCL world of one rank: every collective wrapper on
+     CUDA tensors, then the t@128 step;
 
 then the kernels line, nvidia-smi's line, and the result line.
 
@@ -233,6 +268,7 @@ from gkgnet_tpu_torch.data.coco import COCO_CLASSES  # noqa: E402
 from gkgnet_tpu_torch.data.loader import (build_dataloader,  # noqa: E402
                                           default_collate)
 from gkgnet_tpu_torch.data.voc import VOC_CLASSES  # noqa: E402
+from gkgnet_tpu_torch import entry as entry_mod  # noqa: E402
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.nn import gkgnet as gkgnet_mod  # noqa: E402
@@ -240,12 +276,18 @@ from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.nn.augment import build_batch_augment  # noqa: E402
 from gkgnet_tpu_torch.nn.classifier import init_parameters  # noqa: E402
 from gkgnet_tpu_torch.nn.gkgnet import ARCH_SETTINGS, GKGNet  # noqa: E402
+from gkgnet_tpu_torch.nn.layers import BatchNorm  # noqa: E402
 from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
 from gkgnet_tpu_torch.ops.aggregate import (fold_groups,  # noqa: E402
                                             max_relative, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (knn_graph,  # noqa: E402
                                       knn_topk_reference, l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
+from gkgnet_tpu_torch.parallel import (collectives,  # noqa: E402
+                                       edge_partition, spawn)
+from gkgnet_tpu_torch.parallel.mesh import (make_mesh,  # noqa: E402
+                                            shard_batch)
+from gkgnet_tpu_torch.parallel.sharding import graph_sharding  # noqa: E402
 from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
 from gkgnet_tpu_torch.tools import inference  # noqa: E402
 from gkgnet_tpu_torch.tools import make_synthetic_coco  # noqa: E402
@@ -1624,16 +1666,19 @@ def dir_bytes(path: str) -> int:
 def cli_phase(smi: str) -> tuple[dict, dict, dict]:
     """Phase 9: the config-driven train and test CLIs on a synthetic set
     made here, on the card nvidia-smi names ``smi``; then phase 10, the
-    serving path, and phase 11, the VOC path and the tools, in the same
-    directory on phase 9's checkpoint and images. Returns the launch counts
-    of each phase (and phase 11's kernel rows)."""
+    serving path, phase 11, the VOC path and the tools, and phase 13 (d),
+    the CLIs on a world of ranks, in the same directory on phase 9's
+    checkpoint and images. Returns the launch counts of phases 9-11 (and
+    phase 11's kernel rows)."""
     t = time.perf_counter()
     native.lib()  # before the loader's spawned workers load it
     log(f"cli: native ops built in {native.build_seconds:.2f} s")
     with tempfile.TemporaryDirectory(prefix="gkgnet_cli_") as root:
         cli = _cli_phase(root, t, smi)
         served = serving_phase(root, cli, smi)
-        return cli, served, voc_phase(root, cli, smi)
+        voc = voc_phase(root, cli, smi)
+        parallel_cli_phase(root, cli, smi)
+        return cli, served, voc
 
 
 def _cli_phase(root: str, t0: float, smi: str) -> dict:
@@ -1801,6 +1846,7 @@ PRECISE_BN_BATCHES = 4  # seeded batches of 8 for PreciseBN
 def reset_launch_counts() -> None:
     knn_mr.launches = knn_mr.grouped_launches = 0
     knn_mr.backward_launches = knn_topk.launches = 0
+    knn_mr.normalize_launches = 0
 
 
 def check_counts(what: str, want: tuple[int, int, int, int],
@@ -2806,6 +2852,644 @@ def arch_b_phase(smi: str) -> dict:
                 train_peak=train_peak)
 
 
+# ---------------------------------------------------------------- phase 13
+# Data and graph parallelism (parallel/): worlds of ranks spawned on this
+# one card (parallel/spawn.py), talking over gloo through pinned host
+# buffers (the transport rule: NCCL refuses two ranks on one device). Ranks
+# that share one card measure the partition's overhead, not its scaling.
+
+PAR_GRAPH = 2             # the graph axis of (a) and (b)
+PAR_TIMEOUT_S = 300.0     # each world's process groups and its join
+# (a): a shard backward's gy summed over the graph group against the
+# unpartitioned gy (bf16): each rank's gy is its fp32 sum rounded once to
+# bf16 (half a bf16 ulp, 2**-9 of the value), their sum is taken in fp32
+# and the unpartitioned gy is rounded once too; 2**-8 of the magnitudes
+# bounds the three roundings, and 1e-6 of the largest |gy| the fp32 sums'
+# other order
+PAR_GY_REL = 2.0 ** -8
+# (b) in fp32: the t@128 graph-only step's gradients against the
+# one-process step's, per leaf, relative to the leaf's
+# largest |g| (a leaf below this share of the model's largest holds only
+# the rounding noise of an exact 0 and is held to the model's largest):
+# the CPU tests' bound (tests/test_torch_parallel.py), the graph convs'
+# target gradients being summed over the ranks in another order and
+# carried back through the network (1.5e-5 measured there)
+PAR_GRAD_REL = 1e-4
+PAR_FP32_BATCH = 4
+# (c): the 2 x 2 world's first step loss against the one-process step on
+# the same weights and global batch, whose BatchNorm moments are summed in
+# the two data ranks' blocks (par_split_moments), relative. It comes from
+# the forward alone and was bitwise equal in every H100 run (PERF.md,
+# section 6); any other rounding -- a convolution algorithm chosen
+# otherwise at batch 4 than at 8 -- would flip kNN near-ties of this random
+# model and move its loss by percents (5.3 % on the CPU's fp32 worlds).
+# The second step's loss is printed, not held: it follows step 1's bf16
+# update, which differs from the one process's and from run to run (gaps
+# 1.5e-2, 3.4e-2 and 9.4e-5 in three H100 runs); the update is held in
+# fp32 instead (the data mean, bitwise, in a world of 4)
+PAR_LOSS_RTOL = 2e-2
+# (d): the 4-rank test CLI's mAP against the 1-rank CLI's on the same
+# checkpoint (mAP points): each data rank scores its rows in batches of the
+# same size, through the same row-independent kernels
+PAR_CLI_MAP_TOL = 1e-4
+PAR_CLI_IMAGES = 16       # (d)'s train epoch: 2 steps at global batch 8
+PAR_768_CONFIG = os.path.join(REPO_DIR, "configs", "gkgnet_coco_768_dist.py")
+
+
+def par_timed(fn, iters: int = 3) -> float:
+    """ms per call on a host clock around device synchronizations (the
+    calls block on the host for their collectives)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def par_block(t: torch.Tensor, dim: int, parts: int, i: int) -> torch.Tensor:
+    n = t.shape[dim] // parts
+    return t.narrow(dim, i * n, n).contiguous()
+
+
+def par_calls_rank(rows: list, bg: int) -> dict:
+    """(a) on one rank of a (data 1, graph 2) world: every bf16 call of
+    ``rows`` through the partitioned functions held to the unpartitioned
+    kernel on the same inputs in this process, then (b)."""
+    mesh = make_mesh(data=1, graph=PAR_GRAPH)
+    s, me = mesh.graph, mesh.graph_rank
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = dict(rank=mesh.rank, device=str(dev), backend=mesh.backend,
+               rows=[])
+    for (name, n, m, d, k, dil, table, calls, dt, targets) in rows:
+        if dt != "bf16":
+            continue
+        x = torch.randn((bg, n, d), generator=gen, device=dev).bfloat16()
+        y = x if targets == "self" else torch.randn(
+            (bg, m, d), generator=gen, device=dev).bfloat16()
+        bias = None if table is None else torch.from_numpy(
+            get_relative_pos_table(*table)).to(dev)
+        g = torch.randn((bg, n, d), generator=gen, device=dev).bfloat16()
+        idx_u, mr_u, _, _ = knn_mr.launch(x, y, bias, k, dil)
+        if targets == "labels":
+            y_l = par_block(y, 1, s, me)
+            calls_ = {"label": lambda: edge_partition.label_sharded_knn_mr(
+                mesh, x, y_l, k=k, dilation=dil)}
+            want = (idx_u, mr_u)
+        else:
+            x_l = par_block(x, 1, s, me)
+            y_l = None if targets == "self" else par_block(y, 1, s, me)
+            b_l = None if bias is None else par_block(bias, 0, s, me)
+            calls_ = {
+                sched: (lambda ov=ov: edge_partition.edge_partitioned_knn_mr(
+                    mesh, x_l, y_l, b_l, k=k, dilation=dil, overlap=ov))
+                for sched, ov in (("gather", False), ("ring", True))}
+            want = (par_block(idx_u, 1, s, me), par_block(mr_u, 1, s, me))
+        first_row = len(out["rows"])
+        for sched, call in calls_.items():
+            c0 = entry_mod.launch_counts()
+            with torch.no_grad():
+                idx, mr = call()
+            torch.cuda.synchronize()
+            c1 = entry_mod.launch_counts()
+            check(torch.equal(idx, want[0]),
+                  f"parallel (a) {name} {sched}: idx differs from the "
+                  f"unpartitioned kernel's on "
+                  f"{int((idx != want[0]).any(-1).sum())} rows")
+            check(torch.equal(mr, want[1]),
+                  f"parallel (a) {name} {sched}: mr differs from the "
+                  f"unpartitioned kernel's (max |diff| "
+                  f"{(mr.float() - want[1].float()).abs().max().item()})")
+            with torch.no_grad():
+                ms = par_timed(call)
+            out["rows"].append(dict(
+                name=name, schedule=sched, BG=bg,
+                N_local=idx.shape[1], M=m if targets != "labels" else m // s,
+                ms=ms, launches={k_: c1[k_] - c0[k_] for k_ in c1}))
+        if targets != "labels":
+            # the gather shard's backward: the kernel on this rank's rows
+            # against the whole targets, gy summed over the graph group
+            rows_q = slice(me * (n // s), (me + 1) * (n // s))
+            g_l = g[:, rows_q].contiguous()
+            gx_l, gy_part = knn_mr.launch_backward(
+                x[:, rows_q].contiguous(), y,
+                idx_u[:, rows_q].contiguous(), g_l)
+            check(torch.equal(gx_l, -g_l),
+                  f"parallel (a) {name}: the shard backward's gx is not -g")
+            _, gy_u = knn_mr.launch_backward(x, y, idx_u, g)
+            gy_sum = collectives.all_reduce(gy_part.float(),
+                                            mesh.graph_group)
+            mag = collectives.all_reduce(gy_part.float().abs(),
+                                         mesh.graph_group)
+            err = (gy_sum - gy_u.float()).abs()
+            bound = PAR_GY_REL * (mag + gy_u.float().abs()) \
+                + 1e-6 * gy_u.float().abs().max()
+            check(bool((err <= bound).all()),
+                  f"parallel (a) {name}: gy summed over the graph group off "
+                  f"the unpartitioned gy by {err.max().item():.3e}")
+            out["rows"][first_row]["gy_max_abs_err"] = err.max().item()
+        del x, y, bias, g, idx_u, mr_u
+    torch.cuda.empty_cache()
+    out.update(par_graph_only(mesh))
+    out["fp32_grads"] = par_fp32_grads(mesh)
+    return out
+
+
+def par_fp32_grads(mesh=None, moments_parts: int = 1) -> dict:
+    """The gradients the optimizer stepped with (after the data mean and
+    the clip) in one t@128 fp32 train step (dryrun_multichip's model) at
+    the global batch PAR_FP32_BATCH: under graph_sharding on this rank's
+    rows of a mesh, or in one process without one (the reference, its
+    BatchNorm moments summed in ``moments_parts`` data ranks' blocks); in
+    full fp32 on both (TF32 off, as the phases before this one leave it)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, data, step = entry_mod.dryrun_state("t128", "cuda",
+                                               PAR_FP32_BATCH)
+    if mesh is not None:
+        data = shard_batch(data, mesh)
+    else:
+        data = {k: v.cuda() for k, v in data.items()}
+    own = BatchNorm._moments
+    if moments_parts > 1:
+        BatchNorm._moments = par_split_moments(moments_parts)
+    try:
+        with (graph_sharding(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            step(state, data, 7)
+    finally:
+        BatchNorm._moments = own
+    return {k: p.grad.detach().float().cpu()
+            for k, p in state.model.named_parameters()}
+
+
+def par_fp32_dp_rank() -> dict:
+    """(c) in fp32 on one rank of a world of 4, mesh (data 2, graph 2):
+    ``par_fp32_grads`` on this rank's rows, with the gradients as they
+    entered and left the train step's data mean (``reduce_mean_``)."""
+    mesh = make_mesh(data=2, graph=2)
+    seen = []
+    mean = collectives.reduce_mean_
+
+    def recording(tensors, group, count):
+        before = [t.detach().float().cpu() for t in tensors]
+        mean(tensors, group, count)
+        seen.append((before, [t.detach().float().cpu() for t in tensors]))
+
+    collectives.reduce_mean_ = recording
+    try:
+        grads = par_fp32_grads(mesh)
+    finally:
+        collectives.reduce_mean_ = mean
+    before, after = seen[0]  # the gradients' (the logged losses' follow)
+    return dict(grads=grads, before=before, after=after,
+                coords=(mesh.data_rank, mesh.graph_rank))
+
+
+def par_leaf_gaps(got: dict, ref: dict) -> dict:
+    """max|got - ref| / max|ref| per leaf; a leaf whose largest |ref| is
+    below PAR_GRAD_REL of the model's largest is taken relative to the
+    model's largest (see PAR_GRAD_REL)."""
+    top = max(g.abs().max().item() for g in ref.values())
+    gaps = {}
+    for key, g in ref.items():
+        scale = g.abs().max().item()
+        if scale < PAR_GRAD_REL * top:
+            scale = top
+        gaps[key] = (got[key] - g).abs().max().item() / max(scale, 1e-30)
+    return gaps
+
+
+def par_graph_only(mesh) -> dict:
+    """(b) on a (data 1, graph 2) rank: the eval forward of entry() and the
+    first train step of train_entry() at batch 8 under graph_sharding."""
+    fn, (model, x) = entry(device=mesh.device, batch=8)
+    c0 = entry_mod.launch_counts()
+    with graph_sharding(mesh):
+        logits = fn(model, x)
+        torch.cuda.synchronize()
+        fwd_counts = {k: v - c0[k]
+                      for k, v in entry_mod.launch_counts().items()}
+        fwd_ms = par_timed(lambda: fn(model, x))
+    logits = logits.float().cpu()
+    del fn, model, x
+    torch.cuda.empty_cache()
+    fn, (state, batch) = train_entry(device=mesh.device, batch=8)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    c0 = entry_mod.launch_counts()
+    with graph_sharding(mesh):
+        state, logs = fn(state, batch)
+        torch.cuda.synchronize()
+        step_counts = {k: v - c0[k]
+                       for k, v in entry_mod.launch_counts().items()}
+        grads = {k: p.grad.detach().float().cpu()
+                 for k, p in state.model.named_parameters()}
+        step_ms = par_timed(lambda: fn(state, batch), iters=1)
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    return dict(logits=logits, loss=float(logs["loss"]), grads=grads,
+                fwd_counts=fwd_counts, step_counts=step_counts,
+                fwd_ms=fwd_ms, step_ms=step_ms, peak_bytes=peak)
+
+
+def par_split_moments(parts: int):
+    """``BatchNorm._moments`` of one process whose batch is ``parts`` data
+    ranks' rows: each block's sums added in rank order, as the data group's
+    all-reduce adds them (the reference of (c))."""
+    def moments(self, x32):
+        axes = tuple(range(x32.dim() - 1))
+        c = x32.shape[-1]
+        total = None
+        for block in x32.chunk(parts, 0):
+            sums = torch.cat([block.sum(dim=axes),
+                              block.square().sum(dim=axes),
+                              block.new_full((1,), block.numel() // c)])
+            total = sums if total is None else total + sums
+        count = total[2 * c]
+        mean, mean_sq = total[:c] / count, total[c:2 * c] / count
+        return mean, torch.clamp(mean_sq - mean.square(), min=0.0), count
+    return moments
+
+
+def par_expected(s: int) -> dict:
+    """The launches per rank, worked out from ROWS' routes before the run:
+    a spatial call whose N and M divide by s is partitioned (one knn_mr
+    call on the gather; on the ring s knn_topk calls and s + 1 row
+    normalizations, the queries' and each shard's), a label call whose M
+    divides takes one knn_topk call and two normalizations (the label
+    queries' and the target block's); anything else one knn_mr call."""
+    spatial = [(n, m, c) for (_, n, m, _, _, _, _, c, dt, tg) in ROWS
+               if dt == "bf16" and tg != "labels"]
+    labels = [(n, m, c) for (_, n, m, _, _, _, _, c, dt, tg) in ROWS
+              if dt == "bf16" and tg == "labels"]
+    part = sum(c for n, m, c in spatial if n % s == 0 and m % s == 0)
+    whole = sum(c for n, m, c in spatial) - part
+    lab = sum(c for n, m, c in labels if m % s == 0)
+    lab_whole = sum(c for n, m, c in labels) - lab
+    return dict(
+        gather=dict(knn_mr=part + whole + lab_whole, knn_topk=lab,
+                    knn_mr_normalize=2 * lab),
+        ring=dict(knn_mr=whole + lab_whole, knn_topk=s * part + lab,
+                  knn_mr_normalize=(s + 1) * part + 2 * lab),
+        backward=part + whole + lab_whole)
+
+
+def par_counts_are(counts: dict, want: dict) -> bool:
+    return all(counts[key] == value for key, value in want.items())
+
+
+def par_768_rank() -> dict:
+    """(e) on one rank of a world of 4: one train step of
+    configs/gkgnet_coco_768_dist.py at its own batch on its own mesh."""
+    cfg = train_cli.load_config(PAR_768_CONFIG, [])
+    mesh = make_mesh(cfg.mesh.get("data"), cfg.mesh.get("graph", 1))
+    state = train_cli.build_train_state(cfg, 0, mesh.device, 1, False)
+    batch = cfg.data["samples_per_device"] * mesh.data
+    size, classes = cfg.model["size"], cfg.model["n_classes"]
+    rng = np.random.default_rng(0)
+    data = {"img": torch.from_numpy(rng.standard_normal(
+                (batch, size, size, 3), dtype=np.float32)),
+            "gt_label": torch.from_numpy(
+                rng.random((batch, classes)) < 0.05).float()}
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    step = make_train_step()
+    with graph_sharding(mesh):
+        t = time.perf_counter()
+        state, logs = step(state, shard_batch(data, mesh), 0)
+        torch.cuda.synchronize()
+    return dict(loss=float(logs["loss"]), batch=batch,
+                mesh=(mesh.data, mesh.graph),
+                ms=(time.perf_counter() - t) * 1e3,
+                peak_bytes=torch.cuda.max_memory_allocated(mesh.device))
+
+
+def par_nccl_rank() -> dict:
+    """(f) on an NCCL world of one rank: every collective wrapper on CUDA
+    tensors through NCCL (a world of one gives each its identity), then
+    the t@128 data-parallel step of dryrun_multichip."""
+    import torch.distributed as dist
+
+    mesh = make_mesh()
+    check(mesh.backend == "nccl", f"backend {mesh.backend}, expected nccl")
+    world = dist.group.WORLD
+    x = torch.randn((4, 6, 8), device=mesh.device).bfloat16()
+    for fn in (collectives._AllGather, collectives._ScatterRows,
+               collectives._GatherRows):
+        xr = x.clone().requires_grad_()
+        y = fn.apply(xr, world, 1)
+        y.float().sum().backward()
+        check(torch.equal(y, x) and bool((xr.grad == 1).all()),
+              f"{fn.__name__} on NCCL")
+    for fn in (collectives._AllReduce, collectives._AllReduceReplicated):
+        xr = x.clone().requires_grad_()
+        y = fn.apply(xr, world)
+        y.float().sum().backward()
+        check(torch.equal(y, x) and bool((xr.grad == 1).all()),
+              f"{fn.__name__} on NCCL")
+    t = x.float().clone()
+    collectives.reduce_mean_([t], world, 1)
+    collectives.broadcast_(t, 0)
+    check(torch.equal(t, x.float()), "reduce_mean_ / broadcast_ on NCCL")
+    out = entry_mod.dryrun_rank("t128", 2, 1, False, graph=1)
+    return dict(backend=mesh.backend, loss=out["loss"][0])
+
+
+def parallel_phase(smi: str, ref_logits: torch.Tensor,
+                   ref_step1: tuple) -> dict:
+    """Phase 13 (a), (b), (c), (e), (f); (d) runs in phase 9's directory
+    (parallel_cli_phase). Returns (c)'s launch counts."""
+    t0 = time.perf_counter()
+    log(f"parallel ({smi}): worlds of ranks spawned on this one card over "
+        f"gloo (pinned host buffers; NCCL refuses two ranks on one device): "
+        f"ranks sharing one card measure the partition's overhead, not its "
+        f"scaling")
+    # (a) + (b): one world of 2 (data 1, graph 2)
+    t = time.perf_counter()
+    res = spawn.run_world(par_calls_rank, PAR_GRAPH, (ROWS, BG),
+                          device="cuda", timeout_s=PAR_TIMEOUT_S)
+    log(f"parallel (a)+(b): world {PAR_GRAPH}, mesh data 1 x graph "
+        f"{PAR_GRAPH}, transport {res[0]['backend']}, rank devices "
+        f"{[r['device'] for r in res]}; {time.perf_counter() - t:.1f} s")
+    for i, row in enumerate(res[0]["rows"]):
+        rank_ms = [r["rows"][i]["ms"] for r in res]
+        row = dict(row, ms=max(rank_ms), ms_per_rank=rank_ms,
+                   launches_per_rank=[r["rows"][i]["launches"]
+                                      for r in res])
+        row.pop("launches")
+        print(f"par_row {json.dumps(row)}", flush=True)
+    log(f"parallel (a) ({smi}): {len(res[0]['rows'])} calls at the s@576 "
+        f"stage and label shapes (BG {BG}, bf16): idx and mr bitwise the "
+        f"unpartitioned kernel's for the gather, ring and label-sharded "
+        f"builds; each gather shard's backward gx bitwise -g, gy summed "
+        f"over the graph group within {PAR_GY_REL:.3g} of the magnitudes")
+    want = par_expected(PAR_GRAPH)
+    fp32_ref = par_fp32_grads()
+    for r in res:
+        check(torch.equal(r["logits"], ref_logits.float()),
+              f"parallel (b) rank {r['rank']}: logits differ from the "
+              f"single-process forward's (max |diff| "
+              f"{(r['logits'] - ref_logits.float()).abs().max().item()})")
+        check(r["loss"] == ref_step1[0], f"parallel (b) rank {r['rank']}: "
+              f"loss {r['loss']!r} against {ref_step1[0]!r}")
+        check(par_counts_are(r["fwd_counts"], want["gather"])
+              and r["step_counts"]["knn_mr_backward"] == want["backward"],
+              f"parallel (b) rank {r['rank']}: counts {r['fwd_counts']} / "
+              f"{r['step_counts']}, expected {want}")
+        # bf16: printed; fp32 below holds the same backward
+        gaps = sorted(par_leaf_gaps(r["grads"], {
+            k: v.float().cpu() for k, v in ref_step1[1].items()}).values())
+        fp32 = par_leaf_gaps(r["fp32_grads"], fp32_ref)
+        worst = max(fp32, key=fp32.get)
+        log(f"parallel (b) rank {r['rank']} ({smi}): logits bitwise the "
+            f"single-process forward's, step-1 loss {r['loss']!r} bitwise; "
+            f"the bf16 step's gradients against the single process's, "
+            f"max|diff| / max|grad| per leaf: median "
+            f"{gaps[len(gaps) // 2]:.3e}, worst {gaps[-1]:.3e}; the t@128 "
+            f"fp32 step's: median {sorted(fp32.values())[len(fp32) // 2]:.3e}"
+            f", worst {fp32[worst]:.3e} ({worst}; bound {PAR_GRAD_REL}); "
+            f"{r['fwd_ms']:.2f} ms/forward, {r['step_ms']:.2f} ms/step at "
+            f"batch 8; peak {r['peak_bytes'] / 2**30:.2f} GiB; launches "
+            f"{r['fwd_counts']} / {r['step_counts']}")
+        check(fp32[worst] <= PAR_GRAD_REL,
+              f"parallel (b) rank {r['rank']}: the fp32 graph-only "
+              f"gradients off the one-process step's by {fp32[worst]:.3e} "
+              f"of {worst}'s largest entry")
+        for key in ("grads", "fp32_grads"):
+            same = all(torch.equal(g, res[0][key][k])
+                       for k, g in r[key].items())
+            check(same, f"parallel (b) rank {r['rank']}: {key} differ from "
+                  f"rank {res[0]['rank']}'s")
+    del res
+
+    # (c): data 2 x graph 2, a world of 4
+    state, data, step = entry_mod.dryrun_state("s576", "cuda", 8)
+    data = {k: v.cuda() for k, v in data.items()}
+    own = BatchNorm._moments
+    BatchNorm._moments = par_split_moments(2)
+    ref_loss = []
+    try:
+        for _ in range(2):
+            state, logs = step(state, data, 7)
+            ref_loss.append(float(logs["loss"]))
+    finally:
+        BatchNorm._moments = own
+    del state, data, step, logs
+    torch.cuda.empty_cache()
+    log(f"parallel (c): expected launches per rank and call, from the "
+        f"routes: {json.dumps(want)}")
+    t = time.perf_counter()
+    res = entry_mod.dryrun_multichip_prod(4, device="cuda", batch=8,
+                                          steps=2, report=True)
+    log(f"parallel (c): world 4, mesh data 2 x graph 2, transport "
+        f"{res[0]['backend']}, rank devices {[r['device'] for r in res]}; "
+        f"{time.perf_counter() - t:.1f} s")
+    counts = dict(knn_mr=0, knn_mr_backward=0, knn_topk=0,
+                  knn_mr_normalize=0)
+    for r in res:
+        eg, er = r["eval_gather"], r["eval_ring"]
+        check(par_counts_are(eg["counts"], want["gather"])
+              and par_counts_are(er["counts"], want["ring"]),
+              f"parallel (c) rank {r['rank']}: eval launches "
+              f"{eg['counts']} / {er['counts']}, expected {want}")
+        for i, st in enumerate(r["steps"]):
+            c = st["counts"]
+            check(par_counts_are(c, want["gather"])
+                  and c["knn_mr_backward"] == want["backward"]
+                  and c["knn_mr_grouped"] == 0,
+                  f"parallel (c) rank {r['rank']} step {i}: launches {c}")
+            for key in counts:
+                counts[key] += c[key]
+        for key in ("knn_mr", "knn_topk", "knn_mr_normalize"):
+            counts[key] += eg["counts"][key] + er["counts"][key]
+        check(all(math.isfinite(v) for v in r["loss"])
+              and r["loss"] == res[0]["loss"],
+              f"parallel (c) rank {r['rank']}: losses {r['loss']}")
+        check(r["params_digest"] == res[0]["params_digest"],
+              f"parallel (c) rank {r['rank']}: the parameters after the "
+              f"steps differ from rank {res[0]['rank']}'s")
+        check(bool(eg["logits"].isfinite().all())
+              and torch.equal(er["logits"], eg["logits"]),
+              f"parallel (c) rank {r['rank']}: the ring's logits differ "
+              f"from the gather's")
+        log(f"parallel (c) rank {r['rank']} ({smi}): eval "
+            f"{eg['ms']:.2f} ms/forward (gather), {er['ms']:.2f} (ring); "
+            f"steps {[round(st['ms'], 2) for st in r['steps']]} ms; peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; launches per forward "
+            f"{eg['counts']} (gather), {er['counts']} (ring), per step "
+            f"{r['steps'][0]['counts']}")
+    gaps = [abs(got - ref) / abs(ref)
+            for got, ref in zip(res[0]["loss"], ref_loss)]
+    log(f"parallel (c): the parameters after the steps bitwise alike on "
+        f"the 4 ranks; step losses {res[0]['loss']!r} against the "
+        f"one-process steps' {ref_loss!r} (moments summed by data rank): "
+        f"relative gaps {[f'{g:.3e}' for g in gaps]} (step 1's tolerance "
+        f"{PAR_LOSS_RTOL}; step 2's printed: it follows step 1's bf16 "
+        f"update, whose gradients differ from the one process's and from "
+        f"run to run, see (b); the fp32 world below holds the update)")
+    check(gaps[0] <= PAR_LOSS_RTOL, f"parallel (c): step-1 loss gap "
+          f"{gaps[0]:.3e}")
+    del res
+
+    # (c) in fp32 and (f), NCCL in a world of one rank, alongside (e) (the
+    # worlds' starts overlap; their t@128 steps are slivers of (e)'s)
+    dp_ref = par_fp32_grads(moments_parts=2)
+    pool = ThreadPoolExecutor(2)
+    dp = pool.submit(spawn.run_world, par_fp32_dp_rank, 4, device="cuda",
+                     timeout_s=PAR_TIMEOUT_S)
+    nccl = pool.submit(spawn.run_world, par_nccl_rank, 1, device="cuda",
+                       backend="nccl", timeout_s=PAR_TIMEOUT_S)
+    # (e): configs/gkgnet_coco_768_dist.py, a world of 4, not a gate
+    t = time.perf_counter()
+    try:
+        res = spawn.run_world(par_768_rank, 4, device="cuda",
+                              timeout_s=PAR_TIMEOUT_S)
+        log(f"parallel (e) ({smi}): configs/gkgnet_coco_768_dist.py, mesh "
+            f"{res[0]['mesh']}, batch {res[0]['batch']}: loss "
+            f"{res[0]['loss']:.6g}, {max(r['ms'] for r in res):.1f} ms for "
+            f"the first step (with (c)'s fp32 and (f)'s worlds on the "
+            f"card); peak "
+            f"per rank {[round(r['peak_bytes'] / 2**30, 2) for r in res]} "
+            f"GiB")
+    except RuntimeError as err:
+        last = str(err).strip().splitlines()[-1]
+        log(f"parallel (e) ({smi}): configs/gkgnet_coco_768_dist.py: the "
+            f"four ranks did not fit on one card ({last}); "
+            f"{time.perf_counter() - t:.1f} s")
+    finally:
+        pool.shutdown(wait=True)
+    res = {r["coords"]: r for r in dp.result()}
+    for (d, g), r in res.items():
+        check(all(torch.equal(a, b) for a, b in
+                  zip(r["before"], res[(d, 1 - g)]["before"])),
+              f"parallel (c) fp32: data rank {d}'s graph ranks entered the "
+              f"data mean with different gradients")
+        want = [(a + b) / 2 for a, b in zip(res[(0, g)]["before"],
+                                            res[(1, g)]["before"])]
+        check(all(torch.equal(a, b) for a, b in zip(r["after"], want)),
+              f"parallel (c) fp32: rank {(d, g)}'s gradients after the "
+              f"data mean are not the data ranks' mean")
+        check(all(torch.equal(t, res[(0, 0)]["grads"][k])
+                  for k, t in r["grads"].items()),
+              "parallel (c) fp32: the 4 ranks stepped with different "
+              "gradients")
+    gaps = par_leaf_gaps(res[(0, 0)]["grads"], dp_ref)
+    worst = max(gaps, key=gaps.get)
+    log(f"parallel (c) fp32 ({smi}): t@128 on data 2 x graph 2, global "
+        f"batch {PAR_FP32_BATCH}: each data rank's graph ranks entered the "
+        f"train step's data mean with bitwise-equal gradients, left it with "
+        f"the data ranks' mean bitwise, and stepped alike; against the "
+        f"one-process step's (moments summed by data rank; batch 4 against "
+        f"the ranks' 2, so other convolution algorithms), max|diff| / "
+        f"max|grad| per leaf: median "
+        f"{sorted(gaps.values())[len(gaps) // 2]:.3e}, worst "
+        f"{gaps[worst]:.3e} ({worst}), printed")
+    res = nccl.result()
+    check(math.isfinite(res[0]["loss"]), f"parallel (f): {res[0]}")
+    log(f"parallel (f): an NCCL world of one rank: every collective wrapper "
+        f"on CUDA tensors, then the t@128 step (loss {res[0]['loss']:.6g})")
+    log(f"parallel: phase 13 (a)-(c), (e), (f) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def torchrun(nproc: int, module: str, args: list, timeout_s: float
+             ) -> subprocess.CompletedProcess:
+    """``python -m torch.distributed.run --standalone`` of a port module;
+    the launcher's process group is killed at ``timeout_s``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", module, *args]
+    env = dict(os.environ, PYTHONPATH=REPO_DIR)
+    proc = subprocess.Popen(cmd, cwd=REPO_DIR, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise RuntimeError(f"{module} on {nproc} ranks outlasted "
+                           f"{timeout_s:.0f} s")
+    check(proc.returncode == 0, f"{module} on {nproc} ranks exited "
+          f"{proc.returncode}:\n{err[-3000:]}")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def parallel_cli_phase(root: str, cli: dict, smi: str) -> None:
+    """Phase 13 (d), in phase 9's directory: the train CLI through
+    torch.distributed.run on 4 ranks (data 2 x graph 2) for an epoch of
+    PAR_CLI_IMAGES of phase 9's images, then the test CLI on 4 ranks and on
+    1 rank on its checkpoint: the scores in dataset order, their largest
+    gap, the mAPs."""
+    t0 = time.perf_counter()
+    data = cli["data"]
+    with open(os.path.join(data, "train.data"), "rb") as f:
+        records = pickle.load(f)
+    small = os.path.join(data, f"train{PAR_CLI_IMAGES}.data")
+    with open(small, "wb") as f:
+        pickle.dump(records[:PAR_CLI_IMAGES], f)
+    options = [o for o in cli["options"]
+               if not o.startswith("data.train.dataset.ann_file=")]
+    # the epoch-seeded DistributedSampler: RepeatAugSampler keeps
+    # multiples of 256 images, none of PAR_CLI_IMAGES
+    options += [f"data.train.dataset.ann_file={small}",
+                "data.samples_per_device=4", "data.loader_mode=threads",
+                "sampler.type=None"]
+    mesh = ["mesh.data=2", "mesh.graph=2"]
+    work = os.path.join(root, "work_parallel")
+    t = time.perf_counter()
+    torchrun(4, "gkgnet_tpu_torch.tools.train",
+             [CLI_CONFIG, "--work-dir", work, "--seed", "0",
+              "--cfg-options", *options, *mesh, "runner.max_epochs=1",
+              # no eval in the epoch (the test CLI below scores the set);
+              # a train record for every step
+              "evaluation.interval=2", "checkpoint_config.interval=1",
+              "log_config.interval=1"],
+             PAR_TIMEOUT_S)
+    train_s = time.perf_counter() - t
+    logs = [f for f in os.listdir(work) if f.endswith(".log.json")]
+    check(len(logs) == 1, f"parallel (d): {logs}")
+    with open(os.path.join(work, logs[0])) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["mode"] == "train"]
+    check(steps and all(math.isfinite(r["loss"]) for r in steps),
+          f"parallel (d): records {records}")
+    with open(os.path.join(work, [f for f in os.listdir(work)
+                                  if f.endswith(".log")][0])) as f:
+        text = f.read()
+    epoch = re.search(r"(\d+) steps in [0-9.]+ s \(([0-9.]+) ms/step\)",
+                      text)
+    check(epoch is not None, "parallel (d): no epoch line in the log")
+    log(f"parallel (d) ({smi}): train CLI on 4 ranks (data 2 x graph 2, "
+        f"global batch 8) in {train_s:.1f} s with the launch: "
+        f"{epoch.group(1)} steps, {epoch.group(2)} ms/step, train loss "
+        f"{steps[-1]['loss']:.6g}")
+    ckpt = os.path.join(work, "checkpoints")
+    out4 = os.path.join(root, "scores_par4.pkl")
+    m4 = os.path.join(root, "metrics_par4.json")
+    t = time.perf_counter()
+    torchrun(4, "gkgnet_tpu_torch.tools.test",
+             [CLI_CONFIG, ckpt, "--out", out4, "--metrics-out", m4,
+              "--cfg-options", *options, *mesh], PAR_TIMEOUT_S)
+    test4_s = time.perf_counter() - t
+    with open(out4, "rb") as f:
+        scores4 = pickle.load(f)
+    with open(m4) as f:
+        metrics4 = json.load(f)
+    metrics1, scores1 = test_cli.main(
+        [CLI_CONFIG, ckpt, "--cfg-options", *options])
+    check(scores4.shape == scores1.shape == (cli["n_val"], 80),
+          f"parallel (d): scores {scores4.shape} / {scores1.shape}")
+    gap = float(np.abs(scores4 - scores1).max())
+    diff = abs(metrics4["mAP"] - metrics1["mAP"])
+    log(f"parallel (d) ({smi}): test CLI on 4 ranks in {test4_s:.1f} s with "
+        f"the launch: scores in dataset order, largest gap to the 1-rank "
+        f"CLI's {gap:.3e}; mAP {metrics4['mAP']:.4f} against "
+        f"{metrics1['mAP']:.4f} (|diff| {diff}, tolerance "
+        f"{PAR_CLI_MAP_TOL}); {time.perf_counter() - t0:.1f} s")
+    check(diff <= PAR_CLI_MAP_TOL, f"parallel (d): mAP |diff| {diff}")
+
+
 def per_step(rows: list[dict], calls_key: str) -> dict:
     """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
     and the bound that holds for the larger part of that bound_ms."""
@@ -2906,7 +3590,8 @@ def main() -> int:
     compare_fp32_grapher()
 
     # 7. the grouped path; 8. the phases
-    grouped = grouped_phase(ref_logits, train.pop("step1"))
+    step1 = train.pop("step1")
+    grouped = grouped_phase(ref_logits, step1)
     phase = phases_phase()
 
     # 9. the config-driven CLIs; 10. the serving path on their checkpoint;
@@ -2919,6 +3604,11 @@ def main() -> int:
     # model features
     arch_b = arch_b_phase(smi)
     b_fwd, b_bwd = arch_b["launches"]
+
+    # 13. data and graph parallelism: worlds of ranks on this card ((d), the
+    # CLIs on a world of ranks, ran in phase 9's directory)
+    par = parallel_phase(smi, ref_logits, step1)
+    del step1
 
     # result lines
     fwd = per_step(rows, "calls_per_forward")
@@ -2937,10 +3627,11 @@ def main() -> int:
         # (PreciseBN, inference, the artifacts' forwards, the deployment
         # test, both servers' requests), the VOC path (16 steps, val,
         # the test CLI, the tools, the test CLI on the imported weights)
-        # and phase 12 (arch b eval and train, the ungrouped backbone, the
-        # features config's knn steps)
+        # phase 12 (arch b eval and train, the ungrouped backbone, the
+        # features config's knn steps) and phase 13 (c) (the 4 ranks' eval
+        # forward and 2 steps on the gather schedule)
         "launches": eval_launches + train_fwd + cli_fwd + served["launches"]
-        + voc_fwd + b_fwd,
+        + voc_fwd + b_fwd + par["knn_mr"],
         "max_abs_err": max(r["max_abs_err"] for r in
                            rows + voc["rows"] + arch_b["rows"]),
         # per forward at batch 8: the sum over the 16 calls' shapes
@@ -2955,8 +3646,10 @@ def main() -> int:
         "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
         # the train path, the CLI path, the VOC path (16 steps and
-        # vis_cam's saliency) and phase 12
-        "launches": train_bwd + cli_bwd + voc_bwd + b_bwd,
+        # vis_cam's saliency), phase 12 and phase 13 (c) (2 steps on 4
+        # ranks)
+        "launches": train_bwd + cli_bwd + voc_bwd + b_bwd
+        + par["knn_mr_backward"],
         # largest |gy - the ordered plain version's gy| over the rows (0:
         # bitwise; the rows print |gy - exact fp64 sum| as fp64_err)
         "max_abs_err": max(r["max_abs_err"] for r in
@@ -2974,8 +3667,9 @@ def main() -> int:
         "source": "gkgnet_tpu_torch/csrc/knn_topk.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_topk.py:140",
         # the Grapher path: 4 aggregators x 9 blocks x (eval + train) and
-        # the 3 stochastic 'mr' blocks in train
-        "launches": graph["launches"],
+        # the 3 stochastic 'mr' blocks in train; phase 13 (c): the 4 ranks'
+        # label-sharded builds and ring schedule
+        "launches": graph["launches"] + par["knn_topk"],
         # largest |distance - fp64 distance| over the rows' checked values
         # (phase 3's and phase 12's D = 1024 rows)
         "max_abs_err": max(r["max_abs_err"]

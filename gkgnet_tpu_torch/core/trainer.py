@@ -17,12 +17,29 @@ finite steps in a row double it; a step with a non-finite gradient halves
 it (not below 1), zeroes the gradients and skips the update, and the
 BatchNorm statistics keep their values from before the step.
 
+Under ``parallel.sharding.graph_sharding`` over a world of more than one
+rank, each rank's step runs on its own rows of the global batch (the
+per-sample draws are taken for the global batch, each rank keeping its
+rows, and BatchNorm reduces its moments over the data group). After the
+backward every rank of a graph group holds the same gradients (the graph
+convs' boundary operators sum or gather their parts over the group, and
+the layers around them run on the same inputs with cuDNN's deterministic
+algorithms: its default fp32 convolution backward sums in an order that
+changes from run to run on an H100), so the gradients are averaged over
+the data group only, one all-reduce where the data axis is above 1, and
+the ranks' parameters stay alike. The logged losses are averaged over the
+data group.
+Clipping, the optimizer, the loss scaler's finite check and the EMA then
+see the same values on every rank. Batch augments mix rows within a rank's
+own shard.
+
 The EMA follows MyEMAHook: ``m = min(momentum, (1 + t) / (warmup + t))``
 at step t, ``ema = (1 - m) * ema + m * param``, over the parameters only.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
@@ -33,6 +50,8 @@ from torch import nn
 from gkgnet_tpu_torch.core.optim import Optimizer, global_norm
 from gkgnet_tpu_torch.nn.classifier import parse_losses
 from gkgnet_tpu_torch.nn.layers import BatchNorm
+from gkgnet_tpu_torch.parallel import collectives
+from gkgnet_tpu_torch.parallel.sharding import active_graph_cfg
 
 
 @dataclass
@@ -83,6 +102,18 @@ def ema_update(ema_params: dict[str, torch.Tensor], model: nn.Module,
                         alpha=m)
 
 
+@contextlib.contextmanager
+def _deterministic_convs(on: bool):
+    """cuDNN's deterministic algorithms inside the block when ``on``."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.deterministic
+    cudnn.deterministic = before or on
+    try:
+        yield
+    finally:
+        cudnn.deterministic = before
+
+
 def make_train_step(loss_fn: Callable | None = None,
                     ema_momentum: float | None = None, ema_warmup: int = 100,
                     dynamic_loss_scale: bool = False,
@@ -112,17 +143,22 @@ def make_train_step(loss_fn: Callable | None = None,
         imgs, gt = batch["img"], batch["gt_label"]
         if batch_augment is not None:
             imgs, gt = batch_augment(imgs, gt, gen)
-        cls_score, _ = model(imgs, generator=gen)
-        head_loss = loss_fn or model.build_loss_head().loss
-        total, log_vars = parse_losses(head_loss(cls_score, gt))
-        if dynamic_loss_scale:
-            (total * state.loss_scale).backward()
-        else:
-            total.backward()
+        cfg = active_graph_cfg()
+        with _deterministic_convs(cfg is not None and cfg.mesh.graph > 1):
+            cls_score, _ = model(imgs, generator=gen)
+            head_loss = loss_fn or model.build_loss_head().loss
+            total, log_vars = parse_losses(head_loss(cls_score, gt))
+            if dynamic_loss_scale:
+                (total * state.loss_scale).backward()
+            else:
+                total.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if cfg is not None and cfg.mesh.data > 1:
+            collectives.reduce_mean_(grads, cfg.mesh.data_group,
+                                     cfg.mesh.data)
 
         finite = True
         if dynamic_loss_scale:
@@ -144,6 +180,10 @@ def make_train_step(loss_fn: Callable | None = None,
                        ema_warmup)
 
         log_vars = {k: v.detach() for k, v in log_vars.items()}
+        if cfg is not None and cfg.mesh.data > 1:
+            log_vars = {k: v.clone() for k, v in log_vars.items()}
+            collectives.reduce_mean_(list(log_vars.values()),
+                                     cfg.mesh.data_group, cfg.mesh.data)
         log_vars["grad_norm"] = grad_norm
         log_vars["lr"] = state.optimizer.lr(state.step)
         if dynamic_loss_scale:

@@ -48,7 +48,7 @@
 //      of the raw row, divide by max(norm, 1e-12), round to the input type
 //      (the contract of gkgnet_tpu/ops/knn.py l2_normalize), then the fp32
 //      sum of squares of the rounded row. Written to scratch the caller
-//      owns.
+//      owns. knn_l2norm launches it alone.
 //   2. knn_mr_kernel: the block walks the targets in tiles of kTile rows,
 //      staged transposed in shared memory as fp32. Each lane computes the
 //      distances of its 2 columns of the tile,
@@ -912,6 +912,19 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
   });
 }
 
+// The forward's first kernel alone on rows of x (the edge-partitioned
+// builds normalize the rows they pass to knn_topk with it).
+template <typename T>
+cudaError_t normalize(const void* x, void* xn, void* xsq, long long rows,
+                      int d, cudaStream_t stream) {
+  const long long blocks = (rows + kWarps - 1) / kWarps;
+  l2norm_rows<T, false><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(xn),
+      static_cast<float*>(xsq), rows, nullptr, nullptr, nullptr, 0, d, 0, 0,
+      1);
+  return cudaGetLastError();
+}
+
 template <typename T, int KDM, int kPhase>
 cudaError_t launch_phase(const void* x, const void* y, const void* xn,
                          const void* yn, const void* xsq, const void* ysq,
@@ -1014,6 +1027,17 @@ int knn_mr_forward_grouped(const void* x, const void* y, const void* bias,
   return forward<float, true>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n,
                               m, d, k, dilation, bias_mode, y_is_x, groups,
                               s);
+}
+
+// x (rows, d) raw rows of one type (is_bf16: bfloat16, else float32),
+// contiguous; xn (rows, d) the rows L2-normalized exactly as the forward
+// normalizes them before its distances (l2norm_rows), xsq (rows) fp32
+// scratch. Returns a cudaError_t code.
+int knn_l2norm(const void* x, void* xn, void* xsq, long long rows, int d,
+               int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return normalize<__nv_bfloat16>(x, xn, xsq, rows, d, s);
+  return normalize<float>(x, xn, xsq, rows, d, s);
 }
 
 // The phase tool's pieces of the forward. phase: 0 dist, 1 sel, 2 gfix,

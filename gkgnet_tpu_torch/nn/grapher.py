@@ -8,6 +8,17 @@ C/g-dim features. After the aggregate the groups are unfolded and, for 'mr'
 and 'gat', the centre and aggregate features are channel-interleaved before
 the grouped 1x1 conv.
 
+Under an active graph axis (``parallel.sharding.graph_sharding`` over a
+mesh with graph > 1) the fused 'mr' route splits its work over the graph
+group, as the JAX package's does: a spatial conv whose queries and targets
+divide by the axis takes this rank's block of the queries against the
+whole targets every rank holds (``parallel.edge_partition.
+replicated_targets_knn_mr``, the gather schedule) or, with ``overlap``,
+against its block of the targets (``edge_partitioned_knn_mr``'s ring), a
+label conv ``label_sharded_knn_mr`` on its block of the targets
+(``replicated_knn_mr`` where they do not divide); the grouped route stays
+off and the perturbed build is not partitioned.
+
 Three routes, chosen as the JAX package chooses them:
   * the 'mr' aggregator outside stochastic training goes through
     ``knn_mr_fused``: the fused CUDA kernel for CUDA tensors, its plain
@@ -48,6 +59,9 @@ from gkgnet_tpu_torch.ops.aggregate import (fold_groups, gather_nodes,
 from gkgnet_tpu_torch.ops.knn import dilate_edges, knn_graph
 from gkgnet_tpu_torch.ops.knn_mr import knn_mr_fused, knn_mr_fused_grouped
 from gkgnet_tpu_torch.ops.perturbed_topk import soft_knn_gather
+from gkgnet_tpu_torch.parallel import edge_partition
+from gkgnet_tpu_torch.parallel.sharding import (active_graph_cfg,
+                                                graph_axis_size, shard_nodes)
 
 CONVS = ("mr", "edge", "sage", "gin", "gat")
 GRAPH_BUILDERS = ("knn", "perturbed")
@@ -161,8 +175,46 @@ def _fused_route(conv: nn.Module) -> bool:
 
 
 def _grouped_route(conv: nn.Module) -> bool:
-    """Whether a graph conv takes the fold-aware fused route."""
-    return _fused_route(conv) and conv.num_group > 1 and _grouped_enabled()
+    """Whether a graph conv takes the fold-aware fused route (never under a
+    graph axis above 1, as in the JAX package)."""
+    return (_fused_route(conv) and conv.num_group > 1 and _grouped_enabled()
+            and graph_axis_size() == 1)
+
+
+def _partitioned_route(conv: nn.Module, n: int, m: int) -> bool:
+    """Whether a spatial graph conv with n queries and m targets splits its
+    queries over an active graph axis: the fused 'mr' route, with n and m
+    dividing by the axis (``gkgnet_tpu/nn/grapher.py``'s condition; each
+    rank holds its own batch rows, so the batch always divides)."""
+    gs = graph_axis_size()
+    return gs > 1 and _fused_route(conv) and n % gs == 0 and m % gs == 0
+
+
+def _run_partitioned(conv: nn.Module, xn: torch.Tensor,
+                     y: torch.Tensor | None, bias: torch.Tensor | None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The edge-partitioned build of folded queries xn ``(BG, N, D)`` and
+    targets y (None: self-kNN), both whole on every rank: this rank's block
+    of the queries in, the whole ``(idx, maxrel)`` out
+    (``parallel.sharding.shard_nodes``). The gather schedule takes the
+    whole targets as they are; the ring passes this rank's block of them
+    round the group."""
+    cfg = active_graph_cfg()
+    x_l = shard_nodes(xn, "queries")
+    bias_l = None
+    if bias is not None:
+        n_l = x_l.shape[1]
+        first = cfg.mesh.graph_rank * n_l
+        bias_l = bias[..., first:first + n_l, :]
+    if cfg.overlap:
+        idx, maxrel = edge_partition.edge_partitioned_knn_mr(
+            cfg.mesh, x_l, None if y is None else shard_nodes(y, "targets"),
+            bias_l, k=conv.k, dilation=conv.dilation, overlap=True)
+    else:
+        idx, maxrel = edge_partition.replicated_targets_knn_mr(
+            cfg.mesh, x_l, xn if y is None else y, bias_l, k=conv.k,
+            dilation=conv.dilation)
+    return shard_nodes(idx, "edges"), shard_nodes(maxrel, "nodes")
 
 
 def _run_grouped(conv: nn.Module, x: torch.Tensor, y: torch.Tensor,
@@ -241,7 +293,11 @@ class SpatialGraphConv(nn.Module):
             return out.reshape(b, h, w, self.out_channels), idx
         xn = fold_groups(x_nodes, g)
         y = None if y_nodes is None else fold_groups(y_nodes, g)
-        idx, maxrel = _build_edges(self, xn, y, rel_pos, generator)
+        if _partitioned_route(self, xn.shape[1],
+                              xn.shape[1] if y is None else y.shape[1]):
+            idx, maxrel = _run_partitioned(self, xn, y, rel_pos)
+        else:
+            idx, maxrel = _build_edges(self, xn, y, rel_pos, generator)
         out = self.gconv(xn, idx, y, maxrel)
         return out.reshape(b, h, w, self.out_channels), idx
 
@@ -278,7 +334,21 @@ class LabelGraphConv(nn.Module):
         g = self.num_group
         xn = fold_groups(labels, g)                   # (B*g, L, C/g)
         yn = fold_groups(feats, g)                    # (B*g, N, C/g)
-        idx, maxrel = _build_edges(self, xn, yn, None, generator)
+        gs = graph_axis_size()
+        if gs > 1 and _fused_route(self):
+            # the label queries stay whole: the targets split over the
+            # graph axis where they divide, else the whole build on every
+            # rank
+            mesh = active_graph_cfg().mesh
+            if yn.shape[1] % gs == 0:
+                idx, maxrel = edge_partition.label_sharded_knn_mr(
+                    mesh, xn, shard_nodes(yn, "targets"), k=self.k,
+                    dilation=self.dilation)
+            else:
+                idx, maxrel = edge_partition.replicated_knn_mr(
+                    mesh, xn, yn, k=self.k, dilation=self.dilation)
+        else:
+            idx, maxrel = _build_edges(self, xn, yn, None, generator)
         return self.gconv(xn, idx, yn, maxrel), idx
 
 

@@ -16,7 +16,8 @@ from a seeded generator.
     hswish.
   * ``Stem``/``Downsample``: 3x3 convolutions on NHWC tensors.
   * ``DropPath``: per-sample stochastic depth on a residual branch, drawn
-    from a ``torch.Generator`` the caller passes in.
+    from a ``torch.Generator`` the caller passes in (for the global batch
+    under data parallelism, each rank keeping its rows).
 """
 
 from __future__ import annotations
@@ -27,37 +28,63 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gkgnet_tpu_torch.parallel import collectives, sharding
+
 
 class BatchNorm(nn.Module):
     """Batch normalization over all axes but the last. In train mode it
     normalizes with the biased batch variance ``mean(x^2) - mean(x)^2``
     (clamped at 0, in fp32, as the JAX package computes it) and moves the
     running statistics by momentum 0.1 towards the batch mean and the
-    unbiased batch variance; in eval mode it uses the running statistics."""
+    unbiased batch variance; in eval mode it uses the running statistics.
+
+    Over a process group of more than one rank (``process_group``, else the
+    data group of an active ``parallel.sharding.graph_sharding``), the
+    train-mode moments are the global batch's (SyncBN, the JAX package's
+    ``axis_name`` path): one all-reduce of the sums, the sums of squares and
+    the count, whose backward all-reduces their gradients."""
 
     momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, process_group=None):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def _moments(self, x32: torch.Tensor):
+        """``(mean, biased var, count)`` of the batch, over the group."""
+        axes = tuple(range(x32.dim() - 1))
+        count = x32.numel() // x32.shape[-1]
+        group = self.process_group if self.process_group is not None \
+            else sharding.data_group()
+        if collectives.group_size(group) == 1:
+            mean = x32.mean(dim=axes)
+            mean_sq = x32.square().mean(dim=axes)
+        else:
+            c = x32.shape[-1]
+            sums = collectives.all_reduce(torch.cat([
+                x32.sum(dim=axes), x32.square().sum(dim=axes),
+                x32.new_full((1,), float(count))]), group)
+            count = sums[2 * c]
+            mean, mean_sq = sums[:c] / count, sums[c:2 * c] / count
+        return mean, torch.clamp(mean_sq - mean.square(), min=0.0), count
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(dim=axes)
-            var = torch.clamp(x32.square().mean(dim=axes) - mean.square(),
-                              min=0.0)
-            count = x.numel() // x.shape[-1]
+            mean, var, count = self._moments(x32)
             with torch.no_grad():
                 m = self.momentum
-                unbiased = var * (count / max(count - 1, 1))
+                # the count is a tensor after a group's all-reduce
+                unbiased = var * (count / max(count - 1, 1)
+                                  if isinstance(count, int)
+                                  else count / (count - 1).clamp(min=1))
                 self.running_mean.mul_(1.0 - m).add_(m * mean)
                 self.running_var.mul_(1.0 - m).add_(m * unbiased)
         else:
@@ -85,8 +112,11 @@ class DropPath(nn.Module):
         if generator is None:
             raise ValueError("DropPath in train mode needs a generator")
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        # drawn for the global batch; this rank keeps its own rows
+        rows, first = sharding.global_rows(x.shape[0])
+        shape = (rows,) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device)[
+            first:first + x.shape[0]] < keep
         return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 

@@ -41,9 +41,13 @@ ascending edge id), and raise if they cannot; on a CPU tensor they run
 ``knn_mr_backward_reference`` and ``knn_mr_grouped_backward_reference``,
 the plain PyTorch versions of the same functions.
 ``knn_mr_backward_ordered_reference`` is the plain backward with the
-kernel's summation order, a check. ``launches``, ``grouped_launches`` and
-``backward_launches`` count the kernels' launches (one backward launch per
-call, folded or grouped).
+kernel's summation order, a check. ``launch_normalize`` launches the
+forward's row normalization (``l2norm_rows``) alone: rows normalized bit
+for bit as the fused forward normalizes them, for the edge-partitioned
+builds that rank rows with ``knn_topk``. ``launches``,
+``grouped_launches``, ``backward_launches`` and ``normalize_launches``
+count the kernels' launches (one backward launch per call, folded or
+grouped).
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ from gkgnet_tpu_torch.ops.knn import (dilate_edges, knn_topk_reference,
 launches = 0
 grouped_launches = 0
 backward_launches = 0
+normalize_launches = 0
 
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
 MAX_BWD_K = 64  # largest k of the backward kernel's per-channel tie masks
@@ -90,6 +95,10 @@ def _lib() -> ctypes.CDLL:
         lib.knn_mr_error_string.restype = ctypes.c_char_p
         lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.knn_mr_smem_bytes.restype = ctypes.c_longlong
+        lib.knn_l2norm.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
+        lib.knn_l2norm.restype = ctypes.c_int
     return lib
 
 
@@ -210,6 +219,30 @@ def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
     _raise_on(err, lib, "knn_mr kernel")
     launches += 1
     return idx, mr, xn, yn
+
+
+def launch_normalize(x: torch.Tensor) -> torch.Tensor:
+    """Launch the forward's row normalization alone on a CUDA tensor x
+    ``(..., D)``, bfloat16 or float32: its rows L2-normalized in x's type,
+    bit for bit the rows ``launch`` computes its distances from."""
+    global normalize_launches
+    if not x.is_cuda or x.dtype not in _DTYPES:
+        raise ValueError(f"launch_normalize takes a bfloat16 or float32 "
+                         f"CUDA tensor, got {x.dtype} on {x.device}")
+    x = x.contiguous()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    xn = torch.empty_like(x)
+    xsq = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.knn_l2norm(x.data_ptr(), xn.data_ptr(), xsq.data_ptr(),
+                             rows, d, int(x.dtype == torch.bfloat16),
+                             stream)
+    _raise_on(err, lib, "knn_mr normalize kernel")
+    normalize_launches += 1
+    return xn
 
 
 def _check_grouped(x: torch.Tensor, y: torch.Tensor,

@@ -1,8 +1,26 @@
-"""Training CLI (counterpart: ``tools/train.py``): one card, a config file,
-the same work-dir layout and JSON log keys.
+"""Training CLI (counterpart: ``tools/train.py``): a config file, the same
+work-dir layout and JSON log keys, on one card or a world of ranks.
 
     python -m gkgnet_tpu_torch.tools.train configs/gkgnet_coco_576.py --ema
     python -m gkgnet_tpu_torch.tools.train CONFIG --device cpu   # on the CPU
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m gkgnet_tpu_torch.tools.train CONFIG --cfg-options mesh.graph=2
+    gkgnet_tpu_torch/tools/dist_train.sh CONFIG 4 [args]       # the same
+
+Under ``torch.distributed.run`` (or with ``--multihost``, from the same
+environment on several hosts) every rank joins the world
+(``parallel.mesh.init_distributed``: NCCL where each local rank has a card
+of its own, else gloo) and the config's ``mesh = dict(data=None, graph=1)``
+lays the ranks out (``data=None`` fills the world). Rank 0 draws the seed
+when none is given and sends it to the others; each rank's loader takes
+the rows of its DATA rank (``DistributedSampler`` with ``num_replicas`` the
+data size), so the graph ranks of a data group load the same images; the
+global batch is ``samples_per_device`` times the data size; every step runs
+under ``parallel.sharding.graph_sharding`` (``mesh.overlap`` selects the
+ring schedule). The val-loss pass and the evaluations shard the set by data
+rank and reassemble the scores in dataset order, so the metrics are the
+same on every rank; logs, TensorBoard and checkpoints come from rank 0,
+and a resume loads on every rank.
 
 The work dir gets ``<timestamp>.log``, ``<timestamp>.log.json`` (records
 ``train``, ``val_loss`` and ``val``, as the JAX CLI writes them),
@@ -21,11 +39,13 @@ summary of the run's timings for callers in the same process.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gkgnet_tpu_torch import native
 from gkgnet_tpu_torch.core.builder import build_dataset, build_model
@@ -43,13 +63,17 @@ from gkgnet_tpu_torch.core.trainer import (TrainState, create_train_state,
 from gkgnet_tpu_torch.data.loader import build_dataloader, prefetch_to_device
 from gkgnet_tpu_torch.entry import resolve_device
 from gkgnet_tpu_torch.nn.classifier import init_parameters, parse_losses
+from gkgnet_tpu_torch.parallel.mesh import (Mesh, destroy, init_distributed,
+                                            make_mesh, replicate_state)
+from gkgnet_tpu_torch.parallel.sharding import graph_sharding
 from gkgnet_tpu_torch.utils.env import collect_env
 from gkgnet_tpu_torch.utils.logging import (JsonLogWriter, ScalarMeter,
                                             close_file_handlers, get_logger)
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Train a GKGNet model on one card")
+    p = argparse.ArgumentParser(
+        description="Train a GKGNet model on one card or a world of ranks")
     p.add_argument("config")
     p.add_argument("--work-dir")
     p.add_argument("--resume-from")
@@ -61,7 +85,9 @@ def parse_args(argv=None):
     p.add_argument("--ema", action="store_true")
     p.add_argument("--max-epochs", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
-                   help="not ported: raises (one card only)")
+                   help="join the world from the torch.distributed.run "
+                        "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                        "MASTER_ADDR, MASTER_PORT) even for a world of one")
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="key=value deep overrides")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -76,14 +102,37 @@ def load_config(path: str, options: list[str]) -> Config:
     return cfg
 
 
-def check_one_card(cfg: Config, multihost: bool = False) -> None:
-    """A mesh over more than one card, or several hosts, is not ported."""
-    mesh = cfg.get("mesh") or {}
-    data, graph = mesh.get("data"), mesh.get("graph", 1)
-    if multihost or (graph or 1) > 1 or data not in (None, 1):
-        raise NotImplementedError(
-            f"mesh {mesh} / multihost={multihost}: the port runs on one card "
-            f"(data and graph parallelism: ROADMAP.md queue 1 item 7)")
+def join_world(args, cfg: Config) -> tuple[torch.device, Mesh, bool]:
+    """``(device, mesh, joined)``: under ``torch.distributed.run`` (a
+    ``WORLD_SIZE`` above 1) or ``--multihost`` this rank joins the world;
+    then the config's mesh over it (a world of one rank otherwise, where a
+    mesh over more ranks raises)."""
+    joined = args.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if args.multihost and "WORLD_SIZE" not in os.environ:
+        raise RuntimeError("--multihost joins the world from the "
+                           "torch.distributed.run environment (RANK, "
+                           "WORLD_SIZE, MASTER_ADDR, MASTER_PORT); it is "
+                           "not set")
+    if joined:
+        device = init_distributed(args.device)
+    else:
+        device = resolve_device(args.device)
+    mesh_cfg = cfg.get("mesh") or {}
+    mesh = make_mesh(mesh_cfg.get("data"), mesh_cfg.get("graph", 1),
+                     device=device)
+    return device, mesh, joined
+
+
+def broadcast_seed(seed: int | None) -> int:
+    """Rank 0's seed on every rank; rank 0 draws one when none is given
+    (the reference's init_random_seed)."""
+    if seed is None:
+        seed = int(np.random.SeedSequence().entropy % (2**31))
+    if dist.is_initialized():
+        box = [seed]
+        dist.broadcast_object_list(box, src=0)
+        seed = box[0]
+    return seed
 
 
 def dynamic_loss_scale(cfg: Config) -> bool:
@@ -133,34 +182,64 @@ def device_batches(loader, device, cfg_split: dict):
         yield batch
 
 
+def _data_shard(dataset, batch: int, cfg: Config, mesh: Mesh | None):
+    """An in-order loader of this rank's rows (indices ``r::data`` for data
+    rank r) and those rows' dataset indices."""
+    data, rank = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
+    loader = build_dataloader(dataset, batch, cfg.data.get("workers", 8),
+                              num_replicas=data, rank=rank, shuffle=False,
+                              sampler=None, seed=0, drop_last=False)
+    return loader, np.arange(len(dataset))[rank::data]
+
+
+def reassemble(parts: list[np.ndarray], n_total: int) -> np.ndarray:
+    """The data ranks' rows (rank r's: dataset indices ``r::len(parts)``)
+    in dataset order."""
+    out = np.zeros((n_total,) + parts[0].shape[1:], parts[0].dtype)
+    for r, rows in enumerate(parts):
+        out[r::len(parts)] = rows
+    return out
+
+
+def in_dataset_order(local: np.ndarray, n_total: int,
+                     mesh: Mesh | None) -> np.ndarray:
+    """This data rank's rows gathered over the data group and put back in
+    dataset order (``reassemble``); the same on every rank."""
+    if mesh is None or mesh.data == 1:
+        return local
+    parts: list = [None] * mesh.data
+    dist.all_gather_object(parts, local, group=mesh.data_group)
+    return reassemble(parts, n_total)
+
+
 def run_eval(val_ds, eval_step, state: TrainState, batch: int, cfg: Config,
-             device, split: str = "val") -> np.ndarray:
+             device, split: str = "val", mesh: Mesh | None = None
+             ) -> np.ndarray:
     """Sigmoid scores (N, n_classes) of a split's dataset, in dataset
-    order."""
-    loader = build_dataloader(val_ds, batch, cfg.data.get("workers", 8),
-                              shuffle=False, sampler=None, seed=0,
-                              drop_last=False)
+    order; over a mesh each data rank scores its rows ``r::data`` and the
+    scores are reassembled on every rank."""
+    loader, rows = _data_shard(val_ds, batch, cfg, mesh)
     chunks = [eval_step(state, b["img"]).cpu().numpy()
               for b in device_batches(loader, device, cfg.data.get(split, {}))]
     scores = np.concatenate(chunks, axis=0)
-    if len(scores) != len(val_ds):
-        raise RuntimeError(f"{len(scores)} scores for {len(val_ds)} images")
-    return scores
+    if len(scores) != len(rows):
+        raise RuntimeError(f"{len(scores)} scores for {len(rows)} images")
+    return in_dataset_order(scores, len(val_ds), mesh)
 
 
 @torch.no_grad()
 def run_val_loss(val_ds, state: TrainState, batch: int, cfg: Config,
-                 device) -> dict:
+                 device, mesh: Mesh | None = None) -> dict:
     """The val-mode loss pass (eval BatchNorm, no update) of the workflow
     [('train', 1), ('val', 1)], with the dataset's labels in loader order.
     A trailing partial batch is padded with its last image and label, and
-    its mean is weighted by its valid rows, as the JAX CLI does."""
+    its mean is weighted by its valid rows, as the JAX CLI does. Over a
+    mesh each data rank takes its rows ``r::data`` and the weighted sums
+    are added over the data group."""
     model = state.model
     loss_head = model.build_loss_head()
-    gts = torch.from_numpy(val_ds.get_gt_labels().astype(np.float32))
-    loader = build_dataloader(val_ds, batch, cfg.data.get("workers", 8),
-                              shuffle=False, sampler=None, seed=0,
-                              drop_last=False)
+    loader, rows = _data_shard(val_ds, batch, cfg, mesh)
+    gts = torch.from_numpy(val_ds.get_gt_labels().astype(np.float32)[rows])
     sums: dict[str, float] = {}
     count = 0
     was_training = model.training
@@ -182,55 +261,77 @@ def run_val_loss(val_ds, state: TrainState, batch: int, cfg: Config,
             count += n
     finally:
         model.train(was_training)
+    if mesh is not None and mesh.data > 1:
+        keys = sorted(sums)
+        total = torch.tensor([sums[k] for k in keys] + [count],
+                             dtype=torch.float64)
+        dist.all_reduce(total, group=mesh.data_group)
+        sums = dict(zip(keys, total[:-1].tolist()))
+        count = int(total[-1])
     return {k: v / max(count, 1) for k, v in sums.items()}
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    device = resolve_device(args.device)
     cfg = load_config(args.config, args.cfg_options)
-    check_one_card(cfg, args.multihost)
-    if args.work_dir:
-        cfg.work_dir = args.work_dir
-    if args.max_epochs:
-        cfg["runner"]["max_epochs"] = args.max_epochs
-    seed = args.seed if args.seed is not None else cfg.get("seed", None)
-    if args.deterministic and seed is None:
-        seed = 0
-    if seed is None:
-        seed = int(np.random.SeedSequence().entropy % (2**31))
-
-    work_dir = cfg.get("work_dir", "./work_dirs/default")
-    os.makedirs(work_dir, exist_ok=True)
-    timestamp = time.strftime("%Y%m%d_%H%M%S")
-    logger = get_logger(log_file=os.path.join(work_dir, f"{timestamp}.log"))
+    device, mesh, joined = join_world(args, cfg)
     try:
-        return _train(args, cfg, seed, device, work_dir, timestamp, logger)
+        if args.work_dir:
+            cfg.work_dir = args.work_dir
+        if args.max_epochs:
+            cfg["runner"]["max_epochs"] = args.max_epochs
+        seed = args.seed if args.seed is not None else cfg.get("seed", None)
+        if args.deterministic and seed is None:
+            seed = 0
+        seed = broadcast_seed(seed)
+
+        work_dir = cfg.get("work_dir", "./work_dirs/default")
+        os.makedirs(work_dir, exist_ok=True)
+        timestamp = time.strftime("%Y%m%d_%H%M%S")
+        if mesh.rank == 0:
+            logger = get_logger(
+                log_file=os.path.join(work_dir, f"{timestamp}.log"))
+        else:  # the other ranks log warnings only, and to no file
+            logger = get_logger()
+            logger.setLevel(logging.WARNING)
+        try:
+            return _train(args, cfg, seed, device, mesh, work_dir, timestamp,
+                          logger)
+        finally:
+            close_file_handlers(logger)
     finally:
-        close_file_handlers(logger)
+        if joined:
+            destroy()
 
 
-def _train(args, cfg: Config, seed: int, device: torch.device, work_dir: str,
-           timestamp: str, logger) -> dict:
+def _train(args, cfg: Config, seed: int, device: torch.device, mesh: Mesh,
+           work_dir: str, timestamp: str, logger) -> dict:
+    rank0 = mesh.rank == 0
     jlog = JsonLogWriter(os.path.join(work_dir, f"{timestamp}.log.json"))
-    cfg.dump(os.path.join(work_dir, "config.json"))
+    if rank0:
+        cfg.dump(os.path.join(work_dir, "config.json"))
     logger.info("Environment:\n" + "\n".join(
         f"    {k}: {v}" for k, v in collect_env().items()))
     logger.info(f"device={device} seed={seed} "
-                f"deterministic={args.deterministic}")
+                f"deterministic={args.deterministic} world={mesh.world} "
+                f"mesh=data {mesh.data} x graph {mesh.graph}")
 
     # ------------------------------------------------------------------ data
     native.lib()  # built once here, before any spawned worker loads it
     train_ds = build_dataset(cfg.data["train"])
     val_ds = build_dataset(cfg.data["val"]) if cfg.get("evaluation") else None
     batch = cfg.data.get("samples_per_device", 16)
+    # the graph ranks of a data group load the same rows: the sampler's
+    # rank is the data rank
     train_loader = build_dataloader(
-        train_ds, batch, cfg.data.get("workers", 8), shuffle=True,
+        train_ds, batch, cfg.data.get("workers", 8),
+        num_replicas=mesh.data, rank=mesh.data_rank, shuffle=True,
         sampler=cfg.get("sampler", {}).get("type"), seed=seed,
         drop_last=True, mode=cfg.data.get("loader_mode", "threads"))
     steps_per_epoch = len(train_loader)
     logger.info(f"train dataset: {len(train_ds)} samples, "
-                f"{steps_per_epoch} steps/epoch, batch {batch}")
+                f"{steps_per_epoch} steps/epoch, batch {batch}, global "
+                f"batch {batch * mesh.data}")
     if steps_per_epoch == 0:
         raise ValueError(
             "0 train steps/epoch — dataset smaller than one batch (note: "
@@ -255,6 +356,7 @@ def _train(args, cfg: Config, seed: int, device: torch.device, work_dir: str,
             state.ema_params = {n: p.detach().clone()
                                 for n, p in model.named_parameters()}
         logger.info(f"loaded weights from {path}")
+    replicate_state(state, mesh)
 
     # batch-level mixup/cutmix from train_cfg.augments
     train_step = make_train_step(
@@ -269,7 +371,7 @@ def _train(args, cfg: Config, seed: int, device: torch.device, work_dir: str,
     eval_step_ema = make_eval_step(use_ema=True) if ema_on else None
 
     tb = None
-    if cfg.get("log_config", {}).get("tensorboard"):
+    if cfg.get("log_config", {}).get("tensorboard") and rank0:
         from gkgnet_tpu_torch.utils.tensorboard import TensorboardWriter
         tb = TensorboardWriter(os.path.join(work_dir, "tf_logs"))
 
@@ -295,92 +397,110 @@ def _train(args, cfg: Config, seed: int, device: torch.device, work_dir: str,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    overlap = (cfg.get("mesh") or {}).get("overlap", False)
     try:
-        for epoch in range(start_epoch, max_epochs):
-            train_loader.set_epoch(epoch)
-            sync()
-            t_epoch = t_data = time.perf_counter()
-            epoch_data_s = 0.0
-            for it, b in enumerate(device_batches(
-                    train_loader, device, cfg.data["train"])):
-                data_time = time.perf_counter() - t_data
-                epoch_data_s += data_time
-                if it == 0:
-                    timing["first_data_s"] += data_time
-                state, logs = train_step(state, b, seed + 1)
-                steps += 1
-                meter.update({"data_time": data_time})
-                if (it + 1) % log_interval == 0:
-                    meter.update({k: float(v) for k, v in logs.items()})
-                    avg = meter.average(log_interval)
-                    msg = " ".join(f"{k}={v:.4g}"
-                                   for k, v in sorted(avg.items()))
-                    logger.info(f"Epoch [{epoch + 1}/{max_epochs}]"
-                                f"[{it + 1}/{steps_per_epoch}] {msg}")
-                    jlog.write("train", epoch + 1, it + 1, avg)
+        with graph_sharding(mesh, overlap=overlap):
+            for epoch in range(start_epoch, max_epochs):
+                train_loader.set_epoch(epoch)
+                sync()
+                t_epoch = t_data = time.perf_counter()
+                epoch_data_s = 0.0
+                for it, b in enumerate(device_batches(
+                        train_loader, device, cfg.data["train"])):
+                    data_time = time.perf_counter() - t_data
+                    epoch_data_s += data_time
+                    if it == 0:
+                        timing["first_data_s"] += data_time
+                    state, logs = train_step(state, b, seed + 1)
+                    steps += 1
+                    meter.update({"data_time": data_time})
+                    if (it + 1) % log_interval == 0:
+                        meter.update({k: float(v) for k, v in logs.items()})
+                        avg = meter.average(log_interval)
+                        msg = " ".join(f"{k}={v:.4g}"
+                                       for k, v in sorted(avg.items()))
+                        logger.info(f"Epoch [{epoch + 1}/{max_epochs}]"
+                                    f"[{it + 1}/{steps_per_epoch}] {msg}")
+                        if rank0:
+                            jlog.write("train", epoch + 1, it + 1, avg)
+                        if tb is not None:
+                            tb.add_scalars(
+                                avg, epoch * steps_per_epoch + it + 1,
+                                prefix="train/")
+                            tb.flush()
+                    t_data = time.perf_counter()
+                sync()
+                epoch_s = time.perf_counter() - t_epoch
+                timing["train_s"] += epoch_s
+                timing["data_s"] += epoch_data_s
+                logger.info(
+                    f"Epoch [{epoch + 1}/{max_epochs}] {steps_per_epoch} "
+                    f"steps in {epoch_s:.2f} s "
+                    f"({epoch_s * 1e3 / steps_per_epoch:.1f} ms/step), "
+                    f"data_time {epoch_data_s:.2f} s")
+
+                if do_val_loss and val_ds is not None:
+                    t = time.perf_counter()
+                    vl = run_val_loss(val_ds, state, batch, cfg, device,
+                                      mesh)
+                    timing["val_loss_s"] += time.perf_counter() - t
+                    if vl:
+                        msg = " ".join(f"{k}={v:.4g}"
+                                       for k, v in sorted(vl.items()))
+                        logger.info(f"Epoch(val) [{epoch + 1}] {msg}")
+                        if rank0:
+                            jlog.write("val_loss", epoch + 1,
+                                       steps_per_epoch, vl)
+
+                if val_ds is not None and (epoch + 1) % eval_interval == 0:
+                    t = time.perf_counter()
+                    scores = run_eval(val_ds, eval_step, state, batch, cfg,
+                                      device, mesh=mesh)
+                    scores_ema = None
+                    if eval_step_ema is not None:
+                        scores_ema = run_eval(val_ds, eval_step_ema, state,
+                                              batch, cfg, device, mesh=mesh)
+                    timing["eval_s"] += time.perf_counter() - t
+                    eval_images += len(val_ds) * (
+                        1 + (scores_ema is not None))
+                    metrics_dict = val_ds.evaluate(scores, logger=logger)
+                    key = cfg.get("evaluation", {}).get("save_best", "mAP")
+                    candidates = [(metrics_dict.get(key, -1), "raw")]
+                    if scores_ema is not None:
+                        ema_metrics = val_ds.evaluate(scores_ema,
+                                                      logger=logger)
+                        metrics_dict.update(
+                            {f"{k}_ema": v for k, v in ema_metrics.items()})
+                        candidates.append((ema_metrics.get(key, -1), "ema"))
+                    if rank0:
+                        jlog.write("val", epoch + 1, steps_per_epoch,
+                                   metrics_dict)
                     if tb is not None:
-                        tb.add_scalars(avg, epoch * steps_per_epoch + it + 1,
-                                       prefix="train/")
+                        tb.add_scalars(metrics_dict, epoch + 1,
+                                       prefix="val/")
                         tb.flush()
-                t_data = time.perf_counter()
-            sync()
-            epoch_s = time.perf_counter() - t_epoch
-            timing["train_s"] += epoch_s
-            timing["data_s"] += epoch_data_s
-            logger.info(
-                f"Epoch [{epoch + 1}/{max_epochs}] {steps_per_epoch} steps in "
-                f"{epoch_s:.2f} s ({epoch_s * 1e3 / steps_per_epoch:.1f} "
-                f"ms/step), data_time {epoch_data_s:.2f} s")
+                    score, source = max(candidates)
+                    if score > best_metric:
+                        best_metric, best_epoch = score, epoch + 1
+                        if rank0:
+                            save_checkpoint(
+                                os.path.join(work_dir, "best"), state,
+                                epoch + 1, {"metric": best_metric,
+                                            "weights": source})
+                        logger.info(f"new best {key}={best_metric:.4f} "
+                                    f"({source})")
 
-            if do_val_loss and val_ds is not None:
-                t = time.perf_counter()
-                vl = run_val_loss(val_ds, state, batch, cfg, device)
-                timing["val_loss_s"] += time.perf_counter() - t
-                if vl:
-                    msg = " ".join(f"{k}={v:.4g}"
-                                   for k, v in sorted(vl.items()))
-                    logger.info(f"Epoch(val) [{epoch + 1}] {msg}")
-                    jlog.write("val_loss", epoch + 1, steps_per_epoch, vl)
-
-            if val_ds is not None and (epoch + 1) % eval_interval == 0:
-                t = time.perf_counter()
-                scores = run_eval(val_ds, eval_step, state, batch, cfg,
-                                  device)
-                scores_ema = None
-                if eval_step_ema is not None:
-                    scores_ema = run_eval(val_ds, eval_step_ema, state, batch,
-                                          cfg, device)
-                timing["eval_s"] += time.perf_counter() - t
-                eval_images += len(val_ds) * (1 + (scores_ema is not None))
-                metrics_dict = val_ds.evaluate(scores, logger=logger)
-                key = cfg.get("evaluation", {}).get("save_best", "mAP")
-                candidates = [(metrics_dict.get(key, -1), "raw")]
-                if scores_ema is not None:
-                    ema_metrics = val_ds.evaluate(scores_ema, logger=logger)
-                    metrics_dict.update(
-                        {f"{k}_ema": v for k, v in ema_metrics.items()})
-                    candidates.append((ema_metrics.get(key, -1), "ema"))
-                jlog.write("val", epoch + 1, steps_per_epoch, metrics_dict)
-                if tb is not None:
-                    tb.add_scalars(metrics_dict, epoch + 1, prefix="val/")
-                    tb.flush()
-                score, source = max(candidates)
-                if score > best_metric:
-                    best_metric, best_epoch = score, epoch + 1
-                    save_checkpoint(os.path.join(work_dir, "best"), state,
-                                    epoch + 1, {"metric": best_metric,
-                                                "weights": source})
-                    logger.info(f"new best {key}={best_metric:.4f} ({source})")
-
-            if (epoch + 1) % ckpt_interval == 0:
-                t = time.perf_counter()
-                save_checkpoint(
-                    os.path.join(work_dir, "checkpoints"), state, epoch + 1,
-                    {"epoch": epoch + 1,
-                     "CLASSES": list(getattr(train_ds, "CLASSES", []) or [])},
-                    max_to_keep=cfg.get("checkpoint_config", {}).get(
-                        "max_to_keep", 3))
-                timing["ckpt_save_s"] += time.perf_counter() - t
+                if (epoch + 1) % ckpt_interval == 0 and rank0:
+                    t = time.perf_counter()
+                    save_checkpoint(
+                        os.path.join(work_dir, "checkpoints"), state,
+                        epoch + 1,
+                        {"epoch": epoch + 1,
+                         "CLASSES": list(getattr(train_ds, "CLASSES", [])
+                                         or [])},
+                        max_to_keep=cfg.get("checkpoint_config", {}).get(
+                            "max_to_keep", 3))
+                    timing["ckpt_save_s"] += time.perf_counter() - t
     finally:
         train_loader.close()
         if tb is not None:

@@ -2,7 +2,7 @@
 mini workspace of ``tests/test_cli.py`` (t@128, k=3, 8 JPEGs): exit codes,
 the work dir and the JSON log with the JAX CLI's record keys, the test CLI's
 mAP against the log's, an exact resume, checkpoints, and what the CLIs
-refuse (no card, a mesh, an orbax checkpoint).
+refuse (no card, a mesh outside a world of ranks, an orbax checkpoint).
 """
 
 import json
@@ -163,10 +163,15 @@ def test_clis_need_a_card_unless_cpu_is_asked(workspace, cli, monkeypatch):
 @pytest.mark.parametrize("option", ["mesh.graph=2", "mesh.data=4",
                                     "--multihost"])
 def test_train_cli_refuses_more_than_one_card(workspace, option, tmp_path):
+    """Outside a world of ranks a mesh over more than one rank, or
+    --multihost without the torch.distributed.run environment, raises and
+    names the launcher (tests/test_torch_multirank.py runs the CLIs in a
+    world of ranks)."""
     args = [workspace[1], "--device", "cpu", "--work-dir", str(tmp_path)]
     args += [option] if option.startswith("--") else ["--cfg-options",
                                                       option]
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises((ValueError, RuntimeError),
+                       match="torch.distributed.run"):
         train_cli.main(args)
 
 

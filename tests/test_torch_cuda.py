@@ -57,6 +57,27 @@ def _inputs(bg, n, m, d, bias_kind, dtype, seed=0):
     return x, y, bias
 
 
+@pytest.mark.parametrize("d,dtype", [(12, torch.float32),
+                                     (40, torch.bfloat16),
+                                     (320, torch.bfloat16),
+                                     (7, torch.float32)])
+def test_launch_normalize_is_the_forwards_normalization(cuda, d, dtype):
+    """``launch_normalize`` (the forward's row normalization alone, which
+    the ring and label-sharded builds rank with) is bitwise the xn the
+    fused forward computes its distances from, zero rows included, with
+    one counted launch."""
+    x, y, _ = _inputs(2, 50, 30, d, None, dtype)
+    x[0, 0] = 0
+    x, y = x.to(cuda), y.to(cuda)
+    _, _, xn, yn = knn_mr.launch(x, y, None, 3, 1)
+    before = knn_mr.normalize_launches
+    got_x, got_y = knn_mr.launch_normalize(x), knn_mr.launch_normalize(y)
+    torch.cuda.synchronize()
+    assert knn_mr.normalize_launches == before + 2
+    assert torch.equal(got_x, xn) and torch.equal(got_y, yn)
+    assert (got_x[0, 0] == 0).all()
+
+
 @pytest.mark.parametrize("bg,n,m,d,k,dilation,bias_kind,dtype", [
     (2, 100, 70, 12, 4, 1, "shared", torch.float32),   # ragged N and M
     (3, 64, None, 40, 9, 2, "shared", torch.bfloat16),  # self-kNN
