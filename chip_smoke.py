@@ -36,7 +36,13 @@ Phases (each prints its elapsed seconds):
      every returned distance within its fp32 bound of the fp64 one, idx
      equal to the plain version's except at oracle near-ties (counted), two
      launches bitwise equal, tie and NaN fixtures bitwise the plain
-     version's; kernel, plain and the two-call PyTorch route's times;
+     version's; kernel, plain and the two-call PyTorch route's times; the
+     gather's backward (knn_mr.launch_gather_backward, the ordered sum
+     of csrc/knn_mr_bwd.cu) at the label-sharded build's shapes of phase
+     13 (b) and the Grapher path's stage-1 gather (``gather_row`` lines):
+     gy bitwise gather_backward_ordered_reference and within the fp64
+     bound, two launches bitwise equal, kernel, plain and index_add_
+     times;
   4. eval: entry(device="cuda", batch=8) in bf16: 16 kernel launches per
      forward, finite (8, 80) logits; 3 requests through predict(); then
      ms/forward and a profile of device time by kernel; then batch 1 in
@@ -56,10 +62,12 @@ Phases (each prints its elapsed seconds):
   6. the Grapher path (this slice): per aggregator (edge, sage, gin, gat)
      the 5 Grapher and 4 GrapherLabel blocks of GKGNet-S@576 without
      channel groups, at batch 8 in bf16, in eval and in a train-mode
-     forward + backward: 9 knn_topk launches and no knn_mr launch each,
+     forward + backward: 9 knn_topk launches and no knn_mr launch each
+     (and in train a gather backward launch in each of the 5 Graphers),
      finite outputs and gradients, ms per block; the 3 'mr' Graphers with
-     stochastic dilation (epsilon 0.2) in train (3 knn_topk launches, no
-     knn_mr) and eval (the fused knn_mr route); then at batch 2 in fp32
+     stochastic dilation (epsilon 0.2) in train (3 knn_topk and 3 gather
+     backward launches, no knn_mr) and eval (the fused knn_mr route); then
+     at batch 2 in fp32
      every knn_topk call held to the plain version on the blocks' own
      activations;
   7. the grouped path (GKGNET_GROUPED=1 for this phase only): entry() at
@@ -119,8 +127,8 @@ Phases (each prints its elapsed seconds):
      mAP equal to phase 9's test CLI (CLI_MAP_TOL); (e)
      tools.deployment.serve on port 0 in a thread, on the checkpoint and
      on the batch-1 artifact: /ping, 8 POSTs of val JPEGs whose answers
-     are the in-process scorer's on the same bytes, then 320 timed POSTs,
-     16 knn_mr launches per request; ms per request over the 320 (p50,
+     are the in-process scorer's on the same bytes, then 64 timed POSTs,
+     16 knn_mr launches per request; ms per request over the 64 (p50,
      p99, max, mean) and the split of a request in process (host decode
      and pipeline, device normalization and forward); (f) at batch 1 in
      fp32 (TF32 off), with PreciseBN's statistics, the relative logit
@@ -198,8 +206,11 @@ Phases (each prints its elapsed seconds):
      of the unpartitioned gy (``par_row`` lines: ms and launches per
      rank); (b) in the same world, entry()'s eval forward at batch 8 under
      graph_sharding: logits bitwise phase 4's, and train_entry()'s first
-     step: loss bitwise phase 5's, exact launch counts, the two ranks'
-     gradients bitwise alike (against phase 5's: printed, bf16); then the
+     step: loss bitwise phase 5's, exact launch counts (one gather
+     backward per label-sharded tap), the two ranks' gradients bitwise
+     alike, the step's loss and gradients bitwise alike when it is run
+     again from the seeded state (against phase 5's: printed, bf16); then
+     the
      t@128 fp32 step (dryrun_multichip's model): the two ranks' gradients
      bitwise alike and within PAR_GRAD_REL of the one-process step's per
      leaf; (c) dryrun_multichip_prod(4, device="cuda"): data 2 x graph 2,
@@ -207,9 +218,12 @@ Phases (each prints its elapsed seconds):
      schedule and an eval forward on the ring, with the launches per rank
      worked out from the routes (par_expected) and asserted, the ring's
      logits bitwise the gather's, the parameters after the steps bitwise
-     alike on the 4 ranks, the first step's loss within PAR_LOSS_RTOL of
-     the one-process step's (the second's printed), ms and peak memory per
-     rank; then, in a world of 4 beside (e), the t@128 fp32 step on data 2
+     alike on the 4 ranks, both steps' losses bitwise alike when a second
+     dryrun_multichip_prod call runs the two steps again in a new world
+     (with the same launch counts), the first step's loss within
+     PAR_LOSS_RTOL of the one-process step's (the second's printed), ms and
+     peak memory per rank; then, in a world of 4 beside (e), the t@128 fp32
+     step on data 2
      x graph 2: each data rank's graph ranks enter the train step's data
      mean with bitwise-equal gradients and leave it with the data ranks'
      mean, bitwise (against the one-process step: printed); (d) in phase
@@ -222,6 +236,19 @@ Phases (each prints its elapsed seconds):
      memory per rank, or a line saying the ranks did not fit (not a
      gate); (f) an NCCL world of one rank: every collective wrapper on
      CUDA tensors, then the t@128 step;
+ 14. GKGNet-T@576 (configs/gkgnet_t_coco_576.py as it is: channels 48 to
+     384, so rows of D = 24, 48, 120 and 192; bf16, batch 8, seeded
+     standard-normal input): exactly 16 knn_mr launches per eval forward,
+     finite (8, 80) logits, ms/forward, peak memory and the device-busy
+     share; every one of the forward's 16 calls held to its plain
+     version on the model's own activations ((a)-(c) of phase 3), each
+     distinct shape also timed (``row`` lines: (a)-(d));
+     two train steps (16 + 16 launches each, finite losses), every one of
+     their 32 backward calls with gx bitwise -g and gy bitwise the
+     ordered plain version (a ``bwd_row`` per distinct shape); ms/step,
+     peak memory and the busy share; then tools.profile_breakdown's eval
+     tables on t@576 (its 5 + 4 rows for the 12 + 4 calls, the model both
+     ways, the remainder and the MFU);
 
 then the kernels line, nvidia-smi's line, and the result line.
 
@@ -277,7 +304,8 @@ from gkgnet_tpu_torch.nn.augment import build_batch_augment  # noqa: E402
 from gkgnet_tpu_torch.nn.classifier import init_parameters  # noqa: E402
 from gkgnet_tpu_torch.nn.gkgnet import ARCH_SETTINGS, GKGNet  # noqa: E402
 from gkgnet_tpu_torch.nn.layers import BatchNorm  # noqa: E402
-from gkgnet_tpu_torch.ops import _build, knn_mr, knn_topk  # noqa: E402
+from gkgnet_tpu_torch.ops import (_build, aggregate, knn_mr,  # noqa: E402
+                                  knn_topk)
 from gkgnet_tpu_torch.ops.aggregate import (fold_groups,  # noqa: E402
                                             max_relative, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (knn_graph,  # noqa: E402
@@ -291,6 +319,7 @@ from gkgnet_tpu_torch.parallel.sharding import graph_sharding  # noqa: E402
 from gkgnet_tpu_torch.tools import exp_kernel_phases as phases  # noqa: E402
 from gkgnet_tpu_torch.tools import inference  # noqa: E402
 from gkgnet_tpu_torch.tools import make_synthetic_coco  # noqa: E402
+from gkgnet_tpu_torch.tools import profile_breakdown  # noqa: E402
 from gkgnet_tpu_torch.tools import test as test_cli  # noqa: E402
 from gkgnet_tpu_torch.tools import train as train_cli  # noqa: E402
 from gkgnet_tpu_torch.tools.analysis_tools import (  # noqa: E402
@@ -603,14 +632,12 @@ def kernel_rows(rows: list = ROWS, bg: int = BG, tag: str = "row"
     return results
 
 
-def forward_row(name: str, x, y, bias, k: int, dil: int, calls: int, gen,
-                tag: str = "row") -> dict:
-    """(a)-(d) of phase 3 for one knn_mr call on inputs x, y (y is x for
-    self-kNN) and its bias: printed as a ``tag`` line and returned."""
+def check_forward(name: str, x, y, bias, k: int, dil: int, gen) -> dict:
+    """(a)-(c) of phase 3 for one knn_mr call on inputs x, y (y is x for
+    self-kNN) and its bias: the checks, and their figures returned with
+    the kernel's idx and mr."""
     bg, n, d = x.shape
-    m = y.shape[1]
     dtype = x.dtype
-    dt = "bf16" if dtype == torch.bfloat16 else "fp32"
     idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dil)
     torch.cuda.synchronize()
     check(idx.shape == (bg, n, k) and mr.shape == x.shape
@@ -640,7 +667,22 @@ def forward_row(name: str, x, y, bias, k: int, dil: int, calls: int, gen,
     # (c) agreement with the plain version's own idx (not asserted)
     idx_p, _ = knn_mr.knn_mr_reference(x, y, bias, k, dil)
     same = (idx_p == idx).all(-1).float().mean().item()
-    del idx_p
+    del idx_p, xn, yn, mr_plain, gaps
+    return dict(idx=idx, mr=mr, max_abs_err=max_abs_err,
+                oracle_rows=n_checked, oracle_violations=violations,
+                oracle_worst_gap=worst, idx_rows_equal_plain=same)
+
+
+def forward_row(name: str, x, y, bias, k: int, dil: int, calls: int, gen,
+                tag: str = "row") -> dict:
+    """(a)-(d) of phase 3 for one knn_mr call on inputs x, y (y is x for
+    self-kNN) and its bias: printed as a ``tag`` line and returned."""
+    bg, n, d = x.shape
+    m = y.shape[1]
+    dtype = x.dtype
+    dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+    checked = check_forward(name, x, y, bias, k, dil, gen)
+    idx, mr = checked.pop("idx"), checked.pop("mr")
     # (d) times
     iters = 20 if n * m < 10**7 else 10
     ms = cuda_ms(lambda: knn_mr.launch(x, y, bias, k, dil), iters, 3)
@@ -660,11 +702,9 @@ def forward_row(name: str, x, y, bias, k: int, dil: int, calls: int, gen,
                calls_per_forward=calls, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               max_abs_err=max_abs_err, oracle_rows=n_checked,
-               oracle_violations=violations, oracle_worst_gap=worst,
-               idx_rows_equal_plain=same)
+               **checked)
     print(f"{tag} " + json.dumps(row), flush=True)
-    del idx, mr, xn, yn, mr_plain, gaps
+    del idx, mr
     return row
 
 
@@ -788,6 +828,85 @@ def backward_row(name: str, x, y, idx, g, calls: int, tag: str = "bwd_row"
                tie_rows=tie_rows, max_in_degree=max_deg,
                p99_in_degree=p99_deg)
     print(f"{tag} " + json.dumps(row), flush=True)
+    return row
+
+
+# The gather's backward (aggregate.gather_backward, csrc/knn_mr_bwd.cu) at
+# the label-sharded build's calls of phase 13 (b) (BG 16, a graph rank's
+# half of the stage's targets; its owner-side fetch clamps the other
+# rank's winners onto two hub targets) and at the Grapher path's stage-1
+# 'edge' gather: (name, BG, N, k, M, D, M of the whole stage or None, calls
+# per train step of a (b) rank).
+GATHER_ROWS = [
+    ("label1_local", 16, 80, 9, 10368, 40, 20736, 1),
+    ("label2_local", 16, 80, 9, 2592, 80, 5184, 1),
+    ("label3_local", 16, 80, 9, 648, 200, 1296, 1),
+    ("label4_local", 16, 80, 9, 162, 320, 324, 1),
+    ("grapher1_edge", 8, 20736, 9, 1296, 80, None, 0),
+]
+
+
+def gather_rows() -> list[dict]:
+    """Phase 3, the gather's backward: each row's kernel against its plain
+    version (``gather_row``)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for (name, bg, n, k, m, d, whole, calls) in GATHER_ROWS:
+        if whole is None:
+            idx = torch.randint(0, m, (bg, n, k), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        else:  # rank 0's lidx: the winners over the whole stage, clamped
+            idx = torch.randint(0, whole, (bg, n, k), generator=gen,
+                                device="cuda").clamp(0, m - 1).int()
+        g = torch.randn((bg, n, k, d), generator=gen,
+                        device="cuda").bfloat16()
+        rows.append(gather_row(name, g, idx, m, calls))
+        del idx, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gather_row(name: str, g, idx, m: int, calls: int) -> dict:
+    """The gather backward kernel on g (BG, N, k, D) and idx: gy bitwise
+    the ordered plain version (each target's fp32 sum in ascending edge
+    id) and within the fp64 bound, a second launch bitwise the first (no
+    float atomics), and the kernel's, the plain version's and one
+    ``index_add_``'s times (the scatter-add that ``torch.gather``'s own
+    backward is, with float atomics); printed as a ``gather_row`` line."""
+    bg, n, k, d = g.shape
+    gy = knn_mr.launch_gather_backward(g, idx, m)
+    torch.cuda.synchronize()
+    want = aggregate.gather_backward_ordered_reference(g, idx, m)
+    err = (gy.float() - want.float()).abs().max().item()
+    check(torch.equal(bits(gy), bits(want)), f"{name}: gy not bitwise the "
+          f"ordered plain version's (max |diff| {err:.3e})")
+    exact, bound = knn_mr.backward_gy_bound(g, idx, m)
+    gap = (gy.double() - exact).abs()
+    check(bool((gap <= bound).all()), f"{name}: gy off the fp64 sum beyond "
+          f"the bound (worst {gap.max().item():.3e})")
+    again = knn_mr.launch_gather_backward(g, idx, m)
+    check(torch.equal(bits(again), bits(gy)), f"{name}: two launches differ")
+    del want, exact, bound, again
+    ms = cuda_ms(lambda: knn_mr.launch_gather_backward(g, idx, m), 20, 3)
+    plain_ms = cuda_ms(
+        lambda: aggregate.gather_backward_reference(g, idx, m), 5, 1)
+    flat = aggregate._flat_targets(idx, m)
+    rows, out = g.reshape(-1, d), torch.zeros((bg * m, d), dtype=g.dtype,
+                                              device="cuda")
+    library_ms = cuda_ms(lambda: out.index_add_(0, flat, rows), 20, 3)
+    # least time: g and idx read once, gy written once; an add per edge
+    # and channel
+    nbytes = g.nbytes + idx.nbytes + gy.nbytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = bg * n * k * d / PEAK_FLOPS["fp32"] * 1e3
+    max_deg, p99_deg = in_degrees(idx, m)
+    row = dict(name=name, dtype="bf16", BG=bg, N=n, k=k, M=m, D=d,
+               calls_per_step=calls, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=err, fp64_err=gap.max().item(),
+               max_in_degree=max_deg, p99_in_degree=p99_deg)
+    print("gather_row " + json.dumps(row), flush=True)
     return row
 
 
@@ -1036,13 +1155,14 @@ def run_block(module, inputs, train: bool, gen) -> torch.Tensor:
     return out
 
 
-def counted_pass(blocks, train: bool, gen) -> tuple[int, int, int]:
+def counted_pass(blocks, train: bool, gen) -> tuple[int, int, int, int]:
     """Every block once with the launch counts set to 0 just before; checks
     finite outputs and gradients; returns the counts read just after:
-    (knn_topk, knn_mr forward, knn_mr backward)."""
+    (knn_topk, knn_mr forward, knn_mr backward, gather backward)."""
     knn_topk.launches = 0
     knn_mr.launches = 0
     knn_mr.backward_launches = 0
+    knn_mr.gather_backward_launches = 0
     for name, m, inputs in blocks:
         out = run_block(m, inputs, train, gen)
         check(bool(torch.isfinite(out).all()), f"{name}: output not finite")
@@ -1052,32 +1172,37 @@ def counted_pass(blocks, train: bool, gen) -> tuple[int, int, int]:
             check(not bad, f"{name}: missing or non-finite gradients "
                   f"{bad[:4]}")
     torch.cuda.synchronize()
-    return knn_topk.launches, knn_mr.launches, knn_mr.backward_launches
+    return (knn_topk.launches, knn_mr.launches, knn_mr.backward_launches,
+            knn_mr.gather_backward_launches)
 
 
 def grapher_phase() -> dict:
     """Phase 6: this slice's path. Per aggregator, the 9 blocks in eval and
-    in train (9 knn_topk launches and no knn_mr launch each), then ms per
-    block; then the stochastic 'mr' blocks in train (3 knn_topk, no knn_mr)
-    and in eval (the fused route: 3 knn_mr, no knn_topk). Returns the
-    launches and the times."""
+    in train (9 knn_topk launches and no knn_mr launch each; in train a
+    gather backward in each of the 5 Graphers), then ms per block; then the stochastic 'mr'
+    blocks in train (3 knn_topk and 3 gather backward, no knn_mr) and in
+    eval (the fused route: 3 knn_mr, no knn_topk). Returns the launches and
+    the times."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    launches = 0
+    launches = gathers = 0
     times = {}
     for conv in AGGREGATORS + ("stochastic",):
         blocks = make_blocks(conv, torch.bfloat16, 8, seed=10)
         n = len(blocks)
+        # the label blocks' targets are inputs, which take no gradient
+        spatial = sum(not name.startswith("label") for name, _, _ in blocks)
         for train in (False, True):
             counts = counted_pass(blocks, train, gen)
             if conv == "stochastic" and not train:
-                want = (0, n, 0)
+                want = (0, n, 0, 0)
             else:
-                want = (n, 0, 0)
+                want = (n, 0, 0, spatial if train else 0)
             check(counts == want, f"{conv} {'train' if train else 'eval'}: "
-                  f"launches (knn_topk, knn_mr, knn_mr backward) {counts}, "
-                  f"expected {want}")
+                  f"launches (knn_topk, knn_mr, knn_mr backward, gather "
+                  f"backward) {counts}, expected {want}")
             if conv != "stochastic" or train:
                 launches += counts[0]
+            gathers += counts[3]
         for name, m, inputs in blocks:
             eval_ms = cuda_ms(lambda: run_block(m, inputs, False, gen), 3, 1)
             train_ms = cuda_ms(lambda: run_block(m, inputs, True, gen), 2, 1)
@@ -1092,7 +1217,7 @@ def grapher_phase() -> dict:
             f"{sum(t[1] for t in mine):.2f} ms train fwd+bwd in all")
         del blocks
         torch.cuda.empty_cache()
-    return dict(launches=launches, times=times)
+    return dict(launches=launches, gathers=gathers, times=times)
 
 
 def compare_fp32_grapher() -> None:
@@ -1839,14 +1964,14 @@ def _cli_phase(root: str, t0: float, smi: str) -> dict:
 
 
 SERVE_REQUESTS = 8      # POSTs to each server checked against its scorer
-SERVE_TIMED = 320       # POSTs timed after those (5 rounds of the 64 JPEGs)
+SERVE_TIMED = 64        # POSTs timed after those (one round of the 64 JPEGs)
 PRECISE_BN_BATCHES = 4  # seeded batches of 8 for PreciseBN
 
 
 def reset_launch_counts() -> None:
     knn_mr.launches = knn_mr.grouped_launches = 0
     knn_mr.backward_launches = knn_topk.launches = 0
-    knn_mr.normalize_launches = 0
+    knn_mr.normalize_launches = knn_mr.gather_backward_launches = 0
 
 
 def check_counts(what: str, want: tuple[int, int, int, int],
@@ -2852,6 +2977,159 @@ def arch_b_phase(smi: str) -> dict:
                 train_peak=train_peak)
 
 
+# ---------------------------------------------------------------- phase 14
+# GKGNet-T@576 (configs/gkgnet_t_coco_576.py: channels 48..384, so the
+# graph convs' rows are D = 24, 48, 120 and 192 wide; bf16, batch 8)
+T_CONFIG = os.path.join(REPO_DIR, "configs", "gkgnet_t_coco_576.py")
+T_BATCH = 8
+T_SIZE = 576
+T_CALLS = 16              # knn_mr calls per forward: 12 Graphers + 4 labels
+T_BREAKDOWN_ITERS = 3     # profile_breakdown's BD_ITERS on t@576
+
+
+def arch_t_phase(smi: str) -> dict:
+    """Phase 14: t@576 from its config, eval and two train steps, every
+    call held to its plain version, then profile_breakdown's eval tables.
+    Returns the launch counts and the rows."""
+    t0 = time.perf_counter()
+    cfg = train_cli.load_config(T_CONFIG, [])
+    # the model as the config has it, at the main path's batch of 8 (the
+    # config's own samples_per_device is 16)
+    check(cfg.model["arch"] == "t" and cfg.model["dtype"] == "bfloat16"
+          and cfg.model["size"] == T_SIZE,
+          f"{T_CONFIG}: not the t@576 model")
+    widths = tuple(c // cfg.model["num_group"]
+                   for c in ARCH_SETTINGS["t"]["channels"])
+    rng = np.random.default_rng(14)
+    images = torch.from_numpy(rng.standard_normal(
+        (T_BATCH, T_SIZE, T_SIZE, 3), dtype=np.float32)).cuda().bfloat16()
+    labels = torch.from_numpy(rng.random((T_BATCH, 80)) < 0.05).float().cuda()
+    total = Counter()
+
+    # eval: the config's model, seeded, bf16
+    model = build_model(cfg.model)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.cuda().eval()
+    reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = model(images)
+    torch.cuda.synchronize()
+    check_counts("t: one eval forward", (T_CALLS, 0, 0, 0), total)
+    check(logits.shape == (T_BATCH, 80)
+          and bool(torch.isfinite(logits).all()), "t: logits")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: model(images), 10, 2)
+    eval_peak = torch.cuda.max_memory_allocated()
+    check(knn_mr.launches == 12 * T_CALLS,
+          f"t: {knn_mr.launches} launches in 12 timed forwards")
+    total.update(forward=knn_mr.launches)
+    with torch.no_grad():
+        eval_prof = profile_device(lambda: model(images), "forward")
+        calls, _ = record_calls(lambda: model(images))
+    log(f"t ({smi}): eval {fwd_ms:.2f} ms/forward at batch {T_BATCH}, "
+        f"{T_BATCH * 1e3 / fwd_ms:.1f} img/s (bf16); {T_CALLS} knn_mr "
+        f"launches per forward; peak memory {eval_peak / 2**30:.2f} GiB; "
+        f"device busy {100 * eval_prof['busy'] / eval_prof['wall']:.1f} %")
+    check(len(calls) == T_CALLS, f"t: {len(calls)} recorded calls")
+    # every call held to its plain version; each distinct shape also timed
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def shape_key(c):
+        return (c[0].shape[1], c[1].shape[1], c[0].shape[2], c[3] * c[4],
+                c[4], c[2] is not None)
+
+    counts = {kk: count for kk, (_, count) in distinct_calls(
+        calls, shape_key).items()}
+    for i, (x, y, bias, k, dil) in enumerate(calls):
+        name = call_name("t", widths, x, y, bias, dil)
+        count = counts.pop(shape_key((x, y, bias, k, dil)), None)
+        if count is None:  # a shape met before: checked, not timed
+            check_forward(f"{name}_call{i}", x, y, bias, k, dil, gen)
+            continue
+        rows.append(forward_row(name, x, y, bias, k, dil, count, gen))
+    check(sum(r["calls_per_forward"] for r in rows) == T_CALLS
+          and {r["D"] for r in rows} == set(widths),
+          "t: the rows do not cover the forward's calls and widths")
+    log(f"t: all {len(calls)} forward calls held to their plain version; "
+        f"{len(rows)} distinct shapes timed")
+    del model, calls, logits
+    torch.cuda.empty_cache()
+
+    # two train steps: the config's state, make_train_step, dual loss
+    state = train_cli.build_train_state(cfg, 0, torch.device("cuda"), 1000,
+                                        ema=True)
+    step = make_train_step(ema_momentum=2e-4)
+    batch = {"img": images, "gt_label": labels}
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_calls = []
+    losses = []
+    for i in range(2):
+        f0, b0 = knn_mr.launches, knn_mr.backward_launches
+        _, got = record_calls(
+            lambda i=i: losses.append(float(step(state, batch, i)[1]["loss"])))
+        torch.cuda.synchronize()
+        bwd_calls += got
+        fwd, bwd = knn_mr.launches - f0, knn_mr.backward_launches - b0
+        check(fwd == T_CALLS and bwd == T_CALLS, f"t: train step {i}: {fwd} "
+              f"forward and {bwd} backward launches, expected 16 and 16")
+        check(math.isfinite(losses[-1]), f"t: step {i}: loss {losses[-1]}")
+    total.update(forward=knn_mr.launches, backward=knn_mr.backward_launches)
+    train_peak = torch.cuda.max_memory_allocated()
+    # every backward call: gx bitwise -g, gy bitwise the ordered plain
+    # version and within the fp64 bound; each distinct shape also timed
+    bwd_rows, seen = [], set()
+    for i, (x, y, idx, g) in enumerate(bwd_calls):
+        key = (x.shape[1], y.shape[1], x.shape[2], y is x)
+        if key in seen:
+            check_backward(f"t_bwd_call{i}", x, y, idx, g,
+                           knn_mr.launch_backward(x, y, idx, g))
+            continue
+        seen.add(key)
+        name = (f"t_{'self' if y is x else 'cross'}_N{x.shape[1]}_"
+                f"M{y.shape[1]}_D{x.shape[2]}")
+        bwd_rows.append(backward_row(name, x, y, idx, g, sum(
+            1 for c in bwd_calls[:T_CALLS]
+            if (c[0].shape[1], c[1].shape[1], c[0].shape[2],
+                c[1] is c[0]) == key)))
+    del bwd_calls
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(3):
+        step(state, batch, 2 + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 3
+    step_prof = profile_device(lambda: step(state, batch, 5), "step",
+                               iters=2)
+    log(f"t ({smi}): train {step_ms:.2f} ms/step at batch {T_BATCH} (bf16, "
+        f"mean of 3 steps, host clock with synchronize); losses "
+        f"{losses}; 16 + 16 knn_mr "
+        f"launches per step; {len(bwd_rows)} distinct backward shapes and "
+        f"all 32 backward calls held bitwise; peak memory "
+        f"{train_peak / 2**30:.2f} GiB; device busy "
+        f"{100 * step_prof['busy'] / step_prof['wall']:.1f} %")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+    # profile_breakdown's eval tables on t@576 (its own launches)
+    breakdown = profile_breakdown.eval_tables("t", T_SIZE, T_BATCH,
+                                              T_BREAKDOWN_ITERS,
+                                              torch.device("cuda"))
+    check(len(breakdown["rows"]) == 9 and sum(
+        r["count"] for r in breakdown["rows"]) == T_CALLS
+          and all(r["fits"] for r in breakdown["rows"]),
+          "t: profile_breakdown's rows")
+    torch.cuda.empty_cache()
+    log(f"t: phase 14 passed in {time.perf_counter() - t0:.1f} s")
+    return dict(launches=(total["forward"], total["backward"]), rows=rows,
+                bwd_rows=bwd_rows, fwd_ms=fwd_ms, step_ms=step_ms,
+                eval_peak=eval_peak, train_peak=train_peak, losses=losses,
+                breakdown=breakdown)
+
+
 # ---------------------------------------------------------------- phase 13
 # Data and graph parallelism (parallel/): worlds of ranks spawned on this
 # one card (parallel/spawn.py), talking over gloo through pinned host
@@ -2883,10 +3161,12 @@ PAR_FP32_BATCH = 4
 # section 6); any other rounding -- a convolution algorithm chosen
 # otherwise at batch 4 than at 8 -- would flip kNN near-ties of this random
 # model and move its loss by percents (5.3 % on the CPU's fp32 worlds).
-# The second step's loss is printed, not held: it follows step 1's bf16
-# update, which differs from the one process's and from run to run (gaps
-# 1.5e-2, 3.4e-2 and 9.4e-5 in three H100 runs); the update is held in
-# fp32 instead (the data mean, bitwise, in a world of 4)
+# The second step's loss against the one process is printed, not held: it
+# follows step 1's bf16 update, whose gradients round each graph rank's
+# partial target sums to bf16 before their sum (as the JAX package's
+# reduce-scatter does); the update is held in fp32 instead (the data mean,
+# bitwise, in a world of 4). Both steps' losses are held bitwise to the
+# same two steps run again.
 PAR_LOSS_RTOL = 2e-2
 # (d): the 4-rank test CLI's mAP against the 1-rank CLI's on the same
 # checkpoint (mAP points): each data rank scores its rows in batches of the
@@ -3088,9 +3368,20 @@ def par_graph_only(mesh) -> dict:
                  for k, p in state.model.named_parameters()}
         step_ms = par_timed(lambda: fn(state, batch), iters=1)
     peak = torch.cuda.max_memory_allocated(mesh.device)
+    # the same first step again, from the seeded state: bitwise alike
+    del fn, state, batch
+    torch.cuda.empty_cache()
+    fn, (state, batch) = train_entry(device=mesh.device, batch=8)
+    with graph_sharding(mesh):
+        state, again = fn(state, batch)
+        torch.cuda.synchronize()
+    repeat_equal = float(again["loss"]) == float(logs["loss"]) and all(
+        torch.equal(p.grad.detach().float().cpu(), grads[k])
+        for k, p in state.model.named_parameters())
     return dict(logits=logits, loss=float(logs["loss"]), grads=grads,
                 fwd_counts=fwd_counts, step_counts=step_counts,
-                fwd_ms=fwd_ms, step_ms=step_ms, peak_bytes=peak)
+                fwd_ms=fwd_ms, step_ms=step_ms, peak_bytes=peak,
+                repeat_equal=repeat_equal)
 
 
 def par_split_moments(parts: int):
@@ -3132,7 +3423,7 @@ def par_expected(s: int) -> dict:
                     knn_mr_normalize=2 * lab),
         ring=dict(knn_mr=whole + lab_whole, knn_topk=s * part + lab,
                   knn_mr_normalize=(s + 1) * part + 2 * lab),
-        backward=part + whole + lab_whole)
+        backward=part + whole + lab_whole, gather_backward=lab)
 
 
 def par_counts_are(counts: dict, want: dict) -> bool:
@@ -3233,9 +3524,13 @@ def parallel_phase(smi: str, ref_logits: torch.Tensor,
         check(r["loss"] == ref_step1[0], f"parallel (b) rank {r['rank']}: "
               f"loss {r['loss']!r} against {ref_step1[0]!r}")
         check(par_counts_are(r["fwd_counts"], want["gather"])
-              and r["step_counts"]["knn_mr_backward"] == want["backward"],
+              and r["step_counts"]["knn_mr_backward"] == want["backward"]
+              and r["step_counts"]["gather_backward"]
+              == want["gather_backward"],
               f"parallel (b) rank {r['rank']}: counts {r['fwd_counts']} / "
               f"{r['step_counts']}, expected {want}")
+        check(r["repeat_equal"], f"parallel (b) rank {r['rank']}: the bf16 "
+              f"graph-only step's loss and gradients differ over two runs")
         # bf16: printed; fp32 below holds the same backward
         gaps = sorted(par_leaf_gaps(r["grads"], {
             k: v.float().cpu() for k, v in ref_step1[1].items()}).values())
@@ -3243,7 +3538,8 @@ def parallel_phase(smi: str, ref_logits: torch.Tensor,
         worst = max(fp32, key=fp32.get)
         log(f"parallel (b) rank {r['rank']} ({smi}): logits bitwise the "
             f"single-process forward's, step-1 loss {r['loss']!r} bitwise; "
-            f"the bf16 step's gradients against the single process's, "
+            f"the bf16 step's loss and gradients bitwise alike over two "
+            f"runs; its gradients against the single process's, "
             f"max|diff| / max|grad| per leaf: median "
             f"{gaps[len(gaps) // 2]:.3e}, worst {gaps[-1]:.3e}; the t@128 "
             f"fp32 step's: median {sorted(fp32.values())[len(fp32) // 2]:.3e}"
@@ -3284,27 +3580,41 @@ def parallel_phase(smi: str, ref_logits: torch.Tensor,
     log(f"parallel (c): world 4, mesh data 2 x graph 2, transport "
         f"{res[0]['backend']}, rank devices {[r['device'] for r in res]}; "
         f"{time.perf_counter() - t:.1f} s")
+    # the two steps again from the seeded state, in a new world
+    t = time.perf_counter()
+    again = entry_mod.dryrun_multichip_prod(4, device="cuda", batch=8,
+                                            steps=2)
+    log(f"parallel (c): the two steps again in a new world of 4; "
+        f"{time.perf_counter() - t:.1f} s")
+    check([r["rank"] for r in again] == [r["rank"] for r in res],
+          f"parallel (c): ranks {[r['rank'] for r in again]} in the second "
+          f"world, {[r['rank'] for r in res]} in the first")
     counts = dict(knn_mr=0, knn_mr_backward=0, knn_topk=0,
-                  knn_mr_normalize=0)
-    for r in res:
+                  knn_mr_normalize=0, gather_backward=0)
+    for r, r2 in zip(res, again):
         eg, er = r["eval_gather"], r["eval_ring"]
         check(par_counts_are(eg["counts"], want["gather"])
               and par_counts_are(er["counts"], want["ring"]),
               f"parallel (c) rank {r['rank']}: eval launches "
               f"{eg['counts']} / {er['counts']}, expected {want}")
-        for i, st in enumerate(r["steps"]):
+        for i, st in enumerate(r["steps"] + r2["steps"]):
             c = st["counts"]
             check(par_counts_are(c, want["gather"])
                   and c["knn_mr_backward"] == want["backward"]
+                  and c["gather_backward"] == want["gather_backward"]
                   and c["knn_mr_grouped"] == 0,
                   f"parallel (c) rank {r['rank']} step {i}: launches {c}")
-            for key in counts:
-                counts[key] += c[key]
+            if i < len(r["steps"]):  # the first call's steps
+                for key in counts:
+                    counts[key] += c[key]
         for key in ("knn_mr", "knn_topk", "knn_mr_normalize"):
             counts[key] += eg["counts"][key] + er["counts"][key]
         check(all(math.isfinite(v) for v in r["loss"])
               and r["loss"] == res[0]["loss"],
               f"parallel (c) rank {r['rank']}: losses {r['loss']}")
+        check(r2["loss"] == r["loss"], f"parallel (c) rank "
+              f"{r['rank']}: the two steps' losses {r['loss']} and, run "
+              f"again, {r2['loss']}")
         check(r["params_digest"] == res[0]["params_digest"],
               f"parallel (c) rank {r['rank']}: the parameters after the "
               f"steps differ from rank {res[0]['rank']}'s")
@@ -3321,15 +3631,17 @@ def parallel_phase(smi: str, ref_logits: torch.Tensor,
     gaps = [abs(got - ref) / abs(ref)
             for got, ref in zip(res[0]["loss"], ref_loss)]
     log(f"parallel (c): the parameters after the steps bitwise alike on "
-        f"the 4 ranks; step losses {res[0]['loss']!r} against the "
+        f"the 4 ranks; both steps' losses bitwise alike over two runs; step "
+        f"losses {res[0]['loss']!r} against the "
         f"one-process steps' {ref_loss!r} (moments summed by data rank): "
         f"relative gaps {[f'{g:.3e}' for g in gaps]} (step 1's tolerance "
         f"{PAR_LOSS_RTOL}; step 2's printed: it follows step 1's bf16 "
-        f"update, whose gradients differ from the one process's and from "
-        f"run to run, see (b); the fp32 world below holds the update)")
+        f"update, whose gradients round the ranks' partial sums otherwise "
+        f"than the one process, see (b); the fp32 world below holds the "
+        f"update)")
     check(gaps[0] <= PAR_LOSS_RTOL, f"parallel (c): step-1 loss gap "
           f"{gaps[0]:.3e}")
-    del res
+    del res, again
 
     # (c) in fp32 and (f), NCCL in a world of one rank, alongside (e) (the
     # worlds' starts overlap; their t@128 steps are slivers of (e)'s)
@@ -3539,6 +3851,9 @@ def main() -> int:
     log("kernels: every knn_topk row passed the fp64 oracle, the value bound, "
         "the plain idx up to near-ties, determinism and the tie and NaN "
         "fixtures")
+    g_rows = gather_rows()
+    log("kernels: every gather backward row passed gy bitwise the ordered "
+        "plain version, within the fp64 bound, and determinism")
 
     # 4. eval: the main path, then requests
     fn, (model, x) = entry(device="cuda", batch=8)
@@ -3610,10 +3925,15 @@ def main() -> int:
     par = parallel_phase(smi, ref_logits, step1)
     del step1
 
+    # 14. GKGNet-T@576 from its config, and profile_breakdown on it
+    arch_t = arch_t_phase(smi)
+    t_fwd, t_bwd = arch_t["launches"]
+
     # result lines
     fwd = per_step(rows, "calls_per_forward")
     bwd = per_step(bwd_rows, "calls_per_step")
     topk = per_step(t_rows, "calls_per_pass")
+    gat = per_step(g_rows, "calls_per_step")
     g_fwd = per_step(grouped["rows"], "calls_per_forward")
     train_fwd, train_bwd = train["launches"]
     kernels = [{
@@ -3628,12 +3948,14 @@ def main() -> int:
         # test, both servers' requests), the VOC path (16 steps, val,
         # the test CLI, the tools, the test CLI on the imported weights)
         # phase 12 (arch b eval and train, the ungrouped backbone, the
-        # features config's knn steps) and phase 13 (c) (the 4 ranks' eval
-        # forward and 2 steps on the gather schedule)
+        # features config's knn steps), phase 13 (c) (the 4 ranks' eval
+        # forward and 2 steps on the gather schedule) and phase 14 (t@576
+        # eval and train)
         "launches": eval_launches + train_fwd + cli_fwd + served["launches"]
-        + voc_fwd + b_fwd + par["knn_mr"],
+        + voc_fwd + b_fwd + par["knn_mr"] + t_fwd,
         "max_abs_err": max(r["max_abs_err"] for r in
-                           rows + voc["rows"] + arch_b["rows"]),
+                           rows + voc["rows"] + arch_b["rows"]
+                           + arch_t["rows"]),
         # per forward at batch 8: the sum over the 16 calls' shapes
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -3646,14 +3968,15 @@ def main() -> int:
         "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
         "replaces": "gkgnet_tpu/ops/pallas/knn_mr.py:1054",
         # the train path, the CLI path, the VOC path (16 steps and
-        # vis_cam's saliency), phase 12 and phase 13 (c) (2 steps on 4
-        # ranks)
+        # vis_cam's saliency), phase 12, phase 13 (c) (2 steps on 4 ranks)
+        # and phase 14 (t@576's train steps)
         "launches": train_bwd + cli_bwd + voc_bwd + b_bwd
-        + par["knn_mr_backward"],
+        + par["knn_mr_backward"] + t_bwd,
         # largest |gy - the ordered plain version's gy| over the rows (0:
         # bitwise; the rows print |gy - exact fp64 sum| as fp64_err)
         "max_abs_err": max(r["max_abs_err"] for r in
-                           bwd_rows + voc["bwd_rows"] + arch_b["bwd_rows"]),
+                           bwd_rows + voc["bwd_rows"] + arch_b["bwd_rows"]
+                           + arch_t["bwd_rows"]),
         # per train step at batch 8: the sum over the 16 calls' shapes
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],
@@ -3718,6 +4041,27 @@ def main() -> int:
         "bound_by": phase["rows"]["selg"]["bound_by"],
         "library_ms": None,  # a phase is a piece of a kernel: no PyTorch
                              # call computes its checksum
+    }, {
+        "name": "gather_backward",
+        "route": "cuda",
+        "source": "gkgnet_tpu_torch/csrc/knn_mr_bwd.cu",
+        # no Pallas kernel: the JAX package's gather_nodes, whose VJP XLA
+        # computes (a scatter-add)
+        "replaces": "gkgnet_tpu/ops/aggregate.py:27",
+        # the Grapher path's train passes (phase 6) and phase 13 (c) (the
+        # label-sharded builds' owner-side fetch in each step)
+        "launches": graph["gathers"] + par["gather_backward"],
+        # largest |gy - the ordered plain version's gy| over the rows
+        "max_abs_err": max(r["max_abs_err"] for r in g_rows),
+        # per train step of a (b) rank: the 4 label-sharded calls
+        "ms": gat["ms"],
+        "plain_ms": gat["plain_ms"],
+        "bound_ms": gat["bound_ms"],
+        "bound_by": gat["bound_by"],
+        # one index_add_ (torch.gather's own backward, float atomics) on
+        # the same rows, summed over the same calls
+        "library_ms": sum(r["library_ms"] * r["calls_per_step"]
+                          for r in g_rows),
     }]
     log(f"kernel knn_mr_fused: {eval_launches} launches on the eval path "
         f"(one forward + 3 requests), {train_fwd} on the train path (3 "
@@ -3743,7 +4087,12 @@ def main() -> int:
         f"ms/step), {len(arch_b['rows'])} forward, "
         f"{len(arch_b['bwd_rows'])} backward and "
         f"{len(arch_b['topk_rows'])} knn_topk rows held to the plain "
-        f"versions")
+        f"versions; phase 14: {t_fwd} knn_mr and {t_bwd} backward launches "
+        f"(t@576 eval {arch_t['fwd_ms']:.2f} ms/forward, train "
+        f"{arch_t['step_ms']:.2f} ms/step); kernel gather_backward: "
+        f"{graph['gathers']} launches on the Grapher path and "
+        f"{par['gather_backward']} in phase 13 (c), {len(g_rows)} rows "
+        f"held bitwise to the ordered plain version")
     log(f"done: {time.perf_counter() - T0:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -83,6 +83,22 @@
 // 4 at every main-path shape); smaller ranking units (step 2 then reads
 // more counts than step 1 saves).
 //
+// The same file holds the backward of the plain neighbour gather
+// (gather_backward; gkgnet_tpu_torch/ops/aggregate.py gather_nodes, whose
+// JAX counterpart gkgnet_tpu/ops/aggregate.py:27 gets its VJP from XLA and
+// had no Pallas kernel). x_j = y[idx_j] has the gradient gy[t] = the sum of
+// the incoming rows g[e] over the edges e with idx[e] == t. PyTorch's own
+// gather backward on the card is a scatter-add with float atomics, whose
+// order, and so whose rounding, changes from run to run; here gy[t] is the
+// fp32 sum from 0.0 in ascending edge id (bg*N + n)*k + j, no FMA, rounded
+// once to the input type: steps 1 and 2 as above, then
+//   5. place_edges: one thread per edge writes its id at its place in the
+//      inverse list (its unit's start for the target plus its rank);
+//   6. target_sum's kEdgeRows instantiation: step 4 with the edge's own row
+//      of g in place of its query row's split, and no tie masks.
+// Its bytes: g (E x D) read once, idx (E ints) and gy (BG x M x D) written
+// once; the edges' rows are gathered by target, each once.
+//
 // Launch discipline: every kernel runs on the caller's stream, allocates
 // nothing (the caller passes one workspace of knn_mr_bwd_workspace_bytes)
 // and does not synchronize; the entry point returns cudaGetLastError()
@@ -463,8 +479,11 @@ row_split(const T* __restrict__ x, const T* __restrict__ y,
 // bx*blockDim.y + ty of group bg = b*groups + gi: gy = the fp32 sum, in
 // list order, of the split of each incoming edge's row where the edge's
 // tie bit is set. kInFlight edges' split chunks and tie masks load at
-// once, while the next batch's list entries load.
-template <typename T, bool kGrouped, bool kVec, typename W, int kInFlight>
+// once, while the next batch's list entries load. kEdgeRows (the gather's
+// backward, folded only): the list holds edge ids, `split` is g with one
+// row of d channels per edge, and every edge's row is added.
+template <typename T, bool kGrouped, bool kVec, typename W, int kInFlight,
+          bool kEdgeRows = false>
 __global__ void __launch_bounds__(kMaxChunks)
 target_sum(const T* __restrict__ split, const unsigned* __restrict__ order,
            const unsigned* __restrict__ mask, const int* __restrict__ first,
@@ -491,45 +510,71 @@ target_sum(const T* __restrict__ split, const unsigned* __restrict__ order,
   for (int u = 0; u < kInFlight; ++u) {
     next[u] = begin + u < end ? order[begin + u] : 0u;
   }
-  for (int p0 = begin; p0 < end; p0 += kInFlight) {
-    uint4 sr[kInFlight];
-    unsigned mw[kInFlight][kWords];
-    unsigned jj[kInFlight];
+  if constexpr (kEdgeRows) {
+    const int ch = c * C;
+    const int valid = min(C, d - ch);
+    for (int p0 = begin; p0 < end; p0 += kInFlight) {
+      float sv[kInFlight][C];
 #pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      if (p0 + u < end) {
-        const long long rc = (long long)(next[u] >> kbits) * nch + c;
-        sr[u] = *reinterpret_cast<const uint4*>(split + rc * C);
-        load_words<kWords>(mask + rc * kWords, mw[u]);
-        jj[u] = next[u] & jmask;
+      for (int u = 0; u < kInFlight; ++u) {
+        if (p0 + u < end) {
+          load_chunk<T, kVec>(split + (long long)next[u] * d + ch, valid,
+                              sv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const int p = p0 + kInFlight + u;
+        next[u] = p < end ? order[p] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        if (p0 + u >= end) continue;
+#pragma unroll
+        for (int i = 0; i < C; ++i) acc[i] = __fadd_rn(acc[i], sv[u][i]);
       }
     }
+  } else {
+    for (int p0 = begin; p0 < end; p0 += kInFlight) {
+      uint4 sr[kInFlight];
+      unsigned mw[kInFlight][kWords];
+      unsigned jj[kInFlight];
 #pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      const int p = p0 + kInFlight + u;
-      next[u] = p < end ? order[p] : 0u;
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      if (p0 + u >= end) continue;
-      float sv[C];
-      unpack<T>(sr[u], sv);
-      if constexpr (sizeof(W) == 2) {
-        const unsigned b0 = 1u << jj[u];
-        const unsigned b1 = b0 << 16;
-#pragma unroll
-        for (int i = 0; i < C; ++i) {
-          if (mw[u][i >> 1] & ((i & 1) ? b1 : b0)) {
-            acc[i] = __fadd_rn(acc[i], sv[i]);
-          }
+      for (int u = 0; u < kInFlight; ++u) {
+        if (p0 + u < end) {
+          const long long rc = (long long)(next[u] >> kbits) * nch + c;
+          sr[u] = *reinterpret_cast<const uint4*>(split + rc * C);
+          load_words<kWords>(mask + rc * kWords, mw[u]);
+          jj[u] = next[u] & jmask;
         }
-      } else {
-        const int hi = jj[u] >> 5;
-        const unsigned bj = 1u << (jj[u] & 31u);
+      }
 #pragma unroll
-        for (int i = 0; i < C; ++i) {
-          if ((hi ? mw[u][2 * i + 1] : mw[u][2 * i]) & bj) {
-            acc[i] = __fadd_rn(acc[i], sv[i]);
+      for (int u = 0; u < kInFlight; ++u) {
+        const int p = p0 + kInFlight + u;
+        next[u] = p < end ? order[p] : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        if (p0 + u >= end) continue;
+        float sv[C];
+        unpack<T>(sr[u], sv);
+        if constexpr (sizeof(W) == 2) {
+          const unsigned b0 = 1u << jj[u];
+          const unsigned b1 = b0 << 16;
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            if (mw[u][i >> 1] & ((i & 1) ? b1 : b0)) {
+              acc[i] = __fadd_rn(acc[i], sv[i]);
+            }
+          }
+        } else {
+          const int hi = jj[u] >> 5;
+          const unsigned bj = 1u << (jj[u] & 31u);
+#pragma unroll
+          for (int i = 0; i < C; ++i) {
+            if ((hi ? mw[u][2 * i + 1] : mw[u][2 * i]) & bj) {
+              acc[i] = __fadd_rn(acc[i], sv[i]);
+            }
           }
         }
       }
@@ -537,6 +582,22 @@ target_sum(const T* __restrict__ split, const unsigned* __restrict__ order,
   }
   const int ch = c * C;
   store_chunk<T, kVec>(gy + st * d + ch, min(C, d - ch), acc);
+}
+
+// 5. (the gather's backward) One thread per edge e of the whole call: its
+// id at its place in the inverse list, its unit's start for its target
+// (hist, after step 2) plus its rank among the unit's edges to it.
+__global__ void __launch_bounds__(kThreads)
+place_edges(const int* __restrict__ idx, const int* __restrict__ rank,
+            const int* __restrict__ base, unsigned* __restrict__ order,
+            long long edges, int edges_bg, int m, int units_per_bg,
+            int unit_log) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= edges) return;
+  const long long bg = e / edges_bg;
+  const int el = (int)(e - bg * edges_bg);
+  order[base[(bg * units_per_bg + (el >> unit_log)) * m + idx[e]]
+        + rank[e]] = (unsigned)e;
 }
 
 struct Workspace {
@@ -573,8 +634,11 @@ int bits_for(int k) {
   return b;
 }
 
+// The workspace's parts; with_split false (the gather's backward): the
+// ranks, counts, offsets and inverse list only.
 Workspace carve(void* work, long long bgs, long long n, long long m,
-                long long d, long long k, long long elem) {
+                long long d, long long k, long long elem,
+                bool with_split = true) {
   const long long edges = bgs * n * k;
   const long long chan = 16 / elem;
   const long long nch = (d + chan - 1) / chan;
@@ -592,8 +656,11 @@ Workspace carve(void* work, long long bgs, long long n, long long m,
   w.hist = reinterpret_cast<int*>(take(bgs * units * m * 4));
   w.first = reinterpret_cast<int*>(take((bgs * m + 1) * 4));
   w.order = reinterpret_cast<unsigned*>(take(edges * 4));
-  w.mask = reinterpret_cast<unsigned*>(take(bgs * n * nch * chan * w_bytes));
-  w.split = take(bgs * n * nch * 16);
+  if (with_split) {
+    w.mask = reinterpret_cast<unsigned*>(
+        take(bgs * n * nch * chan * w_bytes));
+    w.split = take(bgs * n * nch * 16);
+  }
   w.bytes = off;
   return w;
 }
@@ -646,14 +713,12 @@ int launch_masks(const void* x, const void* y, const void* idx,
                    units_per_bg, unit_log, s);
 }
 
-template <typename T, bool kGrouped>
-int launch_all(const void* x, const void* y, const void* idx, const void* g,
-               void* gx, void* gy, void* work, int b, int groups, int n,
-               int m, int d, int k, cudaStream_t s) {
-  const long long bgs = (long long)b * groups;
-  const Workspace w = carve(work, bgs, n, m, d, k, sizeof(T));
-  const int unit_log = unit_log_for(bgs, n, k);
-  const int units_per_bg = (int)units_for(n, k, unit_log);
+// Steps 1 and 2: each edge's rank among its unit's edges to its target,
+// each target's first place in the inverse list and each unit's start.
+template <bool kGrouped>
+int launch_ranking(const void* idx, const Workspace& w, long long bgs,
+                   int groups, int n, int m, int k, int units_per_bg,
+                   int unit_log, cudaStream_t s) {
   if (units_per_bg > 0) {
     const dim3 grid(units_per_bg, (unsigned)bgs);
     const long long smem = ((1ll << unit_log) + m) * (long long)sizeof(int);
@@ -671,7 +736,19 @@ int launch_all(const void* x, const void* y, const void* idx, const void* g,
   }
   target_offsets<<<(unsigned)bgs, kScanThreads, 0, s>>>(
       w.hist, w.first, m, units_per_bg, n * k, (int)bgs);
-  const cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T, bool kGrouped>
+int launch_all(const void* x, const void* y, const void* idx, const void* g,
+               void* gx, void* gy, void* work, int b, int groups, int n,
+               int m, int d, int k, cudaStream_t s) {
+  const long long bgs = (long long)b * groups;
+  const Workspace w = carve(work, bgs, n, m, d, k, sizeof(T));
+  const int unit_log = unit_log_for(bgs, n, k);
+  const int units_per_bg = (int)units_for(n, k, unit_log);
+  const int err = launch_ranking<kGrouped>(idx, w, bgs, groups, n, m, k,
+                                           units_per_bg, unit_log, s);
   if (err != cudaSuccess) return err;
   const bool vec = d % kChan<T> == 0 && aligned(x, 16) && aligned(y, 16)
                    && aligned(g, 16) && aligned(gx, 16) && aligned(gy, 16);
@@ -697,6 +774,44 @@ int launch_typed(const void* x, const void* y, const void* idx, const void* g,
                                    m, d, k, s)
              : launch_all<T, false>(x, y, idx, g, gx, gy, work, b, 1, n, m,
                                     d, k, s);
+}
+
+// The gather's backward on checked sizes: steps 1, 2, 5 and 6.
+template <typename T>
+int launch_gather(const void* g, const void* idx, void* gy, void* work,
+                  int b, int n, int m, int d, int k, cudaStream_t s) {
+  constexpr int C = kChan<T>;
+  const int nch = (d + C - 1) / C;
+  const long long edges = (long long)b * n * k;
+  if (nch > kMaxChunks || b > 65535 || edges >= (1ll << 31)) {
+    return cudaErrorInvalidValue;
+  }
+  const Workspace w = carve(work, b, n, m, d, k, sizeof(T), false);
+  const int unit_log = unit_log_for(b, n, k);
+  const int units_per_bg = (int)units_for(n, k, unit_log);
+  int err = launch_ranking<false>(idx, w, b, 1, n, m, k, units_per_bg,
+                                  unit_log, s);
+  if (err != cudaSuccess) return err;
+  if (edges > 0) {
+    place_edges<<<(unsigned)((edges + kThreads - 1) / kThreads), kThreads, 0,
+                  s>>>(static_cast<const int*>(idx), w.rank, w.hist, w.order,
+                       edges, n * k, m, units_per_bg, unit_log);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int per_block = kThreads / nch > 1 ? kThreads / nch : 1;
+  const dim3 block(nch, per_block);
+  const dim3 grid((m + per_block - 1) / per_block, 1, b);
+  const T* gt = static_cast<const T*>(g);
+  T* gyt = static_cast<T*>(gy);
+  if (d % C == 0 && aligned(g, 16) && aligned(gy, 16)) {
+    target_sum<T, false, true, uint16_t, 4, true><<<grid, block, 0, s>>>(
+        gt, w.order, nullptr, w.first, gyt, m, d, 1, 0);
+  } else {
+    target_sum<T, false, false, uint16_t, 4, true><<<grid, block, 0, s>>>(
+        gt, w.order, nullptr, w.first, gyt, m, d, 1, 0);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -730,6 +845,31 @@ int knn_mr_backward(const void* x, const void* y, const void* idx,
   }
   return launch_typed<float>(x, y, idx, g, gx, gy, work, b, groups, n, m, d,
                              k, s);
+}
+
+// Bytes of the workspace gather_backward needs for these sizes.
+long long gather_bwd_workspace_bytes(int b, int n, int m, int d, int k,
+                                     int is_bf16) {
+  return carve(nullptr, b, n, m, d, k, is_bf16 ? 2 : 4, false).bytes;
+}
+
+// The backward of x_j = y[idx_j]: g (b, n, k, d) the gradient of the
+// gathered rows, idx (b, n, k) int32 with every entry in [0, m), gy
+// (b, m, d) written: gy[t] = the fp32 sum of g's rows over the edges to t,
+// from 0.0 in ascending edge id, rounded once. One type for g and gy
+// (is_bf16: bfloat16, else float32), all contiguous; b <= 65535,
+// b*n*k < 2**31 and at most 256 16-byte chunks in d channels (else
+// cudaErrorInvalidValue). work holds gather_bwd_workspace_bytes. Returns a
+// cudaError_t code.
+int gather_backward(const void* g, const void* idx, void* gy, void* work,
+                    int b, int n, int m, int d, int k, int is_bf16,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((long long)b * m == 0 || d == 0) return cudaSuccess;
+  if (is_bf16) {
+    return launch_gather<__nv_bfloat16>(g, idx, gy, work, b, n, m, d, k, s);
+  }
+  return launch_gather<float>(g, idx, gy, work, b, n, m, d, k, s);
 }
 
 const char* knn_mr_bwd_error_string(int code) {

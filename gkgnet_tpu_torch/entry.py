@@ -53,15 +53,18 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def entry(device: str | torch.device | None = None, batch: int = 1,
-          dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+          dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+          arch: str = "s", size: int | None = None):
     """Returns ``(fn, (model, x))`` where ``fn(model, x)`` is the eval
-    forward giving the logits ``(batch, 80)``."""
+    forward giving the logits ``(batch, 80)``; ``arch`` and ``size``
+    (default SIZE) pick another of the model's settings."""
     device = resolve_device(device)
-    model = GKGNetClassifier(arch="s", n_classes=N_CLASSES, size=SIZE,
+    size = SIZE if size is None else size
+    model = GKGNetClassifier(arch=arch, n_classes=N_CLASSES, size=size,
                              dtype=dtype)
     init_parameters(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()
-    x = torch.randn((batch, SIZE, SIZE, 3),
+    x = torch.randn((batch, size, size, 3),
                     generator=torch.Generator().manual_seed(seed))
     x = x.to(device=device, dtype=dtype)
 
@@ -82,21 +85,24 @@ def predict(model: GKGNetClassifier, images: torch.Tensor) -> torch.Tensor:
 
 
 def train_entry(device: str | torch.device | None = None, batch: int = 8,
-                dtype: torch.dtype = torch.bfloat16, seed: int = 0):
+                dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                arch: str = "s", size: int | None = None):
     """Returns ``(fn, (state, batch))`` where ``fn(state, batch)`` takes one
-    training step and returns ``(state, log_vars)``: GKGNet-S@576 with
+    training step and returns ``(state, log_vars)``: GKGNet-S@576 (or
+    ``arch`` at ``size``, default SIZE) with
     drop_path 0.1, AdamW (lr 1e-4 stepped at epochs 10 and 50 of 1000
     steps, 5000 warmup steps, wd 0.05, clip 5) and an EMA of momentum 2e-4;
     seeded standard-normal images and multi-hot labels (each class on with
     probability 0.05), as ``bench.py``'s ``bench_train`` makes them."""
     device = resolve_device(device)
-    model = GKGNetClassifier(arch="s", n_classes=N_CLASSES, size=SIZE,
+    size = SIZE if size is None else size
+    model = GKGNetClassifier(arch=arch, n_classes=N_CLASSES, size=size,
                              drop_path=0.1, dtype=dtype)
     init_parameters(model, torch.Generator().manual_seed(seed))
     model = model.to(device).train()
     rng = np.random.default_rng(seed)
     images = torch.from_numpy(
-        rng.standard_normal((batch, SIZE, SIZE, 3), dtype=np.float32))
+        rng.standard_normal((batch, size, size, 3), dtype=np.float32))
     labels = torch.from_numpy(rng.random((batch, N_CLASSES)) < 0.05)
     data = {"img": images.to(device=device, dtype=dtype),
             "gt_label": labels.to(device=device, dtype=torch.float32)}
@@ -150,13 +156,14 @@ def launch_counts() -> dict:
                 knn_mr_backward=knn_mr.backward_launches,
                 knn_mr_grouped=knn_mr.grouped_launches,
                 knn_mr_normalize=knn_mr.normalize_launches,
-                knn_topk=knn_topk.launches)
+                knn_topk=knn_topk.launches,
+                gather_backward=knn_mr.gather_backward_launches)
 
 
 def _reset_counts() -> None:
     knn_mr.launches = knn_mr.backward_launches = 0
     knn_mr.grouped_launches = knn_topk.launches = 0
-    knn_mr.normalize_launches = 0
+    knn_mr.normalize_launches = knn_mr.gather_backward_launches = 0
 
 
 def _timed(device: torch.device, fn):

@@ -44,10 +44,12 @@ the plain PyTorch versions of the same functions.
 kernel's summation order, a check. ``launch_normalize`` launches the
 forward's row normalization (``l2norm_rows``) alone: rows normalized bit
 for bit as the fused forward normalizes them, for the edge-partitioned
-builds that rank rows with ``knn_topk``. ``launches``,
-``grouped_launches``, ``backward_launches`` and ``normalize_launches``
-count the kernels' launches (one backward launch per call, folded or
-grouped).
+builds that rank rows with ``knn_topk``. ``launch_gather_backward``
+launches the same file's ``gather_backward``, the backward of
+``aggregate.gather_nodes`` on the card. ``launches``, ``grouped_launches``,
+``backward_launches``, ``normalize_launches`` and
+``gather_backward_launches`` count the kernels' launches (one backward
+launch per call, folded or grouped).
 """
 
 from __future__ import annotations
@@ -59,8 +61,10 @@ import functools
 import torch
 
 from gkgnet_tpu_torch.ops import _build
-from gkgnet_tpu_torch.ops.aggregate import (fold_groups, gather_nodes,
-                                            max_relative, unfold_groups)
+from gkgnet_tpu_torch.ops.aggregate import (
+    _flat_targets, check_gather_backward, fold_groups,
+    gather_backward_ordered_reference, gather_backward_reference,
+    gather_nodes, max_relative, unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (dilate_edges, knn_topk_reference,
                                       l2_normalize)
 
@@ -69,10 +73,12 @@ launches = 0
 grouped_launches = 0
 backward_launches = 0
 normalize_launches = 0
+gather_backward_launches = 0
 
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
 MAX_BWD_K = 64  # largest k of the backward kernel's per-channel tie masks
 MAX_BWD_CHUNKS = 256  # most 16-byte chunks of a row in the backward kernel
+MAX_GATHER_BATCH = 65535  # most batch rows of the gather backward's grid
 
 # A test hook: the folded forward takes its D-chunked scan at every width
 # (the results are bitwise the same); by default it takes it only where the
@@ -322,6 +328,11 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.knn_mr_bwd_workspace_bytes.restype = ctypes.c_longlong
         lib.knn_mr_bwd_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_bwd_error_string.restype = ctypes.c_char_p
+        lib.gather_backward.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.gather_backward.restype = ctypes.c_int
+        lib.gather_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 6
+        lib.gather_bwd_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -356,12 +367,6 @@ def edge_gradients_reference(x: torch.Tensor, y: torch.Tensor,
     return torch.where(tie, g.float()[:, :, None, :] / cnt, 0.0).to(x.dtype)
 
 
-def _flat_targets(idx: torch.Tensor, m: int) -> torch.Tensor:
-    """idx (BG, N, k) -> flat target rows ``bg * M + idx`` (int64)."""
-    base = torch.arange(idx.shape[0], device=idx.device) * m
-    return (idx.long() + base[:, None, None]).reshape(-1)
-
-
 def knn_mr_backward_reference(x: torch.Tensor, y: torch.Tensor,
                               idx: torch.Tensor, g: torch.Tensor
                               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -369,12 +374,8 @@ def knn_mr_backward_reference(x: torch.Tensor, y: torch.Tensor,
     (see the module docstring); gy is summed in fp32 and rounded once to
     y's type."""
     _check_backward(x, y, idx, g)
-    bg, _, d = x.shape
-    m = y.shape[1]
     ge = edge_gradients_reference(x, y, idx, g)
-    gy = torch.zeros((bg * m, d), dtype=torch.float32, device=y.device)
-    gy.index_add_(0, _flat_targets(idx, m), ge.reshape(-1, d).float())
-    return -g, gy.reshape(bg, m, d).to(y.dtype)
+    return -g, gather_backward_reference(ge, idx, y.shape[1])
 
 
 def knn_mr_backward_ordered_reference(x: torch.Tensor, y: torch.Tensor,
@@ -383,26 +384,11 @@ def knn_mr_backward_ordered_reference(x: torch.Tensor, y: torch.Tensor,
     """The plain backward with the kernel's summation order: ``(gx, gy)``
     as ``knn_mr_backward_reference``, but each target's fp32 sum starts at
     0.0 and runs over its edges in ascending edge id ``(bg*N + n)*k + j``,
-    one add per edge. A loop over the rank r within the target: the r-th
-    edge's row of ``edge_gradients_reference`` is gathered and added to
-    every target with more than r edges. Slow (one pass per rank up to the
-    largest in-degree); a check, never the CPU path."""
+    one add per edge (``gather_backward_ordered_reference`` of the edge
+    gradients). Slow; a check, never the CPU path."""
     _check_backward(x, y, idx, g)
-    bg, _, d = x.shape
-    m = y.shape[1]
-    ge = edge_gradients_reference(x, y, idx, g).reshape(-1, d)
-    flat = _flat_targets(idx, m)
-    order = torch.sort(flat, stable=True).indices  # by (target, edge id)
-    count = torch.bincount(flat, minlength=bg * m)
-    first = torch.cumsum(count, 0) - count
-    # at rank r the targets with more than r edges: a prefix of this order
-    by_degree = torch.sort(count, descending=True, stable=True).indices
-    alive = (count.numel() - torch.cumsum(torch.bincount(count), 0)).tolist()
-    acc = torch.zeros((bg * m, d), dtype=torch.float32, device=y.device)
-    for r, live in enumerate(alive[:-1]):
-        t = by_degree[:live]
-        acc[t] = acc[t] + ge[order[first[t] + r]].float()
-    return -g, acc.reshape(bg, m, d).to(y.dtype)
+    ge = edge_gradients_reference(x, y, idx, g)
+    return -g, gather_backward_ordered_reference(ge, idx, y.shape[1])
 
 
 @functools.lru_cache(maxsize=64)
@@ -477,6 +463,58 @@ def launch_backward(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
     forward's, with every entry in [0, M). Returns ``(gx, gy)``."""
     _check_backward(x, y, idx, g)
     return _launch_bwd(x, y, idx, g, x.shape[0], 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _gather_workspace_bytes(b: int, n: int, m: int, c: int, k: int,
+                            is_bf16: int) -> int:
+    return _bwd_lib().gather_bwd_workspace_bytes(b, n, m, c, k, is_bf16)
+
+
+def launch_gather_backward(g: torch.Tensor, idx: torch.Tensor,
+                           m: int) -> torch.Tensor:
+    """Launch ``csrc/knn_mr_bwd.cu``'s ``gather_backward``, the backward of
+    ``aggregate.gather_nodes``, on g ``(B, N, k, C)`` bfloat16 or float32
+    and idx ``(B, N, k)`` on one card, every entry in [0, m): gy
+    ``(B, m, C)``, bitwise ``aggregate.gather_backward_ordered_reference``
+    (each target's fp32 sum in ascending edge id, no float atomics)."""
+    global gather_backward_launches
+    check_gather_backward(g, idx)
+    if not g.is_cuda or idx.device != g.device:
+        raise ValueError(f"g and idx must be on one CUDA device, got "
+                         f"{g.device} and {idx.device}")
+    if g.dtype not in _DTYPES:
+        raise TypeError(f"the gather backward kernel takes {_DTYPES}, got "
+                        f"{g.dtype}")
+    b, n, k, c = g.shape
+    chunks = -(-c * g.element_size() // 16)
+    if chunks > MAX_BWD_CHUNKS or b > MAX_GATHER_BATCH \
+            or b * n * k >= 2 ** 31:
+        raise ValueError(f"the gather backward kernel takes rows of at most "
+                         f"{MAX_BWD_CHUNKS} 16-byte chunks, at most "
+                         f"{MAX_GATHER_BATCH} batch rows and fewer than "
+                         f"2**31 edges, got {chunks} chunks, {b} rows and "
+                         f"{b * n * k} edges")
+    g = g.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    gy = torch.empty((b, m, c), dtype=g.dtype, device=g.device)
+    lib = _bwd_lib()
+    is_bf16 = int(g.dtype == torch.bfloat16)
+    dev = g.get_device()
+    work = torch.empty(_gather_workspace_bytes(b, n, m, c, k, is_bf16),
+                       dtype=torch.uint8, device=g.device)
+    with (torch.cuda.device(dev) if dev != torch.cuda.current_device()
+          else contextlib.nullcontext()):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gather_backward(g.data_ptr(), idx.data_ptr(), gy.data_ptr(),
+                                  work.data_ptr(), b, n, m, c, k, is_bf16,
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"gather backward kernel launch failed: "
+                           f"{lib.knn_mr_bwd_error_string(err).decode()} "
+                           f"({err})")
+    gather_backward_launches += 1
+    return gy
 
 
 def _check_backward_grouped(x: torch.Tensor, y: torch.Tensor,

@@ -204,8 +204,9 @@ def label_sharded_knn_mr(mesh: Mesh, x: torch.Tensor, y: torch.Tensor, *,
         lidx = (idx - offset).clamp(0, m_l - 1)
     x_j = torch.where(local[..., None], gather_nodes(y, lidx), 0.0)
     x_j = collectives.all_reduce_replicated(x_j.to(y.dtype), group)
-    mr = torch.amax(x_j.float() - x.float()[:, :, None, :], dim=2)
-    return idx, mr.to(x.dtype)
+    # in the input type, as max_relative: the max's gradient splits over
+    # the fused kernel's (and the JAX build's) tie sets
+    return idx, torch.amax(x_j - x[:, :, None, :], dim=2)
 
 
 def replicated_knn_mr(mesh: Mesh, x: torch.Tensor, y: torch.Tensor, *,

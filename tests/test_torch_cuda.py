@@ -25,9 +25,10 @@ from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
                                            make_train_step)
 from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier, init_parameters  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
-from gkgnet_tpu_torch.ops import knn_mr, knn_topk  # noqa: E402
+from gkgnet_tpu_torch.ops import aggregate, knn_mr, knn_topk  # noqa: E402
 from gkgnet_tpu_torch.ops.aggregate import (fold_groups,  # noqa: E402
-                                            max_relative, unfold_groups)
+                                            gather_nodes, max_relative,
+                                            unfold_groups)
 from gkgnet_tpu_torch.ops.knn import (knn_graph,  # noqa: E402
                                       knn_topk_reference, l2_normalize)
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table  # noqa: E402
@@ -1259,3 +1260,69 @@ def test_registered_op_raises_where_its_kernel_cannot_run(cuda):
     with pytest.raises(ValueError, match="exceeds"):
         knn_mr.knn_mr_fused(x, y, None, 33, 2)
     knn_mr.knn_mr_fused(x.cpu(), y.cpu(), None, 33, 2)
+
+
+# The gather's backward (csrc/knn_mr_bwd.cu gather_backward): (b, n, k, m,
+# c) at the label-sharded build's s@576 shapes (BG 16, 80 label rows, k 9,
+# half the stage's targets), a spatial gather with hub targets (many
+# queries, few targets), rows not whole 16-byte chunks, fp32 at the
+# widest row, one edge per row.
+GATHER_SHAPES = [(16, 80, 9, 10368, 40), (16, 80, 9, 162, 320),
+                 (4, 4096, 9, 64, 80), (3, 50, 5, 7, 33),
+                 (2, 300, 18, 40, 1024), (2, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,k,m,c", GATHER_SHAPES)
+def test_gather_backward_kernel_is_the_ordered_sum(cuda, b, n, k, m, c,
+                                                   dtype):
+    """The kernel's gy is bitwise each target's fp32 sum in ascending edge
+    id (``gather_backward_ordered_reference``, computed on the CPU), a
+    second launch is bitwise the first (no float atomics), and each launch
+    is counted; targets without an edge get 0."""
+    gen = torch.Generator().manual_seed(b * n + c)
+    g = torch.randn((b, n, k, c), generator=gen).to(dtype)
+    # a hub: a quarter of the edges on target 0
+    idx = torch.randint(0, m, (b, n, k), generator=gen, dtype=torch.int32)
+    idx[:, : n // 4 + 1, 0] = 0
+    want = aggregate.gather_backward_ordered_reference(g, idx, m)
+    before = knn_mr.gather_backward_launches
+    got = knn_mr.launch_gather_backward(g.to(cuda), idx.to(cuda), m)
+    again = knn_mr.launch_gather_backward(g.to(cuda), idx.to(cuda), m)
+    torch.cuda.synchronize()
+    assert knn_mr.gather_backward_launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_gather_nodes_backward_on_the_card_runs_the_kernel(cuda, dtype):
+    """``gather_nodes``'s gradient on a CUDA tensor is the kernel's,
+    bitwise the CPU's plain version on the same inputs, and the same over
+    two runs; max_relative (the ring's and the non-fused aggregators'
+    route) reaches it through its gather in the input type, bf16 rows
+    included."""
+    gen = torch.Generator().manual_seed(5)
+    y = torch.randn((4, 97, 48), generator=gen).to(dtype)
+    x = torch.randn((4, 200, 48), generator=gen).to(dtype)
+    idx = torch.randint(0, 97, (4, 200, 9), generator=gen)
+    g = torch.randn((4, 200, 9, 48), generator=gen).to(dtype)
+    grads = []
+    for dev in ("cpu", cuda, cuda):
+        yd = y.to(dev, copy=True).requires_grad_()
+        before = knn_mr.gather_backward_launches
+        gather_nodes(yd, idx.to(dev)).backward(g.to(dev))
+        assert knn_mr.gather_backward_launches == before + \
+            (dev != "cpu")
+        grads.append(yd.grad.cpu())
+    assert torch.equal(grads[1], grads[0]) and torch.equal(grads[2],
+                                                           grads[0])
+    gm = torch.randn((4, 200, 48), generator=gen).to(dtype)
+    got = []
+    for dev in ("cpu", cuda):
+        yd = y.to(dev, copy=True).requires_grad_()
+        max_relative(x.to(dev), idx.to(dev), yd).backward(gm.to(dev))
+        got.append(yd.grad.cpu())
+    assert torch.equal(got[1], got[0])

@@ -189,3 +189,30 @@ def test_test_cli_two_ranks_match_one(trained, tmp_path, mesh):
     print(f"{mesh}: largest score gap {gap:.3e}")
     assert gap <= 1e-5
     assert abs(metrics_two["mAP"] - metrics_one["mAP"]) <= 1e-4
+
+
+def test_test_cli_data_ranks_score_as_one_process_on_their_batches(
+        trained, tmp_path):
+    """The test CLI on 2 data ranks scores each image bitwise as one
+    process does that is fed the same batches: the annotation reordered
+    so that one rank's batches of 2 are the data ranks' own (rank r's rows
+    r::2, in order), the scores put back in dataset order. Any gap to the
+    1-rank run on the dataset's own batches (the test above, 1e-5) is then
+    the batch composition's, not the ranks'."""
+    cfg, work, _ = trained
+    ckpt = os.path.join(work, "checkpoints")
+    ann = train_cli.load_config(cfg, []).data["test"]["ann_file"]
+    with open(ann, "rb") as f:
+        records = pickle.load(f)
+    order = list(range(0, len(records), 2)) + list(range(1, len(records), 2))
+    ranked = tmp_path / "ranked.data"
+    with open(ranked, "wb") as f:
+        pickle.dump([records[i] for i in order], f)
+    two, _ = _test_cli(tmp_path, 2, cfg, ckpt, "--cfg-options",
+                       "mesh.data=2")
+    one, _ = _test_cli(tmp_path, 1, cfg, ckpt, "--cfg-options",
+                       f"data.test.ann_file={ranked}")
+    back = np.empty_like(one)
+    back[order] = one
+    assert two.shape == (8, 80)
+    np.testing.assert_array_equal(two, back)

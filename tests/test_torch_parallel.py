@@ -246,6 +246,69 @@ def test_label_sharded_knn_mr_grad(world):
                                rtol=1e-5)
 
 
+def _jax_build_grads(case: dict, dtype=jnp.float32, idx=None) -> tuple:
+    """``jax.grad`` of sum(mr^2) (taken in fp32) through the JAX package's
+    unsharded build (``knn_graph`` + ``dilate_edges`` + ``max_relative``)
+    on the case's inputs in ``dtype``: the partitioned builds' contract.
+    With ``idx`` the graph is that one (the build gets no gradient)."""
+    from gkgnet_tpu.ops.aggregate import max_relative
+    from gkgnet_tpu.ops.knn import dilate_edges, knn_graph
+
+    k, d = case["k"], case.get("d", 1)
+    bias = None if case.get("bias") is None else jnp.asarray(case["bias"])
+
+    def loss_ref(x_, y_):
+        edges = idx if idx is not None else dilate_edges(
+            knn_graph(x_, y_, k=k * d, bias=bias), dilation=d)
+        mr = max_relative(x_, edges, y_).astype(jnp.float32)
+        return jnp.sum(mr ** 2)
+
+    return jax.grad(loss_ref, argnums=(0, 1))(
+        jnp.asarray(case["x"]).astype(dtype),
+        jnp.asarray(case["y"]).astype(dtype))
+
+
+def test_ring_gradients_match_jax(world):
+    """The ring's gradients of sum(mr^2) (graph 4, with the bias; y's
+    through the ordered-sum gather backward of its max-relative) against
+    ``jax.grad`` of the unsharded JAX build within 1e-5, the label build's
+    tolerance below."""
+    inputs, results = world
+    gx_r, gy_r = _jax_build_grads(inputs["bias_case"])
+    gx = _assemble(results, "ring_bias", "gx", "m14", 1, 4)
+    gy = _assemble(results, "ring_bias", "gy", "m14", 1, 4)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(gx_r), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(gy_r), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("name,case,coords,parts", [
+    ("label_grad_bf16", "label_grad_case", "m22", (2, 2)),
+    ("ring_bf16", "bias_case", "m14", (1, 4))])
+def test_partitioned_y_gradients_in_bf16_match_jax(world, name, case,
+                                                   coords, parts):
+    """y's bf16 gradients of sum(mr^2) through the label-sharded build (its
+    owner-side fetch) and the ring (its max-relative), both through the
+    ordered-sum gather backward on bf16 rows, assembled over the shards,
+    against ``jax.grad`` of the JAX package's bf16 max-relative on the same
+    inputs and the port's graph (bf16 distances may rank near-ties
+    otherwise than the JAX build's). The edges' gradients agree (each
+    rel_j rounded to bf16, the tie sets and the split g / cnt alike); the
+    JAX scatter-add rounds each of a target's few adds to bf16 (2**-9 of
+    the running sum apiece) where the port rounds its fp32 sum once:
+    2**-6 of the largest |gy|."""
+    inputs, results = world
+    idx = _assemble(results, name, "idx", coords, parts[0], 1 if
+                    name.startswith("label") else parts[1])
+    _, gy_r = _jax_build_grads(inputs[case], jnp.bfloat16,
+                               jnp.asarray(idx.numpy()))
+    gy = _assemble(results, name, "gy", coords, *parts).float()
+    ref = np.asarray(gy_r.astype(jnp.float32))
+    np.testing.assert_allclose(gy.numpy(), ref, rtol=2 ** -6,
+                               atol=2 ** -6 * np.abs(ref).max())
+
+
 def test_batchnorm_over_data_group_is_global_bn(world):
     """The data-group BatchNorm (4 ranks of 4 rows) against the JAX
     package's BatchNorm over the global 16 rows: out 1e-5, running mean

@@ -37,11 +37,15 @@ def _block(t: torch.Tensor, dim: int, parts: int, i: int) -> torch.Tensor:
     return t.narrow(dim, i * n, n).contiguous()
 
 
-def _edges(mesh, case: dict, overlap: bool) -> dict:
+def _edges(mesh, case: dict, overlap: bool,
+           dtype: torch.dtype = torch.float32) -> dict:
     """edge_partitioned_knn_mr on this rank's block of the batch (data) and
-    of the queries and targets (graph), with the gradients of sum(mr^2)."""
+    of the queries and targets (graph), in ``dtype``, with the gradients of
+    sum(mr^2) (taken in fp32)."""
     x, y, bias = (None if case.get(k) is None else _t(case[k])
                   for k in ("x", "y", "bias"))
+    x = x.to(dtype)
+    y = None if y is None else y.to(dtype)
     x = _block(x, 0, mesh.data, mesh.data_rank)
     x_l = _block(x, 1, mesh.graph, mesh.graph_rank).requires_grad_()
     y_l = None
@@ -52,7 +56,7 @@ def _edges(mesh, case: dict, overlap: bool) -> dict:
         bias = _block(bias, 0, mesh.graph, mesh.graph_rank)
     idx, mr = ep.edge_partitioned_knn_mr(mesh, x_l, y_l, bias, k=case["k"],
                                          dilation=case["d"], overlap=overlap)
-    mr.square().sum().backward()
+    mr.float().square().sum().backward()
     return dict(idx=idx, mr=mr.detach(), gx=x_l.grad,
                 gy=None if y_l is None else y_l.grad)
 
@@ -78,15 +82,16 @@ def _edges_whole(mesh, case: dict) -> dict:
                 gy=None if y is None else y.grad)
 
 
-def _label(mesh, case: dict) -> dict:
+def _label(mesh, case: dict, dtype: torch.dtype = torch.float32) -> dict:
     """label_sharded_knn_mr on this rank's batch rows and block of targets,
-    with the gradients of sum(mr^2) (x whole, y this rank's block)."""
-    x = _block(_t(case["x"]), 0, mesh.data, mesh.data_rank)
+    in ``dtype``, with the gradients of sum(mr^2) (taken in fp32; x whole,
+    y this rank's block)."""
+    x = _block(_t(case["x"]), 0, mesh.data, mesh.data_rank).to(dtype)
     x.requires_grad_()
-    y = _block(_t(case["y"]), 0, mesh.data, mesh.data_rank)
+    y = _block(_t(case["y"]), 0, mesh.data, mesh.data_rank).to(dtype)
     y_l = _block(y, 1, mesh.graph, mesh.graph_rank).requires_grad_()
     idx, mr = ep.label_sharded_knn_mr(mesh, x, y_l, k=case["k"])
-    mr.square().sum().backward()
+    mr.float().square().sum().backward()
     r_idx, r_mr = ep.replicated_knn_mr(mesh, x.detach(), y, k=case["k"])
     return dict(idx=idx, mr=mr.detach(), gx=x.grad, gy=y_l.grad,
                 replicated_idx=r_idx, replicated_mr=r_mr)
@@ -209,6 +214,10 @@ def run_cases(inputs: dict) -> dict:
     out["whole_self"] = _edges_whole(m22, inputs["self_case"])
     out["label"] = _label(m22, inputs["label_case"])
     out["label_grad"] = _label(m22, inputs["label_grad_case"])
+    out["label_grad_bf16"] = _label(m22, inputs["label_grad_case"],
+                                    torch.bfloat16)
+    out["ring_bf16"] = _edges(m14, inputs["bias_case"], overlap=True,
+                              dtype=torch.bfloat16)
     out["batchnorm"] = _batchnorm(m41, inputs["bn_x"], inputs["bn_w"])
     for overlap in (False, True):
         out[f"forward_{overlap}"] = _forward(
