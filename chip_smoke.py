@@ -49,7 +49,9 @@ Phases (each prints its elapsed seconds):
      fp32 (TF32 off): each of the 16 calls held against the plain version on
      the forward's own activations, and the logits of the kernel path and
      the plain paths printed (see compare_fp32_paths for why they are not
-     held to a tolerance);
+     held to a tolerance); then the fp32 eval forward at batch 8 timed
+     (CUDA events, 2 warmup, the mean of 10: 16 knn_mr launches a forward)
+     and profiled, with the fp32 knn_mr kernel's share of its device time;
   5. train: train_entry(device="cuda", batch=8) in bf16 for 3 steps: 16
      forward and 16 backward launches per step, finite losses and gradient
      norm, parameters and BatchNorm statistics moved, the EMA between the
@@ -169,8 +171,9 @@ Phases (each prints its elapsed seconds):
      distinct call shape of the forward held to its plain version on the
      model's own activations (``row`` lines: (a)-(d) of phase 3, the
      whole-row layout at every one), and at stage 3 (D 256), stage 4 and
-     label 4 (D 512), in bf16 and fp32, the D-chunked scan forced on the
-     same call: bitwise equal, both timed (``chunk_row`` lines); 3 train
+     label 4 (D 512), in bf16 the D-chunked scan forced on the same call,
+     in fp32 another block (query rows and column groups) than the host's:
+     bitwise equal, both timed (``chunk_row`` lines); 3 train
      steps of make_train_step
      (dual loss, AdamW, EMA, drop_path 0.2): 28 + 28 launches per step,
      finite losses, every parameter moved; ms/step, peak memory, a
@@ -180,7 +183,7 @@ Phases (each prints its elapsed seconds):
      of a scalar of its outputs: 28 + 28 launches; its D = 1024 calls (2
      stage-4 Graphers at N = M = 324, k 9, dilation 5; the stage-4 label
      call at N 80, M 324) held to the plain version in bf16 and in fp32
-     (``row`` lines, each on the D-chunked scan), knn_topk at D = 1024
+     (``row`` lines, bf16 on the D-chunked scan), knn_topk at D = 1024
      (``topk_row`` lines: the oracle, the value bound, determinism) and
      their backward (``bwd_row`` lines: gx bitwise -g, gy bitwise the
      ordered plain version); (c) two train steps at batch 2 of a t@224
@@ -489,10 +492,12 @@ def print_ptxas_summary(compiler_log: str) -> None:
                     parts.append(f"{args.group(4)} edges in flight")
             name = bwd.group(1) + (f"<{', '.join(parts)}>" if parts else "")
         elif fn:
-            # the tensor-core kernels are bf16 only: no type argument;
-            # knn_topk's one flag is its chunked scan, knn_mr's the grouped
-            # route (its chunked scan is the flag after the phase)
-            dtype = "fp32" if fn.group(2) == "f" else "bf16"
+            # the tensor-core kernels are bf16 only and the CUDA-core
+            # ones fp32 only: no type argument; knn_topk_tc_kernel's one
+            # flag is its chunked scan, knn_mr's the grouped route (its
+            # chunked scan is the flag after the phase)
+            dtype = "fp32" if fn.group(2) == "f" or fn.group(1) in (
+                "knn_mr_kernel", "knn_topk_kernel") else "bf16"
             phase = int(fn.group(5) or 0)  # knn_mr_kernel's: 0 the forward
             topk = fn.group(1).startswith("knn_topk")
             name = f"{fn.group(1)}<{dtype}" + "".join(
@@ -610,6 +615,27 @@ def compare_fp32_paths() -> None:
         f"{rel(plain_card, plain_cpu):.3e}")
 
 
+def fp32_eval_time() -> dict:
+    """GKGNet-S@576's eval forward at batch 8 in fp32 (TF32 off, as
+    compare_fp32_paths sets it): ms/forward (CUDA events, 2 warmup, the
+    mean of 10) and the fp32 knn_mr kernel's share of the device time."""
+    fn, (model, x) = entry(device="cuda", batch=8, dtype=torch.float32)
+    knn_mr.launches = 0
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(model, x), 10, 2)
+    check(knn_mr.launches == 12 * 16, f"fp32 batch 8: {knn_mr.launches} "
+          f"knn_mr launches in 12 forwards, expected {12 * 16}")
+    with torch.no_grad():
+        prof = profile_device(lambda: fn(model, x), "forward")
+    mr_ms = prof["ours"].get("knn_mr_kernel", 0.0)
+    log(f"model fp32 batch 8: {ms:.2f} ms/forward, {8e3 / ms:.1f} img/s; "
+        f"the fp32 knn_mr kernel {mr_ms:.3f} ms of {prof['busy']:.2f} ms "
+        f"device time per forward ({100 * mr_ms / prof['busy']:.1f} %)")
+    del model, x
+    torch.cuda.empty_cache()
+    return dict(ms=ms, busy_ms=prof["busy"], knn_mr_ms=mr_ms)
+
+
 def kernel_rows(rows: list = ROWS, bg: int = BG, tag: str = "row"
                 ) -> list[dict]:
     """Phase 3 (and phase 11 at VOC@448's shapes): every main-path shape of
@@ -696,9 +722,10 @@ def forward_row(name: str, x, y, bias, k: int, dil: int, calls: int, gen,
     flops = 2.0 * bg * n * m * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    smem, chunked = knn_mr.block_layout(d, k * dil, dtype)
+    smem, chunked = knn_mr.block_layout(d, k * dil, dtype, bg, n, m)
+    block = knn_mr.fp32_block(bg, n, m, k * dil) if dt == "fp32" else None
     row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, kd=k * dil,
-               smem_bytes=smem, chunked=chunked,
+               smem_bytes=smem, chunked=chunked, block=block,
                calls_per_forward=calls, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1087,7 +1114,8 @@ def topk_rows() -> list[dict]:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3
         row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
-                   smem_bytes=knn_topk.block_layout(d, k, dtype)[0],
+                   smem_bytes=knn_topk.block_layout(d, k, dtype, bg,
+                                                    n, m)[0],
                    calls_per_pass=1 if pass_ == "agg" else 0,
                    calls_per_stochastic_pass=1 if pass_ == "stoch" else 0,
                    ms=ms, plain_ms=plain_ms, two_call_ms=two_call_ms,
@@ -2634,9 +2662,11 @@ def topk_wide_row(name: str, xn, yn, bias, k: int) -> dict:
               + (0 if bias is None else bias.nbytes) + idx.nbytes)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * bg * n * m * d / PEAK_FLOPS[dt] * 1e3
-    smem, chunked = knn_topk.block_layout(d, k, xn.dtype)
+    smem, chunked = knn_topk.block_layout(d, k, xn.dtype, bg, n, m)
+    block = knn_topk.fp32_block(bg, n, m, k) if dt == "fp32" else None
     row = dict(name=name, dtype=dt, BG=bg, N=n, M=m, D=d, k=k,
-               smem_bytes=smem, chunked=chunked, calls_per_pass=0,
+               smem_bytes=smem, chunked=chunked, block=block,
+               calls_per_pass=0,
                calls_per_stochastic_pass=0, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2647,8 +2677,9 @@ def topk_wide_row(name: str, xn, yn, bias, k: int) -> dict:
 
 @contextlib.contextmanager
 def forced_chunked():
-    """knn_mr's and knn_topk's D-chunked scans at every width, through the
-    modules' test hooks (their results are bitwise the whole-row scans')."""
+    """knn_mr's and knn_topk's bf16 D-chunked scans at every width, through
+    the modules' test hooks (their results are bitwise the whole-row
+    scans'; the fp32 kernels have one layout for every width)."""
     saved = knn_mr._FORCE_CHUNKED, knn_topk._FORCE_CHUNKED
     knn_mr._FORCE_CHUNKED = knn_topk._FORCE_CHUNKED = True
     try:
@@ -2657,43 +2688,75 @@ def forced_chunked():
         knn_mr._FORCE_CHUNKED, knn_topk._FORCE_CHUNKED = saved
 
 
+@contextlib.contextmanager
+def fp32_block(block):
+    """knn_mr's and knn_topk's fp32 blocks at ``block`` (query rows, column
+    groups) instead of the host's choice, through the modules' test hooks
+    (their results are bitwise the same)."""
+    saved = knn_mr._FP32_BLOCK, knn_topk._FP32_BLOCK
+    knn_mr._FP32_BLOCK = knn_topk._FP32_BLOCK = block
+    try:
+        yield
+    finally:
+        knn_mr._FP32_BLOCK, knn_topk._FP32_BLOCK = saved
+
+
+def other_block(bg: int, n: int, m: int, kd: int) -> tuple[int, int]:
+    """A fp32 block other than the one the host picks for the call: 64
+    query rows and one column group, or 8 rows and 4 groups where the host
+    picks that."""
+    return ((8, 4) if knn_mr.fp32_block(bg, n, m, kd) == (64, 1)
+            else (64, 1))
+
+
 def chunk_row(name: str, x, y, bias, k: int, dil: int) -> dict:
-    """A call whose whole-row layout fits, on that layout and on the
-    D-chunked scan forced: knn_mr's idx, mr and normalized rows and
-    knn_topk's idx and values bitwise equal, and the times of both (CUDA
-    events, in turns: whole, chunked, chunked, whole)."""
+    """A call on two layouts of the same kernel, whose results must be
+    bitwise alike: in bf16 the whole-row layout (which fits) and the
+    D-chunked scan forced; in fp32 the block the host picks and
+    other_block's. knn_mr's idx, mr and normalized rows and knn_topk's idx
+    and values bitwise equal, and the times of both (CUDA events, in turns:
+    first, second, second, first)."""
+    bg, n, d = x.shape
+    kd = k * dil
+    if x.dtype == torch.bfloat16:
+        alt, what = forced_chunked, "the chunked scan"
+        check(not knn_mr.block_layout(d, kd, x.dtype)[1],
+              f"{name}: the whole-row layout does not fit")
+    else:
+        block = other_block(bg, n, y.shape[1], kd)
+        alt, what = (lambda: fp32_block(block)), f"the block {block}"
     whole = knn_mr.launch(x, y, bias, k, dil)
-    with forced_chunked():
+    with alt():
         forced = knn_mr.launch(x, y, bias, k, dil)
-    check(not knn_mr.block_layout(x.shape[2], k * dil, x.dtype)[1]
-          and all(torch.equal(bits(a) if a.is_floating_point() else a,
-                              bits(c) if c.is_floating_point() else c)
-                  for a, c in zip(whole, forced)),
-          f"{name}: the chunked scan differs from the whole-row layout")
+    check(all(torch.equal(bits(a) if a.is_floating_point() else a,
+                          bits(c) if c.is_floating_point() else c)
+              for a, c in zip(whole, forced)),
+          f"{name}: {what} differs from the default layout")
     xn, yn = whole[2], whole[3]
-    t_whole = knn_topk.launch(xn, yn, k=k * dil, bias=bias,
-                              return_values=True)
-    with forced_chunked():
-        t_forced = knn_topk.launch(xn, yn, k=k * dil, bias=bias,
+    t_whole = knn_topk.launch(xn, yn, k=kd, bias=bias, return_values=True)
+    with alt():
+        t_forced = knn_topk.launch(xn, yn, k=kd, bias=bias,
                                    return_values=True)
     check(torch.equal(t_whole[0], t_forced[0])
           and torch.equal(bits(t_whole[1]), bits(t_forced[1])),
-          f"{name}: knn_topk's chunked scan differs")
+          f"{name}: knn_topk on {what} differs")
     times = {}
     for key, forced, fn in (
             ("ms", False, lambda: knn_mr.launch(x, y, bias, k, dil)),
-            ("chunked_ms", True, lambda: knn_mr.launch(x, y, bias, k, dil)),
-            ("topk_ms", False, lambda: knn_topk.launch(xn, yn, k=k * dil,
+            ("alt_ms", True, lambda: knn_mr.launch(x, y, bias, k, dil)),
+            ("topk_ms", False, lambda: knn_topk.launch(xn, yn, k=kd,
                                                        bias=bias)),
-            ("topk_chunked_ms", True, lambda: knn_topk.launch(
-                xn, yn, k=k * dil, bias=bias))):
-        with forced_chunked() if forced else contextlib.nullcontext():
+            ("topk_alt_ms", True, lambda: knn_topk.launch(
+                xn, yn, k=kd, bias=bias))):
+        with alt() if forced else contextlib.nullcontext():
             times[key] = cuda_ms(fn, 20, 3)
     times["ms"] = (times["ms"] + cuda_ms(lambda: knn_mr.launch(
         x, y, bias, k, dil), 20, 3)) / 2
-    bg, n, d = x.shape
     row = dict(name=name, dtype="bf16" if x.dtype == torch.bfloat16
-               else "fp32", BG=bg, N=n, M=y.shape[1], D=d, kd=k * dil,
+               else "fp32", BG=bg, N=n, M=y.shape[1], D=d, kd=kd,
+               alt="D-chunked" if x.dtype == torch.bfloat16
+               else f"block {knn_mr.fp32_block(bg, n, y.shape[1], kd)} "
+               f"vs {block}",
                **times)
     print("chunk_row " + json.dumps(row), flush=True)
     return row
@@ -2859,7 +2922,8 @@ def arch_b_phase(smi: str) -> dict:
             yy = xx if y is x else y.detach().to(dtype)
             tag = name if dtype == torch.bfloat16 else f"{name}_fp32"
             row = forward_row(tag, xx, yy, bias, k, dil, count, gen)
-            check(row["chunked"], f"{tag}: not the chunked scan")
+            check(row["chunked"] == (dtype == torch.bfloat16),
+                  f"{tag}: not the bf16 chunked scan / the fp32 layout")
             wide_rows.append(row)
             xn, yn = l2_normalize(xx), (l2_normalize(yy) if yy is not xx
                                         else None)
@@ -2874,7 +2938,7 @@ def arch_b_phase(smi: str) -> dict:
         wide_bwd.append(backward_row(name, x, y, idx, g, count))
     check(len(wide_bwd) == 2, "b ungrouped: the D = 1024 backward calls")
     log("b ungrouped: the D = 1024 calls (2 stage-4 Graphers, 1 label) "
-        "passed in bf16 and fp32 through the chunked scan, knn_topk at "
+        "passed in bf16 through the chunked scan and in fp32, knn_topk at "
         "D = 1024 too, and their backward gy bitwise the ordered plain "
         "version")
     del wide, calls, bwd_calls, wide_fwd
@@ -3895,6 +3959,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     compare_fp32_paths()
+    fp32_eval_time()
 
     # 5. train: the main path, then the fp32 per-call check
     train = train_phase()

@@ -24,9 +24,7 @@
 // its idx and mr are bitwise those of fold -> knn_mr_forward -> unfold and
 // the (B, N, C) <-> (B*g, N, C/g) copies around the call never exist. The
 // flag is a template parameter of both kernels, so the folded
-// instantiations compile to the code they had without it; knn_mr_kernel's
-// grouped one writes its scan's loop with the loads ahead of the products
-// (see there).
+// instantiations compile to the code they had without it.
 //
 // Two kernels compute it, one per input type.
 //
@@ -41,39 +39,31 @@
 // once to bf16 (max_relative8; max_relative_pair where rows are not whole
 // 16-byte chunks).
 //
-// fp32: knn_mr_kernel, the CUDA-core design, as the TPU kernel keeps fp32
-// at Precision.HIGHEST (TF32 would break the 1e-4 fp64 ordering oracle):
-// one warp per query row, kWarps rows per block.
+// fp32: knn_mr_kernel, on knn_scan_f32.cuh's CUDA-core scan and
+// row-threshold selection, as the TPU kernel keeps fp32 at
+// Precision.HIGHEST (TF32 would break the 1e-4 fp64 ordering oracle):
 //   1. l2norm_rows (both types): one warp per row of x and of y: fp32 norm
 //      of the raw row, divide by max(norm, 1e-12), round to the input type
 //      (the contract of gkgnet_tpu/ops/knn.py l2_normalize), then the fp32
 //      sum of squares of the rounded row. Written to scratch the caller
 //      owns. knn_l2norm launches it alone.
-//   2. knn_mr_kernel: the block walks the targets in tiles of kTile rows,
-//      staged transposed in shared memory as fp32. Each lane computes the
-//      distances of its 2 columns of the tile,
-//      x_sq - 2 * dot + y_sq (+ bias), and keeps a sorted register list of
-//      its best KDM >= k*d (dist, col) pairs. Then k*d rounds of a warp
-//      lexicographic min over the lanes' list heads give the global order;
-//      rounds 0, d, 2d, ... are kept. Last, the lanes gather the raw target
-//      rows of the kept columns and write max_j(y_j - x) in fp32, rounded
-//      once to the input type.
-//   Its bound: shared-memory loads and fp32 issue (one load per fmaf), far
-//   above the bytes' and the fp32 operations' bounds. The transposed tile
-//   is 260 bytes a channel, so past D = 795 (arch b without channel
-//   groups: D = 1024) the folded forward stages it kChunk = 128 channels
-//   at a time (kChunked), the same sums in the same order. The blocks that read
-//   the same bias rows for different groups run together (the grid's
-//   fastest axis is the batch-group axis), so the bias comes from L2.
-//   The selection helpers (the register lists, their lexicographic order,
-//   select_nan_columns) are knn_select.cuh's, shared with knn_topk.cu,
-//   whose fp32 scan and merge repeat this kernel's arithmetic, so that
-//   knn_topk(xn, yn, k*d)[..., ::d] is bitwise this kernel's idx. The scan
-//   and merge stay written out here: moved into shared functions they
-//   compiled to other code (122 and 178 registers for lists of 32 and 64,
-//   not 115 and 171) and a 1 % slower stage-1 call on an H100 80GB HBM3.
-//   This design computed the bf16 calls too until the tensor-core kernel
-//   took them; its fp32 instantiations compile to the code they had then.
+//   2. knn_mr_kernel: the header's scan (register-blocked fmaf, each
+//      distance one fmaf chain over the channels in order, x_sq - 2 * dot
+//      + y_sq (+ bias); query rows and target tiles staged 32 channels at a
+//      time by cp.async in a ring of stages, one layout for every D) and
+//      its merge (the block's rows' kept columns, ranks 0, d, 2d, ...).
+//      Then the block's warps take its rows in turn: the lanes gather the
+//      raw target rows of the kept columns, 4 channels (one 16-byte load) a
+//      lane where rows are 16-byte aligned (max_relative4), and write
+//      max_j(y_j - x) in fp32. The header says what bounds it on this card and how the host
+//      picks the block (query rows and column groups) by shape; the
+//      result does not depend on that choice. knn_topk.cu's fp32 kernel
+//      takes its distances and its selection from the same header, so
+//      knn_topk(xn, yn, k*d)[..., ::d] is bitwise this kernel's idx. Its
+//      distances are bitwise those of the design it replaced (one warp per
+//      query row, two columns per lane, sorted 64-slot lists per lane, a
+//      whole-row and a D-chunked layout), so are idx, mr and the phases'
+//      checksums (time_kernels.py's digests).
 //
 // NaN distances (a NaN query row, a NaN target row, a NaN bias entry) come
 // after every number, +inf included, and among themselves in column order:
@@ -81,10 +71,10 @@
 // register lists never take a NaN (every comparison with it is false), so
 // a row keeps its exact order over its numbers at no cost on the hot path.
 // Only a row with fewer than k*d numbers runs out of them in the merge: its
-// lists show the empty slot, and select_nan_columns then walks the columns
-// in order for the NaN ones. (Ordering NaN inside the comparison instead
-// cost 6 % to 45 % of the CUDA-core kernel's time at stage 1, by variant,
-// on an H100 80GB HBM3.)
+// lists show the empty slot, and knn_select::select_nan_columns then walks
+// the columns in order for the NaN ones. (Ordering NaN inside the
+// comparison instead cost 6 % to 45 % of the earlier CUDA-core kernel's
+// time at stage 1, by variant, on an H100 80GB HBM3.)
 //
 // knn_phase runs the phase-isolated pieces of this same kernel for the tool
 // gkgnet_tpu_torch/tools/exp_kernel_phases.py, which replaces the TPU tool
@@ -109,7 +99,8 @@
 //   selg  the whole forward: sum_D max_j(y[idx_j] - x) + sum(idx), the max
 //         in fp32 before any rounding to the input type.
 // The phases run without bias and dilation (the tool's geometry has
-// neither), folded, with lists of 8, 12 (bf16) or 16.
+// neither), folded, with lists of 8, 12 (bf16) or 16, and the fp32 ones
+// with one column group (the dist and gfix sums' order).
 //
 // Launch discipline: the kernels run on the caller's stream, allocate
 // nothing and do not synchronize; knn_mr_forward, knn_mr_forward_grouped
@@ -118,21 +109,15 @@
 #include <type_traits>
 
 #include "knn_scan.cuh"
+#include "knn_scan_f32.cuh"
 #include "knn_select.cuh"
 
 namespace {
 
 using knn_select::from_f32;
-using knn_select::insert;
-using knn_select::kChunk;
-using knn_select::kdm_bucket;
 using knn_select::kFull;
 using knn_select::kThreads;
-using knn_select::kTile;
-using knn_select::kTileP;
 using knn_select::kWarps;
-using knn_select::lex_less;
-using knn_select::select_nan_columns;
 using knn_select::to_f32;
 using knn_select::warp_sum;
 
@@ -204,233 +189,109 @@ constexpr int kGfix = 3;
 constexpr int kSelg = 4;
 constexpr int kFixedColumn = 7;  // gfix gathers columns 7, 8, ..., 6 + k
 
+// The fp32 forward's max-relative row: for each channel c of the query row
+// x_row, max_j over the kept columns sel_w[0..k) of y[sel_w[j]][c] - x[c]
+// in fp32, combined in the order of sel_w with NaN propagating (the
+// scalar epilogue's arithmetic, so the same bits), written to mr_row; 4
+// channels (one 16-byte load) per lane, each kept column's loads issued 8
+// at a time before their first use. Rows of d % 4 == 0 channels, 16-byte
+// aligned.
+__device__ __forceinline__ void max_relative4(
+    const float* __restrict__ y_b, int ystride, const int* sel_w, int k,
+    const float* __restrict__ x_row, float* __restrict__ mr_row, int d,
+    int lane) {
+  for (int c = 4 * lane; c < d; c += 128) {
+    const float4 xv = *reinterpret_cast<const float4*>(x_row + c);
+    float4 best = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    for (int s0 = 0; s0 < k; s0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (s0 + u < k) {
+          v[u] = *reinterpret_cast<const float4*>(
+              y_b + (long long)sel_w[s0 + u] * ystride + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (s0 + u < k) {  // NaN propagates, as amax
+          float w = v[u].x - xv.x;
+          best.x = (w > best.x || w != w) ? w : best.x;
+          w = v[u].y - xv.y;
+          best.y = (w > best.y || w != w) ? w : best.y;
+          w = v[u].z - xv.z;
+          best.z = (w > best.z || w != w) ? w : best.z;
+          w = v[u].w - xv.w;
+          best.w = (w > best.w || w != w) ? w : best.w;
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(mr_row + c) = best;
+  }
+}
+
 // bias_mode: 0 none, 1 shared (N, M), 2 batched (BG, N, M); fp32.
 // kGrouped: x, y and mr are unfolded (B, N, g*D) / (B, M, g*D) and idx is
 // (B, N, g, k); xn/yn and their squares are the folded scratch all the
 // same, so only the epilogue's reads of the raw rows and its writes move.
-// The phases' arguments (acc_init, dist_weight, out) come last, so the
-// forward's parameters keep their offsets. kChunked (the folded forward
-// only): the target tile is staged kChunk channels at a time, for rows
-// whose whole transposed tile does not fit in shared memory; the products
-// are the same fmaf steps in the same order, so every distance is bitwise
-// the unchunked kernel's.
-template <typename T, int KDM, bool kGrouped, int kPhase,
-          bool kChunked = false>
-__global__ void __launch_bounds__(kThreads)
-knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
-              const T* __restrict__ xn, const T* __restrict__ yn,
+// The phases' arguments (acc_init, dist_weight, out) come after the
+// forward's; block_rows is the block's query rows (knn_f32::config), its
+// column groups blockDim.x / (4 * block_rows). After knn_scan_f32.cuh's
+// scan and merge (the block's rows' kept columns in its shared sel rows),
+// the block's warps take its rows in turn: the lanes gather the raw target
+// rows of the kept columns and write max_j(y_j - x) (max_relative4 where
+// the forward's rows are 16-byte aligned), or, lane-strided over the
+// channels as the phases' sums need, the phase's checksum.
+template <int KDM, bool kGrouped, int kPhase>
+__global__ void __launch_bounds__(knn_f32::kMaxThreads, KDM <= 16 ? 2 : 1)
+knn_mr_kernel(const float* __restrict__ x, const float* __restrict__ y,
+              const float* __restrict__ xn, const float* __restrict__ yn,
               const float* __restrict__ xsq, const float* __restrict__ ysq,
               const float* __restrict__ bias, int bias_mode,
-              int* __restrict__ idx, T* __restrict__ mr,
+              int* __restrict__ idx, float* __restrict__ mr,
               int n, int m, int d, int k, int dilation, int groups,
-              float acc_init, float dist_weight, float* __restrict__ out) {
+              float acc_init, float dist_weight, float* __restrict__ out,
+              int block_rows) {
   static_assert(kPhase == kForward || !kGrouped, "phases run folded");
-  static_assert(!kChunked || (kPhase == kForward && !kGrouped),
-                "the chunked scan runs the folded forward");
   constexpr bool kSelect =
       kPhase == kForward || kPhase == kSel || kPhase == kSelg;
   constexpr bool kGather =
       kPhase == kForward || kPhase == kGfix || kPhase == kSelg;
   constexpr bool kSumDist = kPhase == kDist || kPhase == kGfix;
-  extern __shared__ float smem[];
-  float* ys = smem;                       // [d][kTileP] target tile, fp32
-                                          // (chunked: [kChunk][kTileP])
-  float* xs = ys + (kChunked ? kChunk : d) * kTileP;  // [kWarps][d] queries
-  float* ysq_s = xs + kWarps * d;         // [kTile]
-  int* sel = reinterpret_cast<int*>(ysq_s + kTile);  // [kWarps][KDM]
-
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  const int rows = block_rows;
+  const int cgroups = blockDim.x / (4 * rows);
+  const knn_f32::Layout lay = knn_f32::layout(rows, cgroups, KDM);
   const int bg = blockIdx.x;
+  const int row0 = blockIdx.y * rows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.y * kWarps + warp;
-  const bool active = row < n;  // warp-uniform
-  const long long qrow = (long long)bg * n + (active ? row : 0);
-  const T* yn_b = yn + (long long)bg * m * d;
-  const float* ysq_b = ysq + (long long)bg * m;
-  // the output row of x and mr (of d) and of idx (of k): a grouped call's
-  // group gi of batch b writes channels [gi*D, (gi+1)*D) of rows of g*D
-  long long orow = qrow;
-  if constexpr (kGrouped) {
-    const int b = bg / groups;
-    orow = ((long long)b * n + row) * groups + (bg - b * groups);
-  }
-
-  float* xw = xs + warp * d;
-  for (int c = lane; c < d; c += 32) xw[c] = to_f32(xn[qrow * d + c]);
-  const float xq = xsq[qrow];
-  const float* brow = nullptr;
-  if (bias_mode != 0 && active) {
-    const long long brow_idx = (bias_mode == 2 ? (long long)bg * n : 0) + row;
-    brow = bias + brow_idx * m;
-  }
-
-  float ld[KDM];
+  const knn_f32::Rows r{
+      xn + (long long)bg * n * d, xsq + (long long)bg * n,
+      yn + (long long)bg * m * d, ysq + (long long)bg * m,
+      bias_mode == 0
+          ? nullptr
+          : bias + (bias_mode == 2 ? (long long)bg * n * m : 0LL),
+      n, m, d};
+  unsigned lk[KDM];
   int lc[KDM];
-#pragma unroll
-  for (int p = 0; p < KDM; ++p) {
-    ld[p] = INFINITY;
-    lc[p] = INT_MAX;
-  }
-  float dsum = 0.f;  // dist, gfix: this lane's distances, in column order
-
-  for (int j0 = 0; j0 < m; j0 += kTile) {
-    const int tw = min(kTile, m - j0);
-    if constexpr (kChunked) {
-      float acc0 = 0.f;
-      float acc1 = 0.f;
-      for (int e0 = 0; e0 < d; e0 += kChunk) {
-        const int w = min(kChunk, d - e0);
-        __syncthreads();  // the previous chunk (and xw on the first pass)
-        const T* src = yn_b + (long long)j0 * d + e0;
-        for (int t = threadIdx.x; t < tw * w; t += kThreads) {
-          const int jj = t / w;
-          const int e = t - jj * w;
-          ys[e * kTileP + jj] = to_f32(src[(long long)jj * d + e]);
-        }
-        if (e0 == 0) {
-          for (int t = threadIdx.x; t < tw; t += kThreads) {
-            ysq_s[t] = ysq_b[j0 + t];
-          }
-        }
-        __syncthreads();
-        if (active) {
-#pragma unroll 4
-          for (int e = 0; e < w; ++e) {
-            const float xv = xw[e0 + e];
-            acc0 = fmaf(xv, ys[e * kTileP + lane], acc0);
-            acc1 = fmaf(xv, ys[e * kTileP + lane + 32], acc1);
-          }
-        }
-      }
-      if (active) {  // as below: columns at or past tw are dropped
-        const int c0 = lane;
-        const int c1 = lane + 32;
-        if (c0 < tw) {
-          float dist = xq - 2.f * acc0 + ysq_s[c0];
-          if (brow != nullptr) dist += brow[j0 + c0];
-          insert<KDM>(ld, lc, dist, j0 + c0);
-        }
-        if (c1 < tw) {
-          float dist = xq - 2.f * acc1 + ysq_s[c1];
-          if (brow != nullptr) dist += brow[j0 + c1];
-          insert<KDM>(ld, lc, dist, j0 + c1);
-        }
-      }
-      continue;
-    }
-    __syncthreads();  // the previous tile (and xw on the first pass) done
-    const T* src = yn_b + (long long)j0 * d;
-    for (int t = threadIdx.x; t < tw * d; t += kThreads) {
-      const int jj = t / d;
-      const int e = t - jj * d;
-      ys[e * kTileP + jj] = to_f32(src[t]);
-    }
-    for (int t = threadIdx.x; t < tw; t += kThreads) ysq_s[t] = ysq_b[j0 + t];
-    __syncthreads();
-    if (active) {
-      const int c0 = lane;
-      const int c1 = lane + 32;
-      float acc0 = 0.f;
-      float acc1 = 0.f;
-      if constexpr (kGrouped) {
-        // The same sums in the same order, with each step's shared-memory
-        // loads written ahead of its products. Written as the loop below,
-        // this instantiation compiled to a schedule that interleaves them
-        // and took longer than fold + folded kernel + unfold together at
-        // the main path's shapes (stage 3: 2.74 against 2.22 ms); written
-        // so, it takes 1-16 % less than the folded kernel alone
-        // (chip_smoke.py phase 7; H100 80GB HBM3, 700 W).
-        int e = 0;
-        for (; e + 4 <= d; e += 4) {
-          float xv[4], a[4], b[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            xv[u] = xw[e + u];
-            a[u] = ys[(e + u) * kTileP + c0];
-            b[u] = ys[(e + u) * kTileP + c1];
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            acc0 = fmaf(xv[u], a[u], acc0);
-            acc1 = fmaf(xv[u], b[u], acc1);
-          }
-        }
-        for (; e < d; ++e) {
-          const float xv = xw[e];
-          acc0 = fmaf(xv, ys[e * kTileP + c0], acc0);
-          acc1 = fmaf(xv, ys[e * kTileP + c1], acc1);
-        }
-      } else {
-#pragma unroll 4
-        for (int e = 0; e < d; ++e) {
-          const float xv = xw[e];
-          acc0 = fmaf(xv, ys[e * kTileP + c0], acc0);
-          acc1 = fmaf(xv, ys[e * kTileP + c1], acc1);
-        }
-      }
-      // columns at or past tw read stale shared memory and are dropped here
-      if (c0 < tw) {
-        float dist = xq - 2.f * acc0 + ysq_s[c0];
-        if (brow != nullptr) dist += brow[j0 + c0];
-        if constexpr (kSumDist) dsum += dist;
-        if constexpr (kSelect) insert<KDM>(ld, lc, dist, j0 + c0);
-      }
-      if (c1 < tw) {
-        float dist = xq - 2.f * acc1 + ysq_s[c1];
-        if (brow != nullptr) dist += brow[j0 + c1];
-        if constexpr (kSumDist) dsum += dist;
-        if constexpr (kSelect) insert<KDM>(ld, lc, dist, j0 + c1);
-      }
-    }
-  }
-  if (!active) return;  // no block-wide barrier follows
-
-  if constexpr (kPhase == kDist) {
-    dsum = warp_sum(dsum);
-    if (lane == 0) out[qrow] = dsum;
-    return;
-  }
-
-  int* sel_w = sel + warp * KDM;
+  knn_f32::scan<KDM, kSelect, kSumDist>(r, row0, k * dilation, rows,
+                                        cgroups, smem_f32, lay, lk, lc);
+  int* sel = reinterpret_cast<int*>(smem_f32 + lay.sel);
+  const float* dsum = reinterpret_cast<const float*>(smem_f32 + lay.dsum);
   if constexpr (kSelect) {
-    // Warp merge: k*d rounds of a lexicographic min over the list heads.
-    const int kd = k * dilation;
-    for (int r = 0; r < kd; ++r) {
-      float bd = ld[0];
-      int bc = lc[0];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float od = __shfl_xor_sync(kFull, bd, o);
-        const int oc = __shfl_xor_sync(kFull, bc, o);
-        if (lex_less(od, oc, bd, bc)) {
-          bd = od;
-          bc = oc;
-        }
-      }
-      if (bc == INT_MAX) {  // warp-uniform: every list is empty
-        select_nan_columns<T>(r, kd, dilation, xw, xq, yn_b, ysq_b, brow, m,
-                              d, lane, sel_w);
-        break;
-      }
-      if (lc[0] == bc) {  // the owning lane pops its head
-#pragma unroll
-        for (int p = 0; p < KDM - 1; ++p) {
-          ld[p] = ld[p + 1];
-          lc[p] = lc[p + 1];
-        }
-        ld[KDM - 1] = INFINITY;
-        lc[KDM - 1] = INT_MAX;
-      }
-      if (lane == 0 && r % dilation == 0) sel_w[r / dilation] = bc;
-    }
+    knn_f32::merge<KDM>(r, row0, k * dilation, dilation, rows, cgroups,
+                        smem_f32, lay, lk, lc, sel, KDM, nullptr);
   } else {
-    for (int s = lane; s < k; s += 32) sel_w[s] = kFixedColumn + s;
+    for (int i = threadIdx.x; i < rows * k; i += blockDim.x) {
+      sel[(i / k) * KDM + i % k] = kFixedColumn + i % k;
+    }
+    __syncthreads();  // sel and the distance sums written
   }
-  __syncwarp();
 
   // Gather the raw target rows and take max(y_j - x) in fp32; a grouped
   // call's targets are rows of g*D too.
-  const T* y_b = y + (long long)bg * m * d;
+  const float* y_b = y + (long long)bg * m * d;
   int ystride = d;
   if constexpr (kGrouped) {
     const int b = bg / groups;
@@ -438,81 +299,94 @@ knn_mr_kernel(const T* __restrict__ x, const T* __restrict__ y,
     y_b = y + (long long)b * m * groups * d + (long long)gi * d;
     ystride = groups * d;
   }
-  const T* x_row = x + orow * d;
-  float part = 0.f;  // the phases: this lane's channels of sum_D(acc)
-  if constexpr (kGather) {
-    for (int c = lane; c < d; c += 32) {
-      const float xv = to_f32(x_row[c]);
-      float best = -INFINITY;
-      for (int s = 0; s < k; ++s) {
-        const float v = to_f32(y_b[(long long)sel_w[s] * ystride + c]) - xv;
-        best = (v > best || v != v) ? v : best;  // NaN propagates, as amax
-      }
-      if constexpr (kPhase == kForward) {
-        mr[orow * d + c] = from_f32<T>(best);
-      } else {
-        part += best;
+  // the forward's rows in whole, 16-byte aligned 4-channel chunks
+  const bool vec4 = (d & 3) == 0 &&
+                    ((reinterpret_cast<uintptr_t>(x) |
+                      reinterpret_cast<uintptr_t>(y_b) |
+                      reinterpret_cast<uintptr_t>(mr)) & 15) == 0;
+  for (int rr = warp; rr < rows && row0 + rr < n; rr += blockDim.x >> 5) {
+    const int row = row0 + rr;
+    const long long qrow = (long long)bg * n + row;
+    // the output row of x and mr (of d) and of idx (of k): a grouped
+    // call's group gi of batch b writes channels [gi*D, (gi+1)*D) of rows
+    // of g*D
+    long long orow = qrow;
+    if constexpr (kGrouped) {
+      const int b = bg / groups;
+      orow = ((long long)b * n + row) * groups + (bg - b * groups);
+    }
+    if constexpr (kPhase == kDist) {
+      if (lane == 0) out[qrow] = dsum[rr];
+      continue;
+    }
+    const int* sel_w = sel + rr * KDM;
+    const float* x_row = x + orow * d;
+    float part = 0.f;  // the phases: this lane's channels of sum_D(acc)
+    if constexpr (kPhase == kForward) {
+      if (vec4) {
+        max_relative4(y_b, ystride, sel_w, k, x_row, mr + orow * d, d, lane);
+        for (int s = lane; s < k; s += 32) idx[orow * k + s] = sel_w[s];
+        continue;
       }
     }
-  } else {
-    for (int c = lane; c < d; c += 32) part += acc_init;
+    if constexpr (kGather) {
+      for (int c = lane; c < d; c += 32) {
+        const float xv = x_row[c];
+        float best = -INFINITY;
+        for (int s = 0; s < k; ++s) {
+          const float v = y_b[(long long)sel_w[s] * ystride + c] - xv;
+          best = (v > best || v != v) ? v : best;  // NaN propagates, as amax
+        }
+        if constexpr (kPhase == kForward) {
+          mr[orow * d + c] = best;
+        } else {
+          part += best;
+        }
+      }
+    } else {
+      for (int c = lane; c < d; c += 32) part += acc_init;
+    }
+    if constexpr (kPhase == kForward) {
+      for (int s = lane; s < k; s += 32) idx[orow * k + s] = sel_w[s];
+    } else {
+      int isum = 0;
+      for (int s = 0; s < k; ++s) isum += sel_w[s];
+      float res = warp_sum(part) + (float)isum;
+      if constexpr (kSumDist) res += dsum[rr] * dist_weight;
+      if (lane == 0) out[qrow] = res;
+    }
   }
-  if constexpr (kPhase == kForward) {
-    for (int s = lane; s < k; s += 32) idx[orow * k + s] = sel_w[s];
-  } else {
-    int isum = 0;
-    for (int s = 0; s < k; ++s) isum += sel_w[s];
-    float res = warp_sum(part) + (float)isum;
-    if constexpr (kSumDist) res += warp_sum(dsum) * dist_weight;
-    if (lane == 0) out[qrow] = res;
-  }
 }
 
-// The CUDA-core kernel's dynamic shared memory: the transposed target tile
-// (chunked: kChunk of its channels), the warps' query rows, y_sq and the
-// selected columns.
-size_t main_smem_bytes(int d, int kdm, bool chunked = false) {
-  return sizeof(float) * ((size_t)(chunked ? kChunk : d) * kTileP +
-                          (size_t)kWarps * d + kTile) +
-         sizeof(int) * (size_t)kWarps * kdm;
-}
-
-// Whether the CUDA-core kernel takes the chunked scan: only where the
-// whole tile does not fit (or when forced), so that every width that fits
-// keeps its kernel.
-bool main_chunked(int d, int kdm, bool force_chunked) {
-  int dev = 0, optin = 232448;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return force_chunked || main_smem_bytes(d, kdm) > (size_t)optin;
-}
-
-template <typename T, int KDM, bool kGrouped, int kPhase = kForward,
-          bool kChunked = false>
+// The fp32 kernel at knn_f32::config's launch shape (force_rows /
+// force_groups: a test's choice; the forward alone takes column groups).
+template <int KDM, bool kGrouped, int kPhase = kForward>
 cudaError_t launch_main(const void* x, const void* y, const void* xn,
                         const void* yn, const void* xsq, const void* ysq,
                         const void* bias, int bias_mode, void* idx, void* mr,
                         int bg, int n, int m, int d, int k, int dilation,
                         int groups, cudaStream_t stream,
                         float acc_init = 0.f, float dist_weight = 0.f,
-                        void* out = nullptr) {
-  const size_t smem = main_smem_bytes(d, KDM, kChunked);
-  if (smem > 48 * 1024) {  // above the default dynamic limit: opt in
+                        void* out = nullptr, int force_rows = 0,
+                        int force_groups = 0) {
+  const knn_f32::Config cfg = knn_f32::config(
+      bg, n, m, KDM, kPhase == kForward, force_rows, force_groups);
+  if (cfg.smem == 0) return cudaErrorInvalidValue;
+  if (cfg.smem > 48 * 1024) {  // above the default dynamic limit: opt in
     cudaError_t err = cudaFuncSetAttribute(
-        knn_mr_kernel<T, KDM, kGrouped, kPhase, kChunked>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        knn_mr_kernel<KDM, kGrouped, kPhase>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(bg, (n + kWarps - 1) / kWarps);
-  knn_mr_kernel<T, KDM, kGrouped, kPhase, kChunked>
-      <<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(xn), static_cast<const T*>(yn),
+  const dim3 grid(bg, (n + cfg.rows - 1) / cfg.rows);
+  knn_mr_kernel<KDM, kGrouped, kPhase>
+      <<<grid, 4 * cfg.rows * cfg.groups, cfg.smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(xn), static_cast<const float*>(yn),
       static_cast<const float*>(xsq), static_cast<const float*>(ysq),
       static_cast<const float*>(bias), bias_mode, static_cast<int*>(idx),
-      static_cast<T*>(mr), n, m, d, k, dilation, groups, acc_init,
-      dist_weight, static_cast<float*>(out));
+      static_cast<float*>(mr), n, m, d, k, dilation, groups, acc_init,
+      dist_weight, static_cast<float*>(out), cfg.rows);
   return cudaGetLastError();
 }
 
@@ -848,12 +722,12 @@ cudaError_t launch_tc(const void* x, const void* y, const void* xn,
 
 // f(std::integral_constant<int, L>{}) for the list length L that T's
 // kernel takes for k*d = kd, no longer than kMaxList: knn_scan's for
-// bf16, knn_select's for fp32. cudaErrorInvalidValue where none does.
+// bf16, knn_f32's for fp32. cudaErrorInvalidValue where none does.
 template <typename T, int kMaxList, typename F>
 cudaError_t with_lists(int kd, F f) {
   using std::integral_constant;
   const int len = std::is_same_v<T, __nv_bfloat16> ? knn_scan::list_slots(kd)
-                                                   : kdm_bucket(kd);
+                                                   : knn_f32::list_slots(kd);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (len == 12) return f(integral_constant<int, 12>{});
     if constexpr (kMaxList >= 24) {
@@ -864,6 +738,9 @@ cudaError_t with_lists(int kd, F f) {
   if (len == 16) return f(integral_constant<int, 16>{});
   if constexpr (kMaxList >= 64) {
     if (len == 32) return f(integral_constant<int, 32>{});
+    if constexpr (!std::is_same_v<T, __nv_bfloat16>) {
+      if (len == 48) return f(integral_constant<int, 48>{});
+    }
     if (len == 64) return f(integral_constant<int, 64>{});
   }
   return cudaErrorInvalidValue;
@@ -876,7 +753,8 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
                     void* xn, void* yn, void* xsq, void* ysq, void* idx,
                     void* mr, int bg, int n, int m, int d, int k,
                     int dilation, int bias_mode, int y_is_x, int groups,
-                    cudaStream_t stream, bool force_chunked = false) {
+                    cudaStream_t stream, bool force_chunked = false,
+                    int force_rows = 0, int force_groups = 0) {
   const long long rows_x = (long long)bg * n;
   const long long rows_y = y_is_x ? 0 : (long long)bg * m;
   const long long blocks = (rows_x + rows_y + kWarps - 1) / kWarps;
@@ -896,18 +774,11 @@ cudaError_t forward(const void* x, const void* y, const void* bias,
                                     bias_mode, idx, mr, bg, n, m, d, k,
                                     dilation, groups, stream, 0.f, 0.f,
                                     nullptr, force_chunked);
-    } else if (main_chunked(d, L, force_chunked)) {
-      if constexpr (kGrouped) {
-        return cudaErrorInvalidValue;  // the grouped kernel is not chunked
-      } else {
-        return launch_main<T, L, false, kForward, true>(
-            x, y, xn, ynp, xsq, ysqp, bias, bias_mode, idx, mr, bg, n, m, d,
-            k, dilation, groups, stream);
-      }
     } else {
-      return launch_main<T, L, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
-                                         bias_mode, idx, mr, bg, n, m, d, k,
-                                         dilation, groups, stream);
+      return launch_main<L, kGrouped>(x, y, xn, ynp, xsq, ysqp, bias,
+                                      bias_mode, idx, mr, bg, n, m, d, k,
+                                      dilation, groups, stream, 0.f, 0.f,
+                                      nullptr, force_rows, force_groups);
     }
   });
 }
@@ -937,7 +808,7 @@ cudaError_t launch_phase(const void* x, const void* y, const void* xn,
         x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d, k,
         1, 1, stream, acc_init, dist_weight, out);
   } else {
-    return launch_main<T, KDM, false, kPhase>(
+    return launch_main<KDM, false, kPhase>(
         x, y, xn, yn, xsq, ysq, nullptr, 0, nullptr, nullptr, bg, n, m, d, k,
         1, 1, stream, acc_init, dist_weight, out);
   }
@@ -985,15 +856,18 @@ extern "C" {
 // float32), contiguous; bias fp32 per bias_mode; xn/xsq (bg, n, d)/(bg, n)
 // and yn/ysq (bg, m, d)/(bg, m) scratch (unused for y when y_is_x);
 // outputs idx (bg, n, k) int32 and mr (bg, n, d) of the input type.
-// Requires 1 <= k * dilation <= min(m, 64). force_chunked: take the
-// chunked scan at any width (its results are bitwise the unchunked
+// Requires 1 <= k * dilation <= min(m, 64). force_chunked (bf16): take
+// the chunked scan at any width (its results are bitwise the unchunked
 // kernel's); without it the chunked scan runs only where the whole-row
-// layout does not fit. Returns a cudaError_t code.
+// layout does not fit. block_rows / block_groups (fp32, nonzero): launch
+// blocks of that many query rows / column groups instead of
+// knn_f32::config's (the results are bitwise the same). Returns a
+// cudaError_t code.
 int knn_mr_forward(const void* x, const void* y, const void* bias, void* xn,
                    void* yn, void* xsq, void* ysq, void* idx, void* mr,
                    int bg, int n, int m, int d, int k, int dilation,
                    int bias_mode, int is_bf16, int y_is_x, int force_chunked,
-                   void* stream) {
+                   int block_rows, int block_groups, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return forward<__nv_bfloat16, false>(x, y, bias, xn, yn, xsq, ysq, idx,
@@ -1002,7 +876,7 @@ int knn_mr_forward(const void* x, const void* y, const void* bias, void* xn,
                                          force_chunked != 0);
   return forward<float, false>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n,
                                m, d, k, dilation, bias_mode, y_is_x, 1, s,
-                               force_chunked != 0);
+                               false, block_rows, block_groups);
 }
 
 // The fold-aware forward: x (b, n, groups*d), y (b, m, groups*d) unfolded,
@@ -1011,12 +885,14 @@ int knn_mr_forward(const void* x, const void* y, const void* bias, void* xn,
 // folded scratch, (b*groups, n, d)/(b*groups, n) and (b*groups, m, d)/
 // (b*groups, m); outputs idx (b, n, groups, k) int32 and mr
 // (b, n, groups*d) of the input type: bitwise the folded forward's on the
-// folded rows, unfolded. Returns a cudaError_t code.
+// folded rows, unfolded. block_rows / block_groups: as knn_mr_forward's.
+// Returns a cudaError_t code.
 int knn_mr_forward_grouped(const void* x, const void* y, const void* bias,
                            void* xn, void* yn, void* xsq, void* ysq,
                            void* idx, void* mr, int b, int groups, int n,
                            int m, int d, int k, int dilation, int bias_mode,
-                           int is_bf16, int y_is_x, void* stream) {
+                           int is_bf16, int y_is_x, int block_rows,
+                           int block_groups, void* stream) {
   if (bias_mode == 2 || groups < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bg = b * groups;
@@ -1026,7 +902,7 @@ int knn_mr_forward_grouped(const void* x, const void* y, const void* bias,
                                         bias_mode, y_is_x, groups, s);
   return forward<float, true>(x, y, bias, xn, yn, xsq, ysq, idx, mr, bg, n,
                               m, d, k, dilation, bias_mode, y_is_x, groups,
-                              s);
+                              s, false, block_rows, block_groups);
 }
 
 // x (rows, d) raw rows of one type (is_bf16: bfloat16, else float32),
@@ -1061,20 +937,28 @@ int knn_phase(int phase, const void* x, const void* y, void* xn, void* yn,
 
 // Dynamic shared memory of one folded forward block at row width d and
 // k*d = kd, in bf16 (is_bf16) or fp32, with the layout the forward takes
-// (force_chunked: as knn_mr_forward's): negative where that layout is the
-// chunked one, 0 when k*d exceeds 64 or no block shape fits.
-long long knn_mr_smem_bytes(int d, int kd, int is_bf16, int force_chunked) {
+// (force_chunked, block_rows, block_groups: as knn_mr_forward's; bg and n
+// the call's batch-groups and query rows, which the fp32 block depends
+// on, and m its targets): negative where that layout is the bf16 chunked
+// one, 0 when k*d exceeds 64 or no block shape fits. For fp32, shape
+// (unless null) receives the block's query rows and column groups.
+long long knn_mr_smem_bytes(int d, int kd, int is_bf16, int force_chunked,
+                            int bg, int n, int m, int block_rows,
+                            int block_groups, int* shape) {
   if (is_bf16) {
     const int len = knn_scan::list_slots(kd);
     if (!len) return 0;
     const knn_scan::Config cfg = knn_scan::config(d, len, force_chunked != 0);
     return cfg.chunked ? -(long long)cfg.smem : cfg.smem;
   }
-  const int kdm = kdm_bucket(kd);
-  if (!kdm) return 0;
-  const bool chunked = main_chunked(d, kdm, force_chunked != 0);
-  const long long smem = (long long)main_smem_bytes(d, kdm, chunked);
-  return chunked ? -smem : smem;
+  const knn_f32::Config cfg =
+      knn_f32::config(bg, n, m, knn_f32::list_slots(kd), true, block_rows,
+                      block_groups);
+  if (shape != nullptr) {
+    shape[0] = cfg.rows;
+    shape[1] = cfg.groups;
+  }
+  return cfg.smem;
 }
 
 const char* knn_mr_error_string(int code) {

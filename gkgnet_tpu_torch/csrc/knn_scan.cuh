@@ -9,9 +9,9 @@
 // D padded to 48): 0.04 ms at the bf16 tensor-core peak. The bytes are
 // ~174 MB (0.05 ms), most of them the fp32 bias, which the 16 groups read
 // again through L2 (1.7 GB). The selection compares 430 M candidates and
-// keeps 9 per row. The CUDA-core scan this replaces (knn_select.cuh's
-// per-lane lists fed by fmaf from a transposed fp32 tile, which the fp32
-// kernels keep) ran at 6.5 TFLOP/s and spent 40 % of its time inserting
+// keeps 9 per row. The CUDA-core scan this replaces (per-lane lists fed
+// by fmaf from a transposed fp32 tile, which the fp32 kernels kept until
+// knn_scan_f32.cuh) ran at 6.5 TFLOP/s and spent 40 % of its time inserting
 // into lists whose tails rejected little. Here the scan, the selection
 // and the gather each take about a third of the time, all far above the
 // bound (PERF.md): the kernel is bound by instruction issue and latency,

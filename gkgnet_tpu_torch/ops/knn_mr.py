@@ -32,11 +32,13 @@ folded backward -> unfold gives (the JAX package's ``_bwd_grouped``).
 On a CUDA tensor the wrappers launch the hand-written kernels in
 ``csrc/knn_mr.cu`` (forward, folded and grouped: for bfloat16 rows the
 tensor-core scan of ``csrc/knn_scan.cuh``, its products exact and summed in
-fp32 by the tensor cores; for float32 rows the CUDA-core scan, summed by
-fmaf; rows too wide for their whole-row layouts, D past ~780, take the
-D-chunked instantiations, bitwise the same) and ``csrc/knn_mr_bwd.cu`` (backward, folded and group-strided: an
-inverse edge list built by its own counting sort, each target's sum in
-ascending edge id), and raise if they cannot; on a CPU tensor they run
+fp32 by the tensor cores, rows too wide for its whole-row layout, D past
+~780, taking its D-chunked instantiations, bitwise the same; for float32
+rows the CUDA-core scan of ``csrc/knn_scan_f32.cuh``, register-blocked
+fmaf fed by cp.async, one layout for every D) and ``csrc/knn_mr_bwd.cu``
+(backward, folded and group-strided: an inverse edge list built by its own
+counting sort, each target's sum in ascending edge id), and raise if they
+cannot; on a CPU tensor they run
 ``knn_mr_reference``, ``knn_mr_grouped_reference``,
 ``knn_mr_backward_reference`` and ``knn_mr_grouped_backward_reference``,
 the plain PyTorch versions of the same functions.
@@ -80,10 +82,14 @@ MAX_BWD_K = 64  # largest k of the backward kernel's per-channel tie masks
 MAX_BWD_CHUNKS = 256  # most 16-byte chunks of a row in the backward kernel
 MAX_GATHER_BATCH = 65535  # most batch rows of the gather backward's grid
 
-# A test hook: the folded forward takes its D-chunked scan at every width
-# (the results are bitwise the same); by default it takes it only where the
-# whole-row layout does not fit.
+# Test hooks. _FORCE_CHUNKED: the bfloat16 folded forward takes its
+# D-chunked scan at every width (the results are bitwise the same); by
+# default it takes it only where the whole-row layout does not fit.
+# _FP32_BLOCK: None, or (query rows, column groups) of the float32 kernels'
+# blocks (rows 8, 16, 32 or 64, groups 1, 2 or 4, 4 * rows * groups <= 256)
+# in place of the shape the host picks (the results are bitwise the same).
 _FORCE_CHUNKED = False
+_FP32_BLOCK = None
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -92,14 +98,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("knn_mr")
     if lib.knn_mr_forward.argtypes is None:
         lib.knn_mr_forward.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.knn_mr_forward.restype = ctypes.c_int
         lib.knn_mr_forward_grouped.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.knn_mr_forward_grouped.restype = ctypes.c_int
         lib.knn_mr_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_error_string.restype = ctypes.c_char_p
-        lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.knn_mr_smem_bytes.argtypes = [ctypes.c_int] * 9 + [
+            ctypes.POINTER(ctypes.c_int)]
         lib.knn_mr_smem_bytes.restype = ctypes.c_longlong
         lib.knn_l2norm.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
@@ -108,17 +115,34 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def block_layout(d: int, kd: int, dtype: torch.dtype = torch.float32
-                 ) -> tuple[int, bool]:
+def _fp32_block() -> tuple[int, int]:
+    return _FP32_BLOCK if _FP32_BLOCK is not None else (0, 0)
+
+
+def block_layout(d: int, kd: int, dtype: torch.dtype = torch.float32,
+                 bg: int = 1, n: int = 1, m: int = 64) -> tuple[int, bool]:
     """``(bytes, chunked)``: the dynamic shared memory of one block of the
     folded forward at row width ``d`` and ``k * dilation = kd`` in
     ``dtype`` (bfloat16, else the float32 kernel), and whether that block
-    runs the D-chunked scan (taken where the whole-row layout does not fit,
-    or under ``_FORCE_CHUNKED``); 0 bytes where no block fits. Builds the
-    kernel if needed."""
+    runs the bfloat16 D-chunked scan (taken where the whole-row layout does
+    not fit, or under ``_FORCE_CHUNKED``; the float32 kernel has one layout
+    for every D, whose block depends on the call's ``bg`` batch-groups of
+    ``n`` query rows and ``m`` targets: ``fp32_block``); 0 bytes where no
+    block fits. Builds the kernel if needed."""
     b = _lib().knn_mr_smem_bytes(d, kd, int(dtype == torch.bfloat16),
-                                 int(_FORCE_CHUNKED))
+                                 int(_FORCE_CHUNKED), bg, n, m,
+                                 *_fp32_block(), None)
     return abs(b), b < 0
+
+
+def fp32_block(bg: int, n: int, m: int, kd: int) -> tuple[int, int]:
+    """``(query rows, column groups)`` of the float32 forward's blocks for
+    ``bg`` batch-groups of ``n`` query rows, ``m`` targets and ``k *
+    dilation = kd`` (``_FP32_BLOCK`` where set). Builds the kernel if
+    needed."""
+    shape = (ctypes.c_int * 2)()
+    _lib().knn_mr_smem_bytes(1, kd, 0, 0, bg, n, m, *_fp32_block(), shape)
+    return shape[0], shape[1]
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
@@ -221,7 +245,7 @@ def launch(x: torch.Tensor, y: torch.Tensor, bias: torch.Tensor | None,
             xn.data_ptr(), yn.data_ptr(), xsq.data_ptr(), ysq.data_ptr(),
             idx.data_ptr(), mr.data_ptr(), bg, n, m, d, k, dilation,
             bias_mode, int(x.dtype == torch.bfloat16), int(y_is_x),
-            int(_FORCE_CHUNKED), stream)
+            int(_FORCE_CHUNKED), *_fp32_block(), stream)
     _raise_on(err, lib, "knn_mr kernel")
     launches += 1
     return idx, mr, xn, yn
@@ -312,7 +336,7 @@ def launch_grouped(x: torch.Tensor, y: torch.Tensor,
             xn.data_ptr(), yn.data_ptr(), xsq.data_ptr(), ysq.data_ptr(),
             idx.data_ptr(), mr.data_ptr(), b, groups, n, m, d, k, dilation,
             0 if bias is None else 1, int(x.dtype == torch.bfloat16),
-            int(y_is_x), stream)
+            int(y_is_x), *_fp32_block(), stream)
     _raise_on(err, lib, "knn_mr grouped kernel")
     grouped_launches += 1
     return idx, mr, xn, yn

@@ -13,9 +13,10 @@
 
 It launches the hand-written CUDA kernel in ``csrc/knn_topk.cu`` on CUDA
 tensors (for bfloat16 rows the tensor-core scan of ``csrc/knn_scan.cuh``,
-which knn_mr's bf16 kernel shares, so that ``launch(xn, yn, k=k*d)[...,
-::d]`` is bitwise knn_mr's idx; for float32 rows the CUDA-core scan;
-rows too wide for their whole-row layouts take the D-chunked ones) and
+rows too wide for its whole-row layout taking its D-chunked one; for
+float32 rows the CUDA-core scan of ``csrc/knn_scan_f32.cuh``, one layout
+for every D; knn_mr's kernels share both, so that ``launch(xn, yn,
+k=k*d)[..., ::d]`` is bitwise knn_mr's idx) and
 raises on anything else, or when the kernel cannot take the input: the
 plain version is ``ops.knn.knn_topk_reference``, and the operator
 ``torch.ops.gkgnet_tpu_torch.knn_topk`` (``ops.knn``, which
@@ -37,36 +38,55 @@ launches = 0
 MAX_K = 64                  # largest k the kernel's register lists hold
 MAX_SMEM_BYTES = 232448     # dynamic shared memory one block may opt into
 
-# A test hook: the kernels take their D-chunked scan at every width (the
-# results are bitwise the same); by default they take it only where the
-# whole-row layout does not fit.
+# Test hooks, as knn_mr's: _FORCE_CHUNKED, the bfloat16 kernel's D-chunked
+# scan at every width; _FP32_BLOCK, None or (query rows, column groups) of
+# the float32 kernel's blocks (the results are bitwise the same).
 _FORCE_CHUNKED = False
+_FP32_BLOCK = None
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("knn_topk")
     if lib.knn_topk_forward.argtypes is None:
         lib.knn_topk_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.knn_topk_forward.restype = ctypes.c_int
         lib.knn_topk_error_string.argtypes = [ctypes.c_int]
         lib.knn_topk_error_string.restype = ctypes.c_char_p
-        lib.knn_topk_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.knn_topk_smem_bytes.argtypes = [ctypes.c_int] * 9 + [
+            ctypes.POINTER(ctypes.c_int)]
         lib.knn_topk_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def block_layout(d: int, k: int = 1, dtype: torch.dtype = torch.float32
-                 ) -> tuple[int, bool]:
+def _fp32_block() -> tuple[int, int]:
+    return _FP32_BLOCK if _FP32_BLOCK is not None else (0, 0)
+
+
+def block_layout(d: int, k: int = 1, dtype: torch.dtype = torch.float32,
+                 bg: int = 1, n: int = 1, m: int = 64) -> tuple[int, bool]:
     """``(bytes, chunked)``: the dynamic shared memory of one block of the
     kernel at row width ``d`` and ``k`` neighbours in ``dtype`` (bfloat16,
-    else the float32 kernel), and whether that block runs the D-chunked
-    scan (taken where the whole-row layout does not fit, or under
-    ``_FORCE_CHUNKED``); 0 bytes where no block fits. Builds the
-    kernel if needed."""
+    else the float32 kernel), and whether that block runs the bfloat16
+    D-chunked scan (taken where the whole-row layout does not fit, or under
+    ``_FORCE_CHUNKED``; the float32 kernel has one layout for every D, whose
+    block depends on the call's ``bg`` batch-groups of ``n`` query rows
+    and ``m`` targets: ``fp32_block``); 0 bytes where no block fits.
+    Builds the kernel if needed."""
     b = _lib().knn_topk_smem_bytes(d, k, int(dtype == torch.bfloat16),
-                                   int(_FORCE_CHUNKED))
+                                   int(_FORCE_CHUNKED), bg, n, m,
+                                   *_fp32_block(), None)
     return abs(b), b < 0
+
+
+def fp32_block(bg: int, n: int, m: int, k: int) -> tuple[int, int]:
+    """``(query rows, column groups)`` of the float32 kernel's blocks for
+    ``bg`` batch-groups of ``n`` query rows, ``m`` targets and ``k``
+    neighbours (``_FP32_BLOCK`` where set). Builds the kernel if needed."""
+    shape = (ctypes.c_int * 2)()
+    _lib().knn_topk_smem_bytes(1, k, 0, 0, bg, n, m, *_fp32_block(),
+                               shape)
+    return shape[0], shape[1]
 
 
 def check_inputs(x: torch.Tensor, y: torch.Tensor,
@@ -112,7 +132,8 @@ def launch(x: torch.Tensor, y: torch.Tensor, *, k: int,
         raise ValueError(f"N = {n} query rows exceed the kernel's grid")
     lib = _lib()
     is_bf16 = x.dtype == torch.bfloat16 and y.dtype == torch.bfloat16
-    smem, _ = block_layout(d, k, torch.bfloat16 if is_bf16 else torch.float32)
+    smem, _ = block_layout(d, k, torch.bfloat16 if is_bf16 else torch.float32,
+                           bg, n, m)
     if smem == 0 or smem > MAX_SMEM_BYTES:
         raise ValueError(f"D = {d}: a block would need {smem} bytes of "
                          f"shared memory, over the card's {MAX_SMEM_BYTES}")
@@ -135,7 +156,7 @@ def launch(x: torch.Tensor, y: torch.Tensor, *, k: int,
             xsq.data_ptr(), ysq.data_ptr(), idx.data_ptr(),
             vals.data_ptr() if vals is not None else None,
             bg, n, m, d, k, bias_mode, int(x.dtype == torch.bfloat16),
-            int(y_is_x), int(_FORCE_CHUNKED), stream)
+            int(y_is_x), int(_FORCE_CHUNKED), *_fp32_block(), stream)
     if err != 0:
         raise RuntimeError(f"knn_topk kernel launch failed: "
                            f"{lib.knn_topk_error_string(err).decode()} "

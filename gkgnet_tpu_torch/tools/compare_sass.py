@@ -12,11 +12,15 @@ or ``0`` template arguments left out: the default instantiation of a kernel
 that gained compile-time flags, such as knn_mr_kernel's grouped flag and
 its phase) and the same instructions, addresses and encodings aside. Exits 1 if any differs. NAME defaults to ``knn_mr``.
 
-``--fp32`` compares only the kernels that the bf16 tensor-core redesign
-left alone, the CUDA-core ones: every fp32 instantiation of knn_mr_kernel
-and knn_topk_kernel, and l2norm_rows and row_sq in both types (names as
-printed, matched by ``FP32_ONLY``); it counts the rest as skipped, so the
-exit code says whether the kernels that were meant to stay did.
+``--fp32`` compares only the CUDA-core kernels: every fp32 instantiation
+of knn_mr_kernel and knn_topk_kernel (``knn_mr_kernel<float, ...>`` before
+their redesign on ``csrc/knn_scan_f32.cuh``, ``knn_mr_kernel<KDM, ...>``
+after it, which take fp32 only), and l2norm_rows and row_sq in both types
+(names as printed, matched by ``FP32_ONLY``); it counts the rest as
+skipped, so the exit code says whether the kernels that were meant to stay
+did. Without it, against a checkout from before that redesign, the fp32
+kernels read ``missing`` (their names lost the type) and every other
+kernel must read ``same``.
 
 Needs ``nvcc``, ``cuobjdump`` and ``cu++filt`` from the CUDA toolkit, not a
 card.
@@ -33,7 +37,8 @@ import tempfile
 from gkgnet_tpu_torch.ops import _build
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
-FP32_ONLY = r"^(knn_mr_kernel<float|knn_topk_kernel<float|l2norm_rows<|row_sq<)"
+FP32_ONLY = (r"^(knn_mr_kernel<(float|\d)|knn_topk_kernel<(float|\d)|"
+             r"l2norm_rows<|row_sq<)")
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 
 

@@ -46,7 +46,8 @@ from gkgnet_tpu_torch.ops.aggregate import gather_nodes
 from gkgnet_tpu_torch.ops.knn import knn_topk_reference, l2_normalize
 
 BG, N, D, M, K = 16, 20736, 40, 1296, 9
-ROWS_PER_BLOCK = 8  # the fp32 kernel's block, the wrappers' grid limit
+ROWS_PER_BLOCK = 8  # the fp32 kernel's fewest query rows a block (its
+                    # blocks take 8-64 by shape): the grid limit
 PHASES = ("dist", "sel", "gfix", "selg")
 FIXED_COLUMN = 7   # gfix gathers columns 7, 8, ..., 6 + k
 MAX_K = 16         # the phase instantiations' lists hold 16

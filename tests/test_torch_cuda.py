@@ -19,7 +19,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (check_topk, folded_route, forced_chunked,  # noqa: E402
-                        tie_fixture, topk_fixture)
+                        fp32_block, tie_fixture, topk_fixture)
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
                                            make_train_step)
@@ -545,7 +545,7 @@ def test_topk_kernel_nan_rows_match_plain(cuda, dtype, self_knn):
 
 
 @pytest.mark.parametrize("case", ["not_contiguous", "bias_on_cpu",
-                                  "k_over_64", "k_over_m", "too_wide",
+                                  "k_over_64", "k_over_m", "too_many_rows",
                                   "too_wide_bf16"])
 def test_topk_kernel_rejects_bad_inputs(cuda, case):
     x = torch.randn((2, 16, 8), device=cuda)
@@ -560,9 +560,10 @@ def test_topk_kernel_rejects_bad_inputs(cuda, case):
         k = 65
     elif case == "k_over_m":
         k = 101
-    elif case == "too_wide":  # the warps' fp32 query rows do not fit
-        x = torch.randn((2, 16, 6400), device=cuda)
-        y = torch.randn((2, 100, 6400), device=cuda)
+    elif case == "too_many_rows":  # the grid's y extent at 8 rows a block
+        x = torch.randn((1, 8 * 65535 + 1, 1), device=cuda)
+        y = torch.randn((1, 100, 1), device=cuda)
+        bias = None
     else:  # even the chunked scan's merge rows do not fit, at 1 warp
         x = torch.randn((2, 16, 30000), device=cuda).to(torch.bfloat16)
         y = torch.randn((2, 100, 30000), device=cuda).to(torch.bfloat16)
@@ -1034,6 +1035,10 @@ def test_tc_kernels_nan_rows_match_plain(cuda, self_knn):
 
 # --------------- the D-chunked scan: rows too wide for a whole-row layout
 
+# Every fp32 block shape the kernels take at once (query rows, column
+# groups): the results must be bitwise the host's choice.
+FP32_BLOCKS = [(8, 1), (8, 2), (8, 4), (16, 1), (16, 4), (32, 2), (64, 1)]
+
 # (n, m or None for y = x, d, k, dilation, bias): arch b@576 without
 # channel groups (its stage-4 spatial calls and its stage-4 label call at
 # D = 1024, with a batch of 1 here), and 1000 channels, whose last chunk of
@@ -1052,19 +1057,29 @@ def _wide_case(cuda, n, m, d, dtype, bias, seed):
     return x, y, None if b is None else b.to(cuda)
 
 
+def _other_layout(dtype, block=(8, 4)):
+    """The second layout of a kernel whose results must be bitwise the
+    default's: bf16's D-chunked scan forced, or a fp32 block of ``block``
+    (query rows, column groups)."""
+    if dtype == torch.bfloat16:
+        return forced_chunked()
+    return fp32_block(block)
+
+
 def _check_wide(name, x, y, bias, k, dilation, chunked=False):
     """knn_mr and knn_topk on one input against their plain versions: mr
     bitwise the plain max-relative of the kernel's idx, the fp64 oracle,
     idx the plain version's but at near-ties (at most 1 % of the rows),
     knn_topk(xn, yn, k*d)[..., ::d] bitwise knn_mr's idx and its values
-    within their fp32 bound. Returns the outputs."""
-    with forced_chunked() if chunked else contextlib.nullcontext():
+    within their fp32 bound. chunked: on ``_other_layout``. Returns the
+    outputs."""
+    with _other_layout(x.dtype) if chunked else contextlib.nullcontext():
         idx, mr, xn, yn = knn_mr.launch(x, y, bias, k, dilation)
     torch.cuda.synchronize()
     assert torch.equal(mr, max_relative(x, idx, y)), name
     assert knn_mr.ordering_gaps(xn, yn, bias, idx, dilation).max().item() \
         <= ORACLE_TOL, name
-    with forced_chunked() if chunked else contextlib.nullcontext():
+    with _other_layout(x.dtype) if chunked else contextlib.nullcontext():
         t_idx, t_vals = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
                                         return_values=True)
     assert torch.equal(t_idx[..., ::dilation], idx), name
@@ -1077,11 +1092,14 @@ def _check_wide(name, x, y, bias, k, dilation, chunked=False):
 @pytest.mark.parametrize("n,m,d,k,dilation,bias", WIDE_SHAPES)
 def test_wide_rows_take_the_chunked_scan(cuda, n, m, d, k, dilation, bias,
                                          dtype):
-    """D = 1024 and 1000: the whole-row layouts do not fit, the kernels
-    take the chunked scan and meet the contract of every other width."""
+    """D = 1024 and 1000: the bf16 whole-row layouts do not fit, the bf16
+    kernels take the chunked scan (the fp32 ones their one layout) and meet
+    the contract of every other width."""
     for mod, kk in ((knn_mr, k * dilation), (knn_topk, k * dilation)):
-        smem, chunked = mod.block_layout(d, kk, dtype)
-        assert chunked and 0 < smem <= knn_topk.MAX_SMEM_BYTES
+        smem, chunked = mod.block_layout(d, kk, dtype, 1, n,
+                                         n if m is None else m)
+        assert chunked == (dtype == torch.bfloat16)
+        assert 0 < smem <= knn_topk.MAX_SMEM_BYTES
     x, y, b = _wide_case(cuda, n, m, d, dtype, bias, seed=30)
     _check_wide(f"D={d}", x, y, b, k, dilation)
 
@@ -1097,7 +1115,12 @@ def test_wide_backward_matches_plain(cuda, dtype):
 
 def _boundary(mod, dtype, kd):
     """The widest multiple of 8 channels that the whole-row layout of
-    ``mod``'s kernel takes."""
+    ``mod``'s bf16 kernel takes; for fp32, which has one layout for every
+    D, the width where the earlier fp32 kernel's whole-row layout ended
+    (its transposed tile, 260 bytes a channel, filled the block at 795)."""
+    if dtype == torch.float32:
+        assert not mod.block_layout(4096, kd, dtype, 1, 324, 324)[1]
+        return 792
     d = 8
     while not mod.block_layout(d + 8, kd, dtype)[1]:
         d += 8
@@ -1112,7 +1135,7 @@ def test_chunking_boundary(cuda, mod, dtype):
     """The widths on either side of a kernel's chunking boundary (k*d =
     45): the last one its whole-row layout takes and the first one it does
     not, each against the plain versions, and bitwise what the chunked
-    scan forced on the same input gives."""
+    scan forced (fp32: another block) on the same input gives."""
     k, dilation = 9, 5
     d = _boundary(mod, dtype, k * dilation)
     for width in (d, d + 8):
@@ -1135,36 +1158,38 @@ def test_chunking_boundary(cuda, mod, dtype):
 ])
 def test_chunked_scan_is_bitwise_the_unchunked(cuda, bg, n, m, d, k,
                                                dilation, bias_kind, dtype):
-    """The chunked scan forced at widths the whole-row layout takes: the
-    same mma / fmaf steps in the same order, so idx, mr, the normalized
-    rows and knn_topk's idx and values are bitwise the unchunked kernels'."""
+    """The chunked scan forced at widths the whole-row layout takes (fp32:
+    every block shape the kernels take): the same mma / fmaf steps in the
+    same order, so idx, mr, the normalized rows and knn_topk's idx and
+    values are bitwise the default layout's."""
     x, y, bias = _inputs(bg, n, m, d, bias_kind, dtype, seed=32)
     x = x.to(cuda)
     y = x if m is None else y.to(cuda)
     bias = None if bias is None else bias.to(cuda)
     plain = knn_mr.launch(x, y, bias, k, dilation)
-    with forced_chunked():
-        forced = knn_mr.launch(x, y, bias, k, dilation)
-    for a, c in zip(plain, forced):
-        assert torch.equal(_bits(a) if a.is_floating_point() else a,
-                           _bits(c) if c.is_floating_point() else c)
     xn, yn = plain[2], plain[3]
     t = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
                         return_values=True)
-    with forced_chunked():
-        tc = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
-                             return_values=True)
-    assert torch.equal(t[0], tc[0]) and torch.equal(_bits(t[1]),
-                                                    _bits(tc[1]))
+    for block in (FP32_BLOCKS if dtype == torch.float32 else [None]):
+        with _other_layout(dtype, block):
+            forced = knn_mr.launch(x, y, bias, k, dilation)
+            tc = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
+                                 return_values=True)
+        for a, c in zip(plain, forced):
+            assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(c) if c.is_floating_point() else c)
+        assert torch.equal(t[0], tc[0]) and torch.equal(_bits(t[1]),
+                                                        _bits(tc[1]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_chunked_scan_nan_rows_match_plain(cuda, dtype):
-    """NaN rows at D = 1024 through the chunked scan (whose NaN tail reads
-    the query row from device memory, not from a staged row): a NaN query
-    row takes columns 0, d, 2d, ... with a NaN mr, a NaN target row is
-    never chosen; idx and mr bitwise the plain versions' on those rows."""
+    """NaN rows at D = 1024 through the bf16 chunked scan and the fp32
+    scan (whose NaN tails read the query row from device memory, not from
+    a staged row): a NaN query row takes columns 0, d, 2d, ... with a NaN
+    mr, a NaN target row is never chosen; idx and mr bitwise the plain
+    versions' on those rows."""
     g = torch.Generator().manual_seed(33)
     k, dilation = 9, 2
     x = torch.randn((2, 80, 1024), generator=g)
@@ -1184,6 +1209,107 @@ def test_chunked_scan_nan_rows_match_plain(cuda, dtype):
                                     return_values=True)
     assert torch.equal(t_idx[..., ::dilation], idx)
     assert torch.isnan(t_vals[0, 3]).all()
+
+
+# ------------------------- the fp32 scan (csrc/knn_scan_f32.cuh): its edges
+#
+# Query rows 8-64 and column groups 1-4 a block (picked by shape), target
+# tiles of 64 columns a group, 32-channel chunks (a last chunk not a multiple
+# of 4 padded with zeros), lists of 8, 16, 32 or 64.
+
+
+def _same_on_every_block(x, y, bias, k, dilation, got, t_got):
+    """knn_mr's and knn_topk's outputs on every fp32 block shape bitwise
+    ``got`` / ``t_got`` (the host's block)."""
+    xn, yn = got[2], got[3]
+    for block in FP32_BLOCKS:
+        with fp32_block(block):
+            other = knn_mr.launch(x, y, bias, k, dilation)
+            t_other = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
+                                      return_values=True)
+        for a, c in zip(got, other):
+            assert torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(c) if c.is_floating_point() else c), \
+                block
+        assert torch.equal(t_got[0], t_other[0]), block
+        assert torch.equal(_bits(t_got[1]), _bits(t_other[1])), block
+
+
+@pytest.mark.parametrize("k,dilation", [(1, 1), (9, 1), (9, 5), (16, 4)],
+                         ids=["kd1", "kd9", "kd45", "kd64"])
+@pytest.mark.parametrize("d", [1, 3, 5, 24, 40, 1023, 1024])
+def test_fp32_scan_edges_match_plain(cuda, d, k, dilation):
+    """The fp32 kernels at the scan's edges: 1 channel, widths not a
+    multiple of 4 (the padded float4 tail), 1023 and 1024 (32 chunks);
+    k*d 1, 9, 45 and 64 (lists of 8, 16, 64, 64); a ragged last tile
+    (M = 70) and N = 45 off every block's multiple, with a shared bias:
+    knn_mr and knn_topk against their plain versions (``_check_wide``),
+    then both bitwise alike on every block shape."""
+    x, y, bias = _inputs(2, 45, 70, d, "shared", torch.float32, seed=d)
+    x, y, bias = x.to(cuda), y.to(cuda), bias.to(cuda)
+    got = knn_mr.launch(x, y, bias, k, dilation)
+    _check_wide(f"D={d} k*d={k * dilation}", x, y, bias, k, dilation)
+    t_got = knn_topk.launch(got[2], got[3], k=k * dilation, bias=bias,
+                            return_values=True)
+    _same_on_every_block(x, y, bias, k, dilation, got, t_got)
+
+
+@pytest.mark.parametrize("bias_kind", [None, "shared", "batched"])
+def test_fp32_scan_nan_rows_and_short_targets(cuda, bias_kind):
+    """M = k*d = 45, below one tile: every target is ranked. A NaN query
+    row (and, with a bias, a query row whose bias is NaN) takes columns 0,
+    d, 2d, ... with NaN values (and the NaN query row a NaN mr); a NaN
+    target row comes last (rank 44, not
+    kept at dilation 5) in every other row of its batch-group; idx and mr
+    bitwise the plain versions' on those rows, on every block shape."""
+    k, dilation = 9, 5
+    x, y, bias = _inputs(2, 30, 45, 5, bias_kind, torch.float32, seed=41)
+    x[0, 1] = float("nan")
+    y[1, 7] = float("nan")
+    if bias is not None:
+        (bias if bias.dim() == 2 else bias[0])[2] = float("nan")
+    x, y = x.to(cuda), y.to(cuda)
+    bias = None if bias is None else bias.to(cuda)
+    got = knn_mr.launch(x, y, bias, k, dilation)
+    idx, mr, xn, yn = got
+    ref_idx, _ = knn_mr.knn_mr_reference(x, y, bias, k, dilation)
+    nan_rows = [(0, 1)] + ([(0, 2)] if bias is not None else [])
+    for b, r in nan_rows:
+        assert idx[b, r].tolist() == list(range(0, k * dilation, dilation))
+        assert torch.equal(idx[b, r], ref_idx[b, r])
+    assert torch.isnan(mr[0, 1]).all()  # the NaN query row's rels
+    assert not (idx[1] == 7).any()
+    torch.testing.assert_close(mr, max_relative(x, idx, y), rtol=0, atol=0,
+                               equal_nan=True)
+    t_idx, t_vals = knn_topk.launch(xn, yn, k=k * dilation, bias=bias,
+                                    return_values=True)
+    assert torch.equal(t_idx[..., ::dilation], idx)
+    for b, r in nan_rows:
+        assert torch.isnan(t_vals[b, r]).all()
+    finite = [r for r in range(30) if not (bias is not None
+                                           and bias.dim() == 2 and r == 2)]
+    assert (t_idx[1, finite, -1] == 7).all()
+    assert torch.isnan(t_vals[1, finite, -1]).all()
+    _same_on_every_block(x, y, bias, k, dilation, got, (t_idx, t_vals))
+
+
+def test_fp32_grouped_kernel_is_the_same_on_every_block(cuda):
+    """The grouped fp32 kernel (unfolded rows, 2 groups, a shared bias,
+    NaN rows) bitwise alike on every block shape."""
+    gen = torch.Generator().manual_seed(42)
+    x = torch.randn((2, 75, 2 * 36), generator=gen)
+    y = torch.randn((2, 130, 2 * 36), generator=gen)
+    x[0, 3, :36] = float("nan")
+    y[1, 9, 36:] = float("nan")
+    bias = (torch.randn((75, 130), generator=gen) * 0.1).to(cuda)
+    x, y = x.to(cuda), y.to(cuda)
+    got = knn_mr.launch_grouped(x, y, bias, 9, 2, 2)
+    assert torch.equal(got[0], folded_route(x, y, bias, 9, 2, 2)[0])
+    for block in FP32_BLOCKS:
+        with fp32_block(block):
+            other = knn_mr.launch_grouped(x, y, bias, 9, 2, 2)
+        assert torch.equal(got[0], other[0]), block
+        assert torch.equal(_bits(got[1]), _bits(other[1])), block
 
 
 # ------------------------------------------- the kernels as registered ops
