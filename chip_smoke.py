@@ -43,9 +43,10 @@ Phases (each prints its elapsed seconds):
      gy bitwise gather_backward_ordered_reference and within the fp64
      bound, two launches bitwise equal, kernel, plain and index_add_
      times;
-  4. eval: entry(device="cuda", batch=8) in bf16: 16 kernel launches per
-     forward, finite (8, 80) logits; 3 requests through predict(); then
-     ms/forward and a profile of device time by kernel; then batch 1 in
+  4. eval: entry(device="cuda", batch=8) in bf16 (a CUDA graph from its
+     second call): 16 kernel launches per forward, finite (8, 80) logits;
+     3 requests through predict(); then ms/forward and a profile of device
+     time by kernel; then batch 1 in
      fp32 (TF32 off): each of the 16 calls held against the plain version on
      the forward's own activations, and the logits of the kernel path and
      the plain paths printed (see compare_fp32_paths for why they are not
@@ -55,8 +56,10 @@ Phases (each prints its elapsed seconds):
   5. train: train_entry(device="cuda", batch=8) in bf16 for 3 steps: 16
      forward and 16 backward launches per step, finite losses and gradient
      norm, parameters and BatchNorm statistics moved, the EMA between the
-     initial and the new parameters; then ms/step, img/s, peak memory and
-     a profile; then one step at batch 2 in fp32: each of the 16 backward
+     initial and the new parameters (the first step eager, the second
+     captured, the third a replay); then the graphed ms/step, img/s, peak
+     memory (with the graph pool) and an eager step's profile; then one
+     step at batch 2 in fp32: each of the 16 backward
      calls held against the plain version on the step's own activations,
      and the kernel path's loss printed beside the plain path's and beside
      the kernel path's on images moved by one ulp; neither path launches
@@ -252,6 +255,28 @@ Phases (each prints its elapsed seconds):
      peak memory and the busy share; then tools.profile_breakdown's eval
      tables on t@576 (its 5 + 4 rows for the 12 + 4 calls, the model both
      ways, the remainder and the MFU);
+ 15. the compiled steps (core.graphs: one CUDA graph per input signature,
+     the counterpart of jax.jit), each against eager calls of the same
+     code: (a) entry()'s s@576 eval, bf16, batch 8: the graphed logits
+     bitwise the eager ones over a warm-up, a capture and a replay, 16
+     knn_mr launches per replay, ms/forward both ways in turns (CUDA
+     events, 2 warmup, mean of 10), peak memory and the busy share; (b)
+     train_entry()'s s@576 step at batch 8: three graphed and three eager
+     steps from one seeded state, each step's log bitwise, then every
+     parameter, BatchNorm statistic, EMA tensor and optimizer state tensor
+     bitwise; ms/step both ways in turns, peak memory and the busy share;
+     (c) the dynamic loss scaler: a finite, a NaN (the captured step) and
+     a finite batch at s@576, batch 2: the NaN step keeps the state
+     bitwise and halves the scale, each step bitwise the eager one; (d)
+     the GKGNET_GROUPED=1 route's eval (batch 8) and step (batch 2), and
+     t@576's eval and step from its config, bitwise, t@576 timed both
+     ways; (e) a short last batch (5 of 8) takes a second capture, its
+     logits bitwise the eager ones. Phases 4, 5, the CLIs (9-11) and
+     phase 12's timed turns run the compiled steps; the phases that record
+     or time single kernel calls ask for eager calls (compiled=False).
+     In every phase, each CUDA graph's first replay is profiled and the
+     port's kernels in it held to the launches its capture counted, with
+     which each later replay is credited (check_replay);
 
 then the kernels line, nvidia-smi's line, and the result line.
 
@@ -274,6 +299,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -292,7 +318,8 @@ from gkgnet_tpu_torch.core.checkpoint import load_params_only  # noqa: E402
 from gkgnet_tpu_torch.core.export import (  # noqa: E402
     load_exported_classifier)
 from gkgnet_tpu_torch.core.hooks import precise_bn  # noqa: E402
-from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
+from gkgnet_tpu_torch.core.trainer import (TrainState,  # noqa: E402
+                                           create_train_state,
                                            make_eval_step, make_train_step)
 from gkgnet_tpu_torch.data.coco import COCO_CLASSES  # noqa: E402
 from gkgnet_tpu_torch.data.loader import (build_dataloader,  # noqa: E402
@@ -301,10 +328,13 @@ from gkgnet_tpu_torch.data.voc import VOC_CLASSES  # noqa: E402
 from gkgnet_tpu_torch import entry as entry_mod  # noqa: E402
 from gkgnet_tpu_torch.entry import entry, predict, train_entry  # noqa: E402
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
+from gkgnet_tpu_torch.core.graphs import (StepGraphs,  # noqa: E402
+                                          reset_launch_counts)
 from gkgnet_tpu_torch.nn import gkgnet as gkgnet_mod  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.nn.augment import build_batch_augment  # noqa: E402
-from gkgnet_tpu_torch.nn.classifier import init_parameters  # noqa: E402
+from gkgnet_tpu_torch.nn.classifier import (  # noqa: E402
+    GKGNetClassifier, init_parameters)
 from gkgnet_tpu_torch.nn.gkgnet import ARCH_SETTINGS, GKGNet  # noqa: E402
 from gkgnet_tpu_torch.nn.layers import BatchNorm  # noqa: E402
 from gkgnet_tpu_torch.ops import (_build, aggregate, knn_mr,  # noqa: E402
@@ -555,6 +585,55 @@ def profile_device(run, unit: str, iters: int = 3) -> dict:
     return dict(wall=wall_ms, busy=busy_ms, ours=ours)
 
 
+# the kernel that runs once in each launch of a counted wrapper, as the
+# profiler names it (demangled); the forward's normalization and
+# launch_normalize both run l2norm_rows, so normalize_launches is the rest
+LAUNCH_MARKS = {
+    "knn_mr.launches": re.compile(r"\bknn_mr(_tc)?_kernel<\d+, false, 0\b"),
+    "knn_mr.grouped_launches":
+        re.compile(r"\bknn_mr(_tc)?_kernel<\d+, true, 0\b"),
+    "knn_mr.backward_launches": re.compile(r"\brow_split<"),
+    "knn_mr.gather_backward_launches": re.compile(r"\bplace_edges\b"),
+    "knn_topk.launches": re.compile(r"\bknn_topk(_tc)?_kernel<"),
+}
+REPLAYS = Counter()  # StepGraphs' first replays checked, and their launches
+
+
+def replay_launches(prof) -> dict:
+    """The counted wrappers' launches in a profiled stretch, from the
+    kernels that ran in it (LAUNCH_MARKS), by counter."""
+    got = Counter()
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for counter, mark in LAUNCH_MARKS.items():
+            if mark.search(e.key):
+                got[counter] += e.count
+        if re.search(r"\bl2norm_rows<", e.key):
+            got["knn_mr.normalize_launches"] += e.count
+    got["knn_mr.normalize_launches"] -= (got["knn_mr.launches"]
+                                         + got["knn_mr.grouped_launches"])
+    return {k: v for k, v in got.items() if v}
+
+
+def check_replay(replay, counts: dict) -> None:
+    """StepGraphs.check_replay for the whole run: profile a new graph's
+    first replay (the capture's own step) and hold the kernels that ran in
+    it to the launches its capture counted, which every later replay of
+    the graph is credited with. A graph launches the same kernels at every
+    replay."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    got = replay_launches(prof)
+    want = {k: v for k, v in counts.items() if v}
+    check(got == want, f"a graph's first replay launched {got} (profiled), "
+          f"its capture counted {want}")
+    REPLAYS["graphs"] += 1
+    REPLAYS.update(want)
+
+
 def compare_fp32_paths() -> None:
     """GKGNet-S@576 at batch 1 in fp32 (TF32 off): the kernel path against
     the plain path.
@@ -571,7 +650,8 @@ def compare_fp32_paths() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    fn, (model, x) = entry(device="cuda", batch=1, dtype=torch.float32)
+    fn, (model, x) = entry(device="cuda", batch=1, dtype=torch.float32,
+                           compiled=False)
     calls = []
     kernel_op = grapher.knn_mr_fused
 
@@ -619,7 +699,8 @@ def fp32_eval_time() -> dict:
     """GKGNet-S@576's eval forward at batch 8 in fp32 (TF32 off, as
     compare_fp32_paths sets it): ms/forward (CUDA events, 2 warmup, the
     mean of 10) and the fp32 knn_mr kernel's share of the device time."""
-    fn, (model, x) = entry(device="cuda", batch=8, dtype=torch.float32)
+    fn, (model, x) = entry(device="cuda", batch=8, dtype=torch.float32,
+                           compiled=False)
     knn_mr.launches = 0
     with torch.no_grad():
         ms = cuda_ms(lambda: fn(model, x), 10, 2)
@@ -1348,14 +1429,21 @@ def train_phase() -> dict:
         fn(state, batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3 / iters
+    # a replay allocates nothing: the step's transient memory is its graph
+    # pool's
     peak = torch.cuda.max_memory_allocated()
+    pool = pool_bytes(fn.graphs) or 0
     log(f"train: {step_ms:.2f} ms/step at batch 8, {8e3 / step_ms:.1f} img/s "
-        f"(bf16, mean of {iters} steps, host clock with synchronize); peak "
-        f"memory {peak / 2**30:.2f} GiB")
-    profile_device(lambda: fn(state, batch), "step", iters=2)
-    del fn, state, batch, model, p0, stats0, sd
+        f"(bf16, the graphed step, mean of {iters} steps, host clock with "
+        f"synchronize); peak memory {(peak + pool) / 2**30:.2f} GiB (peak "
+        f"allocated {peak / 2**30:.2f} and the graph pool {pool / 2**30:.2f})")
+    # the profile's split by kernel reads eager calls (phase 15 profiles
+    # the graph)
+    eager = make_train_step(ema_momentum=2e-4, compiled=False)
+    profile_device(lambda: eager(state, batch, 0), "eager step", iters=2)
+    del fn, eager, state, batch, model, p0, stats0, sd
     torch.cuda.empty_cache()
-    return dict(launches=launches, step_ms=step_ms, peak_bytes=peak,
+    return dict(launches=launches, step_ms=step_ms, peak_bytes=peak + pool,
                 step1=step1)
 
 
@@ -1392,7 +1480,7 @@ def compare_fp32_train() -> None:
                           (plain_fwd, plain_bwd, False),
                           (kernel_fwd, kernel_bwd, True)):
         fn, (state, batch) = train_entry(device="cuda", batch=2,
-                                         dtype=torch.float32)
+                                         dtype=torch.float32, compiled=False)
         if ulp:
             batch["img"] = torch.nextafter(batch["img"],
                                            torch.full_like(batch["img"], 1e9))
@@ -1614,7 +1702,9 @@ def grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
 
 
 def _grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
-    fn, (model, x) = entry(device="cuda", batch=8)
+    # eager calls: the timing switches routes and the checks record calls
+    # (phase 15 (d) holds the grouped route's graphs to them)
+    fn, (model, x) = entry(device="cuda", batch=8, compiled=False)
     log("grouped: GKGNet-S@576 bf16, batch 8, GKGNET_GROUPED=1, built")
     knn_mr.launches = knn_mr.grouped_launches = 0
     knn_mr.backward_launches = knn_topk.launches = 0
@@ -1656,7 +1746,8 @@ def _grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
                                timed=True)
     del fn, model, x, logits
     torch.cuda.empty_cache()
-    fn, (model, x) = entry(device="cuda", batch=2, dtype=torch.float32)
+    fn, (model, x) = entry(device="cuda", batch=2, dtype=torch.float32,
+                           compiled=False)
     fp32_rows = check_grouped_calls(record_grouped_calls(fn, model, x),
                                     "fp32", timed=False)
     log("grouped: the 16 calls of the forward bitwise fold -> kernel -> "
@@ -1666,7 +1757,7 @@ def _grouped_phase(ref_logits: torch.Tensor, ref_step1: tuple) -> dict:
     del fn, model, x
     torch.cuda.empty_cache()
 
-    fn, (state, batch) = train_entry(device="cuda", batch=8)
+    fn, (state, batch) = train_entry(device="cuda", batch=8, compiled=False)
     model = state.model
     knn_mr.launches = knn_mr.grouped_launches = 0
     knn_mr.backward_launches = knn_topk.launches = 0
@@ -1996,12 +2087,6 @@ SERVE_TIMED = 64        # POSTs timed after those (one round of the 64 JPEGs)
 PRECISE_BN_BATCHES = 4  # seeded batches of 8 for PreciseBN
 
 
-def reset_launch_counts() -> None:
-    knn_mr.launches = knn_mr.grouped_launches = 0
-    knn_mr.backward_launches = knn_topk.launches = 0
-    knn_mr.normalize_launches = knn_mr.gather_backward_launches = 0
-
-
 def check_counts(what: str, want: tuple[int, int, int, int],
                  total: Counter) -> None:
     """The launches since the last reset must be ``want``; they are added
@@ -2016,8 +2101,11 @@ def check_counts(what: str, want: tuple[int, int, int, int],
 def http(port: int, path: str, data: bytes | None = None):
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
                                  method="POST" if data else "GET")
-    with urllib.request.urlopen(req, timeout=120) as resp:
-        return resp.status, json.loads(resp.read())
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:  # the server's message in the error
+        raise RuntimeError(f"{path}: HTTP {e.code}: {e.read()!r}") from e
 
 
 def serving_phase(root: str, cli: dict, smi: str) -> dict:
@@ -2845,7 +2933,9 @@ def arch_b_phase(smi: str) -> dict:
     # (a) train: the config's state (AdamW, EMA), make_train_step, dual loss
     state = train_cli.build_train_state(cfg, 0, torch.device("cuda"), 1000,
                                         ema=True)
-    step = make_train_step(ema_momentum=2e-4)
+    # eager: the backward calls are recorded below; the graphed step is
+    # timed against it after
+    step = make_train_step(ema_momentum=2e-4, compiled=False)
     batch = {"img": images, "gt_label": labels}
     p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
     reset_launch_counts()
@@ -2890,7 +2980,24 @@ def arch_b_phase(smi: str) -> dict:
                                   c[1] is c[0])).items():
         name = f"b_{'self' if self_knn else 'cross'}_N{n}_M{m}_D{d}"
         bwd_rows.append(backward_row(name, x, y, idx, g, count))
-    del state, step, batch, bwd_calls
+    # the graphed step (core.graphs) against the eager one on the same
+    # state, in turns: ms/step and peak memory (phase 15's table). The
+    # recorded calls go first: their activations hold the eager step's
+    # autograd graph, whose gradient accumulators run on the default
+    # stream, which a capture cannot join
+    del bwd_calls, x, y, idx, g
+    gstep = make_train_step(ema_momentum=2e-4)
+    for _ in range(2):  # the warm-up step, then the capture's
+        gstep(state, batch, 0)
+    reset_launch_counts()
+    b_graph = graph_turns({"eager": lambda: step(state, batch, 0),
+                           "graphed": lambda: gstep(state, batch, 0)},
+                          step_timer(3), gstep.graphs)
+    check(knn_mr.launches == knn_mr.backward_launches == 4 * 3 * B_CALLS,
+          f"b: {knn_mr.launches} + {knn_mr.backward_launches} launches in "
+          f"12 timed steps, expected {12 * B_CALLS} each")
+    log(f"b ({smi}): " + describe_turns(b_graph, "step"))
+    del state, step, gstep, batch
     torch.cuda.empty_cache()
 
     # (b) the ungrouped backbone: stage 4 at D = 1024
@@ -3038,7 +3145,7 @@ def arch_b_phase(smi: str) -> dict:
                 bwd_rows=bwd_rows + wide_bwd, topk_rows=wide_topk,
                 chunk_rows=chunk_rows,
                 fwd_ms=fwd_ms, step_ms=step_ms, eval_peak=eval_peak,
-                train_peak=train_peak)
+                train_peak=train_peak, graph=b_graph)
 
 
 # ---------------------------------------------------------------- phase 14
@@ -3125,7 +3232,9 @@ def arch_t_phase(smi: str) -> dict:
     # two train steps: the config's state, make_train_step, dual loss
     state = train_cli.build_train_state(cfg, 0, torch.device("cuda"), 1000,
                                         ema=True)
-    step = make_train_step(ema_momentum=2e-4)
+    # eager: each step's calls are recorded (phase 15 (d) holds the
+    # graphed step to it)
+    step = make_train_step(ema_momentum=2e-4, compiled=False)
     batch = {"img": images, "gt_label": labels}
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3866,6 +3975,324 @@ def parallel_cli_phase(root: str, cli: dict, smi: str) -> None:
     check(diff <= PAR_CLI_MAP_TOL, f"parallel (d): mAP |diff| {diff}")
 
 
+# ------------------------------------------------ 15. the compiled steps
+
+
+def step_timer(iters: int):
+    """ms per call of ``run``: host clock around ``iters`` calls, with a
+    synchronize before and after (a train step's measure)."""
+    def timer(run) -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+    return timer
+
+
+def event_timer(iters: int = 10, warmup: int = 2):
+    """ms per call of ``run`` with CUDA events (an eval forward's measure):
+    ``cuda_ms``."""
+    return lambda run: cuda_ms(run, iters, warmup)
+
+
+def pool_bytes(graphs) -> int | None:
+    """The bytes the caching allocator reserved for a step function's graph
+    memory pool (its segments in the memory snapshot), or None without
+    one."""
+    if graphs.pool is None:
+        return None
+    pool = tuple(graphs.pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def graph_turns(runs: dict, timer, graphs) -> dict:
+    """The eager and the graphed ``runs`` timed in turns (eager, graphed,
+    graphed, eager) by ``timer``, with the peak allocated memory over each
+    one's turns (``max_memory_allocated``; a replay allocates nothing, so
+    the graphed path's peak is its state and outputs, and its graph pool's
+    reserved bytes are given beside it)."""
+    out = {name: dict(ms=[], peak=0) for name in runs}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[name]["ms"].append(timer(runs[name]))
+        out[name]["peak"] = max(out[name]["peak"],
+                                torch.cuda.max_memory_allocated())
+    out["graphed"]["pool"] = pool_bytes(graphs)
+    return out
+
+
+def describe_turns(turns: dict, unit: str) -> str:
+    e, g = turns["eager"], turns["graphed"]
+    pool = g["pool"]
+    return (f"eager {e['ms'][0]:.2f} and {e['ms'][1]:.2f} ms/{unit}, graphed "
+            f"{g['ms'][0]:.2f} and {g['ms'][1]:.2f} (turns eager, graphed, "
+            f"graphed, eager); peak allocated eager "
+            f"{e['peak'] / 2**30:.2f} GiB, graphed {g['peak'] / 2**30:.2f} "
+            f"GiB with its graph pool reserving "
+            + ("not measured" if pool is None else f"{pool / 2**30:.2f} GiB"))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits (NaN included), same shape and type."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def state_bits(state) -> dict:
+    """Every tensor a train step keeps: parameters, buffers (the BatchNorm
+    statistics), EMA, optimizer state and the loss scaler."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+    opt = state.optimizer.optimizer
+    names = {p: n for n, p in state.model.named_parameters()}
+    for p, st in opt.state.items():
+        out.update({f"opt.{names[p]}.{k}": v for k, v in st.items()})
+    if state.loss_scale is not None:
+        out.update(loss_scale=state.loss_scale, good_steps=state.good_steps)
+    return out
+
+
+def held_bitwise(what: str, got: dict, want: dict) -> int:
+    """Check two ``state_bits`` (or log) dicts bitwise; returns the count."""
+    check(set(got) == set(want), f"{what}: other keys")
+    differ = [k for k in want if not same_bits(got[k], want[k])]
+    check(not differ, f"{what}: {len(differ)} tensors not bitwise, e.g. "
+          f"{differ[:4]}")
+    return len(want)
+
+
+def step_pairs(what: str, graphed, eager, batches: list, seeds: list,
+               expect: tuple | None = None) -> list[dict]:
+    """``graphed = (step, state)`` and ``eager = (step, state)`` from one
+    start through ``batches``: each step's log bitwise the eager one's (and
+    the knn_mr forward and backward launches of each graphed call
+    ``expect``); returns the graphed logs."""
+    (g_step, g_state), (e_step, e_state) = graphed, eager
+    logs = []
+    for i, (batch, seed) in enumerate(zip(batches, seeds)):
+        reset_launch_counts()
+        _, g_log = g_step(g_state, batch, seed)
+        torch.cuda.synchronize()
+        got = (knn_mr.launches + knn_mr.grouped_launches,
+               knn_mr.backward_launches)
+        if expect is not None:
+            check(got == expect, f"{what} step {i}: {got} forward and "
+                  f"backward launches, expected {expect}")
+        _, e_log = e_step(e_state, batch, seed)
+        held_bitwise(f"{what} step {i} log",
+                     {k: v for k, v in g_log.items() if k != "lr"},
+                     {k: v for k, v in e_log.items() if k != "lr"})
+        logs.append(g_log)
+    return logs
+
+
+def compiled_phase(smi: str) -> dict:
+    """Phase 15: the compiled steps (core.graphs, the counterpart of
+    jax.jit) against eager calls of the same code: (a) s@576 eval, (b)
+    s@576 train, (c) the dynamic loss scaler's skip in a graph, (d) the
+    grouped route's eval and step and t@576's eval and step, (e) a short
+    last batch. Returns the numbers."""
+    t0 = time.perf_counter()
+    out = {}
+    # (a) s@576 eval, bf16, batch 8: entry()'s compiled forward
+    fn, (model, x) = entry(device="cuda", batch=8)
+    plain = make_eval_step(compiled=False, output=entry_mod.logits)
+    st = TrainState(0, model, None)
+    want = plain(st, x)
+    got = [fn(model, x) for _ in range(3)]  # warm-up, capture, replay
+    torch.cuda.synchronize()
+    check(fn.graphs.captures == 1 and all(same_bits(g, want) for g in got),
+          f"compiled (a): {fn.graphs.captures} captures; graphed logits "
+          f"bitwise the eager ones: {[same_bits(g, want) for g in got]}")
+    reset_launch_counts()
+    fn(model, x)
+    torch.cuda.synchronize()
+    check_counts("compiled (a): one replay", (16, 0, 0, 0), Counter())
+    turns = graph_turns({"eager": lambda: plain(st, x),
+                         "graphed": lambda: fn(model, x)},
+                        event_timer(), fn.graphs)
+    prof = {name: profile_device(run, f"{name} forward") for name, run in
+            (("eager", lambda: plain(st, x)),
+             ("graphed", lambda: fn(model, x)))}
+    out["eval"] = dict(turns, busy={k: v["busy"] for k, v in prof.items()},
+                       wall={k: v["wall"] for k, v in prof.items()})
+    log(f"compiled (a) ({smi}): s@576 eval bf16 batch 8: the graphed logits "
+        f"bitwise the eager ones (3 calls: warm-up, capture, replay), 16 "
+        f"knn_mr launches per replay; " + describe_turns(turns, "forward")
+        + "; busy " + ", ".join(
+            f"{k} {v['busy']:.2f} of {v['wall']:.2f} ms "
+            f"({100 * v['busy'] / v['wall']:.1f} %)"
+            for k, v in prof.items()))
+    # (e) a short last batch: its own warm-up and capture, in the same pool
+    x5 = x[:5].contiguous()
+    want5 = plain(st, x5)
+    got5 = [fn(model, x5) for _ in range(3)]
+    again = fn(model, x)
+    torch.cuda.synchronize()
+    check(fn.graphs.captures == 2 and len(fn.graphs.graphs) == 2
+          and all(same_bits(g, want5) for g in got5)
+          and same_bits(again, want),
+          f"compiled (e): {fn.graphs.captures} captures; batch-5 logits "
+          f"bitwise: {[same_bits(g, want5) for g in got5]}; batch 8 after: "
+          f"{same_bits(again, want)}")
+    log("compiled (e): a short last batch (5 of 8) warmed up and captured "
+        "its own graph in the same pool, its logits bitwise the eager "
+        "ones, and batch 8's graph still gives its bits")
+    del fn, model, x, st, want, got, x5, want5, got5, again
+    torch.cuda.empty_cache()
+
+    # (b) s@576 train, batch 8: three graphed and three eager steps from
+    # one seeded state
+    g_fn, (g_state, batch) = train_entry(device="cuda", batch=8)
+    e_fn, (e_state, _) = train_entry(device="cuda", batch=8, compiled=False)
+    logs = step_pairs("compiled (b)", (lambda s, b, _: g_fn(s, b), g_state),
+                      (lambda s, b, _: e_fn(s, b), e_state), [batch] * 3,
+                      [0] * 3, expect=(16, 16))
+    n = held_bitwise("compiled (b) after 3 steps", state_bits(g_state),
+                     state_bits(e_state))
+    check(g_fn.graphs.captures == 1, "compiled (b): one capture")
+    turns = graph_turns({"eager": lambda: e_fn(e_state, batch),
+                         "graphed": lambda: g_fn(g_state, batch)},
+                        step_timer(5), g_fn.graphs)
+    prof = {name: profile_device(run, f"{name} step", iters=2)
+            for name, run in (("eager", lambda: e_fn(e_state, batch)),
+                              ("graphed", lambda: g_fn(g_state, batch)))}
+    out["train"] = dict(turns, busy={k: v["busy"] for k, v in prof.items()},
+                        wall={k: v["wall"] for k, v in prof.items()})
+    log(f"compiled (b) ({smi}): s@576 train bf16 batch 8: 3 graphed steps "
+        f"bitwise 3 eager ones (losses "
+        f"{[float(g['loss']) for g in logs]}, grad_norm and every one of "
+        f"{n} tensors of the state: parameters, BatchNorm statistics, EMA, "
+        f"optimizer moments and step counts), 16 + 16 knn_mr launches per "
+        f"call; " + describe_turns(turns, "step") + "; busy " + ", ".join(
+            f"{k} {v['busy']:.2f} of {v['wall']:.2f} ms "
+            f"({100 * v['busy'] / v['wall']:.1f} %)"
+            for k, v in prof.items()))
+    del g_fn, e_fn, g_state, e_state, logs
+    torch.cuda.empty_cache()
+
+    # (c) the dynamic loss scaler in the graph: finite, NaN, finite (the
+    # NaN batch is the captured step), s@576 at batch 2
+    def scaler_state(compiled):
+        model = GKGNetClassifier(arch="s", n_classes=80, size=576,
+                                 drop_path=0.1, dtype=torch.bfloat16)
+        init_parameters(model, torch.Generator().manual_seed(0))
+        model = model.cuda()
+        st = create_train_state(
+            model, build_optimizer(model, 1e-4), ema=True,
+            dynamic_loss_scale=True)
+        return make_train_step(ema_momentum=2e-4, dynamic_loss_scale=True,
+                               compiled=compiled), st
+
+    g_step, g_st = scaler_state(None)
+    e_step, e_st = scaler_state(False)
+    good = {"img": batch["img"][:2].contiguous(),
+            "gt_label": batch["gt_label"][:2].contiguous()}
+    bad = {"img": torch.full_like(good["img"], float("nan")),
+           "gt_label": good["gt_label"]}
+    g_step(g_st, good, 0)  # the warm-up step, eager in both
+    e_step(e_st, good, 0)
+    before = {k: v.clone() for k, v in state_bits(g_st).items()}
+    (after_nan,) = step_pairs("compiled (c) NaN", (g_step, g_st),
+                              (e_step, e_st), [bad], [1])
+    check(g_step.graphs.captures == 1, "compiled (c): the NaN step captured")
+    check(float(after_nan["loss_scale"]) == 2.0 ** 15
+          and float(after_nan["grad_norm"]) == 0.0,
+          f"compiled (c): the NaN step's scale "
+          f"{float(after_nan['loss_scale'])} and grad_norm "
+          f"{float(after_nan['grad_norm'])}")
+    now = state_bits(g_st)
+    kept = [k for k in before
+            if not k.startswith(("ema.", "loss_scale", "good_steps"))]
+    held_bitwise("compiled (c) the state across the NaN step",
+                 {k: now[k] for k in kept}, {k: before[k] for k in kept})
+    step_pairs("compiled (c) finite", (g_step, g_st), (e_step, e_st),
+               [good], [2])
+    held_bitwise("compiled (c) after 3 steps", state_bits(g_st),
+                 state_bits(e_st))
+    log("compiled (c): the dynamic loss scaler in a graph: the NaN step "
+        "(the captured one) halved the scale to 2^15 with grad_norm 0 and "
+        "left the parameters, BatchNorm statistics and optimizer state "
+        "bitwise as they were; 3 steps bitwise the eager ones")
+    del g_step, g_st, e_step, e_st, before, now, batch, good, bad
+    torch.cuda.empty_cache()
+
+    # (d) the grouped route: eval and step, bitwise the eager route
+    os.environ["GKGNET_GROUPED"] = "1"
+    try:
+        fn, (model, x) = entry(device="cuda", batch=8)
+        plain = make_eval_step(compiled=False, output=entry_mod.logits)
+        want = plain(TrainState(0, model, None), x)
+        got = [fn(model, x) for _ in range(3)]
+        reset_launch_counts()
+        fn(model, x)
+        torch.cuda.synchronize()
+        check(all(same_bits(g, want) for g in got)
+              and knn_mr.grouped_launches == 16 and knn_mr.launches == 0,
+              f"compiled (d) grouped eval: bitwise "
+              f"{[same_bits(g, want) for g in got]}, "
+              f"{knn_mr.grouped_launches} grouped launches per replay")
+        del fn, model, x, plain, want, got
+        g_fn, (g_state, batch) = train_entry(device="cuda", batch=2)
+        e_fn, (e_state, _) = train_entry(device="cuda", batch=2,
+                                         compiled=False)
+        step_pairs("compiled (d) grouped", (lambda s, b, _: g_fn(s, b),
+                                            g_state),
+                   (lambda s, b, _: e_fn(s, b), e_state), [batch] * 3,
+                   [0] * 3, expect=(16, 16))
+        held_bitwise("compiled (d) grouped after 3 steps",
+                     state_bits(g_state), state_bits(e_state))
+        del g_fn, e_fn, g_state, e_state, batch
+    finally:
+        os.environ.pop("GKGNET_GROUPED", None)
+    torch.cuda.empty_cache()
+    log("compiled (d): the grouped route (GKGNET_GROUPED=1): graphed eval "
+        "logits at batch 8 and 3 graphed steps at batch 2 bitwise the eager "
+        "ones, 16 grouped launches per eval replay and 16 + 16 per step")
+
+    # (d) t@576 from its config: eval and step, bitwise and timed
+    cfg = train_cli.load_config(T_CONFIG, [])
+    rng = np.random.default_rng(15)
+    images = torch.from_numpy(rng.standard_normal(
+        (T_BATCH, T_SIZE, T_SIZE, 3), dtype=np.float32)).cuda().bfloat16()
+    labels = torch.from_numpy(rng.random((T_BATCH, 80)) < 0.05).float().cuda()
+    t_batch = {"img": images, "gt_label": labels}
+    states = [train_cli.build_train_state(cfg, 0, torch.device("cuda"), 1000,
+                                          ema=True) for _ in range(2)]
+    g_eval, e_eval = make_eval_step(), make_eval_step(compiled=False)
+    want = e_eval(states[0], images)
+    got = [g_eval(states[0], images) for _ in range(3)]
+    check(all(same_bits(g, want) for g in got),
+          "compiled (d) t@576 eval: graphed scores not bitwise the eager ones")
+    t_eval = graph_turns({"eager": lambda: e_eval(states[0], images),
+                          "graphed": lambda: g_eval(states[0], images)},
+                         event_timer(), g_eval.graphs)
+    g_step = make_train_step(ema_momentum=2e-4)
+    e_step = make_train_step(ema_momentum=2e-4, compiled=False)
+    step_pairs("compiled (d) t@576", (g_step, states[0]),
+               (e_step, states[1]), [t_batch] * 3, [0, 1, 2],
+               expect=(T_CALLS, T_CALLS))
+    held_bitwise("compiled (d) t@576 after 3 steps", state_bits(states[0]),
+                 state_bits(states[1]))
+    t_train = graph_turns({"eager": lambda: e_step(states[1], t_batch, 3),
+                           "graphed": lambda: g_step(states[0], t_batch, 3)},
+                          step_timer(5), g_step.graphs)
+    out.update(t_eval=t_eval, t_train=t_train)
+    log(f"compiled (d) ({smi}): t@576 bf16 batch {T_BATCH}: graphed eval "
+        f"scores and 3 graphed steps bitwise the eager ones; eval "
+        + describe_turns(t_eval, "forward") + "; train "
+        + describe_turns(t_train, "step"))
+    del states, g_eval, e_eval, g_step, e_step, images, labels, t_batch
+    torch.cuda.empty_cache()
+    log(f"compiled: phase 15 passed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def per_step(rows: list[dict], calls_key: str) -> dict:
     """The rows' ms, plain_ms and bound_ms summed over the main path's calls,
     and the bound that holds for the larger part of that bound_ms."""
@@ -3890,6 +4317,8 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"device: {kind} x{count}; nvidia-smi: {smi}; torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
+
+    StepGraphs.check_replay = check_replay
 
     # 2. build: one nvcc per source, all started together
     t = time.perf_counter()
@@ -3993,6 +4422,9 @@ def main() -> int:
     # 14. GKGNet-T@576 from its config, and profile_breakdown on it
     arch_t = arch_t_phase(smi)
     t_fwd, t_bwd = arch_t["launches"]
+
+    # 15. the compiled steps (CUDA graphs) against eager calls
+    compiled_phase(smi)
 
     # result lines
     fwd = per_step(rows, "calls_per_forward")
@@ -4158,6 +4590,12 @@ def main() -> int:
         f"{graph['gathers']} launches on the Grapher path and "
         f"{par['gather_backward']} in phase 13 (c), {len(g_rows)} rows "
         f"held bitwise to the ordered plain version")
+    log(f"graphs: {REPLAYS['graphs']} CUDA graphs captured in this run, "
+        f"each one's first replay profiled: its kernels were the launches "
+        f"its capture counted, with which each later replay is credited ("
+        + ", ".join(f"{k} {v}" for k, v in sorted(REPLAYS.items())
+                    if k != "graphs") + " in the first replays)")
+    check(REPLAYS["graphs"] > 0, "graphs: no graph was captured")
     log(f"done: {time.perf_counter() - T0:.1f} s in all")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,7 +7,7 @@ exact resume needs:
 
   * ``model``: the model's ``state_dict`` (parameters and BatchNorm
     buffers, the reference's mmcls key names);
-  * ``optimizer``: the torch optimizer's ``state_dict`` (AdamW's moments and
+  * ``optimizer``: the optimizer's ``state_dict`` (AdamW's moments and
     their per-parameter step counts);
   * ``step``: ``TrainState.step``, which seeds each step's random draws;
   * ``ema_params``, ``loss_scale``, ``good_steps``.
@@ -71,8 +71,8 @@ def save_checkpoint(directory: str, state: TrainState, epoch: int,
                       else _cpu(state.optimizer.optimizer.state_dict())),
         "step": state.step,
         "ema_params": _cpu(state.ema_params),
-        "loss_scale": state.loss_scale,
-        "good_steps": state.good_steps,
+        "loss_scale": _cpu(state.loss_scale),
+        "good_steps": _cpu(state.good_steps),
     }, os.path.join(tmp, STATE_FILE))
     with open(os.path.join(tmp, META_FILE), "w") as f:
         json.dump(dict(meta or {}, epoch=epoch), f)
@@ -131,7 +131,10 @@ def restore_checkpoint(directory: str, state: TrainState,
         with torch.no_grad():
             for name, t in state.ema_params.items():
                 t.copy_(raw["ema_params"][name])
-    state.loss_scale, state.good_steps = raw["loss_scale"], raw["good_steps"]
+    if state.loss_scale is not None and raw["loss_scale"] is not None:
+        # in place: a captured step holds their addresses
+        state.loss_scale.copy_(torch.as_tensor(raw["loss_scale"]))
+        state.good_steps.copy_(torch.as_tensor(raw["good_steps"]))
     return state, epoch, meta
 
 

@@ -3,7 +3,7 @@
 functions):
 
   * ``precise_bn``: recompute every BatchNorm's running statistics over a
-    few batches before eval (PreciseBN);
+    few batches before eval (PreciseBN), eagerly: one pass, no CUDA graph;
   * ``class_num_check``: the dataset's CLASSES against the head's width.
 """
 

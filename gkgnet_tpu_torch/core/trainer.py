@@ -14,8 +14,19 @@ The optional dynamic loss scaler is the mmcv one the JAX package mirrors:
 the loss is multiplied by ``loss_scale`` (initially 2**16) before the
 backward and the gradients divided by it after; ``scale_growth_interval``
 finite steps in a row double it; a step with a non-finite gradient halves
-it (not below 1), zeroes the gradients and skips the update, and the
-BatchNorm statistics keep their values from before the step.
+it (not below 1) and keeps the parameters, the optimizer state (its step
+counts too) and the BatchNorm statistics from before the step.
+
+Every decision of the step stays on the device, as in the JAX package's
+jitted step: the finite check, the skip (``torch.where`` selects over the
+state, as JAX ``trainer.py:155-167``) and the scale's growth and back-off
+are tensor operations on 0-d ``loss_scale``/``good_steps`` tensors; the
+host writes the schedule's rate and the EMA's rate into device scalars
+and re-seeds the step's generator before the step, and reads nothing back.
+The gradients are allocated once and zeroed in place. So the step can be
+captured as a CUDA graph (``core.graphs``): ``make_train_step`` and
+``make_eval_step`` are the counterparts of the JAX package's ``jax.jit``,
+and on the CPU the same code runs eagerly.
 
 Under ``parallel.sharding.graph_sharding`` over a world of more than one
 rank, each rank's step runs on its own rows of the global batch (the
@@ -40,6 +51,7 @@ at step t, ``ema = (1 - m) * ema + m * param``, over the parameters only.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import dataclass
 from typing import Callable
 
@@ -47,8 +59,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from gkgnet_tpu_torch.core.optim import Optimizer, global_norm
+from gkgnet_tpu_torch.core.graphs import StepGraphs, capturable
+from gkgnet_tpu_torch.core.optim import Optimizer
 from gkgnet_tpu_torch.nn.classifier import parse_losses
+from gkgnet_tpu_torch.nn.grapher import _grouped_enabled
 from gkgnet_tpu_torch.nn.layers import BatchNorm
 from gkgnet_tpu_torch.parallel import collectives
 from gkgnet_tpu_torch.parallel.sharding import active_graph_cfg
@@ -60,27 +74,42 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     ema_params: dict[str, torch.Tensor] | None = None
-    loss_scale: float | None = None   # dynamic loss scaling only
-    good_steps: int | None = None
+    # dynamic loss scaling only: 0-d fp32 and int32 tensors on the model's
+    # device, which the step updates in place
+    loss_scale: torch.Tensor | None = None
+    good_steps: torch.Tensor | None = None
 
 
 def create_train_state(model: nn.Module, optimizer: Optimizer,
                        ema: bool = False, dynamic_loss_scale: bool = False,
                        init_scale: float = 2.0 ** 16) -> TrainState:
-    """The state of a model whose parameters are already initialized."""
+    """The state of a model whose parameters are already initialized (and
+    on their device)."""
     ema_params = ({name: p.detach().clone()
                    for name, p in model.named_parameters()} if ema else None)
+    device = next(model.parameters()).device
+    scale = good = None
+    if dynamic_loss_scale:
+        scale = torch.tensor(init_scale, dtype=torch.float32, device=device)
+        good = torch.zeros((), dtype=torch.int32, device=device)
     return TrainState(step=0, model=model, optimizer=optimizer,
-                      ema_params=ema_params,
-                      loss_scale=init_scale if dynamic_loss_scale else None,
-                      good_steps=0 if dynamic_loss_scale else None)
+                      ema_params=ema_params, loss_scale=scale,
+                      good_steps=good)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of one step's random draws: a word of the
+    ``SeedSequence([seed, step])``."""
+    word = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return int(word[0])
 
 
 def step_generator(seed: int, step: int,
                    device: torch.device) -> torch.Generator:
-    """The generator of one step's random draws, seeded from (seed, step)."""
-    word = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(word[0]))
+    """A new generator of one step's random draws, seeded from (seed,
+    step). The train step re-seeds one generator per device with
+    ``step_seed`` instead, which gives the same draws."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
 def _bn_stats(model: nn.Module) -> list[torch.Tensor]:
@@ -88,18 +117,31 @@ def _bn_stats(model: nn.Module) -> list[torch.Tensor]:
             for t in (mod.running_mean, mod.running_var)]
 
 
-@torch.no_grad()
-def ema_update(ema_params: dict[str, torch.Tensor], model: nn.Module,
-               step: int, momentum: float, warmup: int = 100) -> None:
-    """``ema = (1 - m) * ema + m * param`` in place, with
-    ``m = min(momentum, (1 + step) / (warmup + step))``."""
+def ema_rate(step: int, momentum: float, warmup: int = 100) -> float:
+    """``m = min(momentum, (1 + step) / (warmup + step))``."""
     t = float(step)
-    m = min(momentum, (1.0 + t) / (warmup + t))
+    return min(momentum, (1.0 + t) / (warmup + t))
+
+
+@torch.no_grad()
+def ema_apply(ema_params: dict[str, torch.Tensor], model: nn.Module,
+              m: torch.Tensor) -> None:
+    """``ema = (1 - m) * ema + m * param`` in place; ``m`` a 0-d tensor on
+    the parameters' device, read there."""
     params = dict(model.named_parameters())
     ema = list(ema_params.values())
     torch._foreach_mul_(ema, 1.0 - m)
-    torch._foreach_add_(ema, [params[name].detach() for name in ema_params],
-                        alpha=m)
+    torch._foreach_add_(ema, torch._foreach_mul(
+        [params[name].detach() for name in ema_params], m))
+
+
+def ema_update(ema_params: dict[str, torch.Tensor], model: nn.Module,
+               step: int, momentum: float, warmup: int = 100) -> None:
+    """``ema_apply`` at ``ema_rate(step, momentum, warmup)``."""
+    device = next(iter(ema_params.values())).device
+    ema_apply(ema_params, model, torch.tensor(
+        ema_rate(step, momentum, warmup), dtype=torch.float32,
+        device=device))
 
 
 @contextlib.contextmanager
@@ -114,11 +156,26 @@ def _deterministic_convs(on: bool):
         cudnn.deterministic = before
 
 
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """What a train step reads and writes in place: parameters, gradients,
+    buffers, optimizer state and rate, EMA and loss scaler."""
+    model = state.model
+    out = list(model.parameters()) + [p.grad for p in model.parameters()]
+    out += list(model.buffers()) + state.optimizer.optimizer.state_tensors()
+    out.append(state.optimizer.optimizer.lr)
+    if state.ema_params is not None:
+        out += list(state.ema_params.values())
+    if state.loss_scale is not None:
+        out += [state.loss_scale, state.good_steps]
+    return out
+
+
 def make_train_step(loss_fn: Callable | None = None,
                     ema_momentum: float | None = None, ema_warmup: int = 100,
                     dynamic_loss_scale: bool = False,
                     scale_growth_interval: int = 2000,
-                    batch_augment: Callable | None = None):
+                    batch_augment: Callable | None = None,
+                    compiled: bool | None = None):
     """Returns ``train_step(state, batch, seed=0) -> (state, log_vars)``.
 
     ``batch``: dict with ``img`` (B, H, W, 3) and ``gt_label`` (B, C) on the
@@ -126,23 +183,39 @@ def make_train_step(loss_fn: Callable | None = None,
     holds 0-d tensors (the head's losses, e.g. ``bce_loss`` and
     ``asy_loss``, ``loss``, ``grad_norm``, and ``loss_scale`` with dynamic
     scaling) and ``lr`` as a float. ``loss_fn`` defaults to the model's
-    head loss. ``batch_augment``: ``(imgs, labels, generator) -> (imgs,
-    labels)``, ``nn.augment.build_batch_augment``'s, applied before the
-    forward.
-    """
+    head loss. ``batch_augment``: ``nn.augment.build_batch_augment``'s,
+    applied before the forward.
 
-    def train_step(state: TrainState, batch: dict, seed: int = 0):
+    ``compiled`` (``core.graphs.capturable``): None captures the step as a
+    CUDA graph per input signature for a CUDA model in a world of one
+    rank (the first call of a signature runs eagerly, the second captures)
+    and runs it eagerly otherwise; False runs it eagerly; True raises
+    where it cannot capture. Both run the same code: the host writes the
+    schedule's rate, the EMA's rate and the generator's seed before the
+    step, and the step itself reads no value back. With several batch
+    augments, which one runs is drawn first and read on the host, and
+    each gets its graph; so does each ``GKGNET_GROUPED`` route, which the
+    model reads at every call. Steps under ``graph_sharding`` over more
+    than one rank stay eager.
+    """
+    graphs = StepGraphs()
+    generators: dict[torch.device, torch.Generator] = {}
+    ema_rates: dict[torch.device, torch.Tensor] = {}
+
+    def body(state: TrainState, gen: torch.Generator, pick: int,
+             m: torch.Tensor | None, imgs: torch.Tensor,
+             gt: torch.Tensor) -> dict:
+        """The step on the device; reads no value on the host."""
         model = state.model
         params = list(model.parameters())
-        device = params[0].device
-        model.train()
+        grads = [p.grad for p in params]
+        torch._foreach_zero_(grads)
         if dynamic_loss_scale:
-            stats = [t.clone() for t in _bn_stats(model)]
-        state.optimizer.optimizer.zero_grad(set_to_none=True)
-        gen = step_generator(seed, state.step, device)
-        imgs, gt = batch["img"], batch["gt_label"]
+            kept = params + state.optimizer.optimizer.state_tensors() \
+                + _bn_stats(model)
+            before = [t.clone() for t in kept]
         if batch_augment is not None:
-            imgs, gt = batch_augment(imgs, gt, gen)
+            imgs, gt = batch_augment.fns[pick](imgs, gt, gen)
         cfg = active_graph_cfg()
         with _deterministic_convs(cfg is not None and cfg.mesh.graph > 1):
             cls_score, _ = model(imgs, generator=gen)
@@ -152,32 +225,31 @@ def make_train_step(loss_fn: Callable | None = None,
                 (total * state.loss_scale).backward()
             else:
                 total.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
         if cfg is not None and cfg.mesh.data > 1:
             collectives.reduce_mean_(grads, cfg.mesh.data_group,
                                      cfg.mesh.data)
-
-        finite = True
         if dynamic_loss_scale:
             torch._foreach_div_(grads, state.loss_scale)
-            finite = bool(torch.isfinite(torch.stack(
-                torch._foreach_norm(grads, float("inf")))).all())
-        if finite:
-            grad_norm = state.optimizer.update(state.step)
-        else:
-            # mmcv LossScaler: drop the step, keep the statistics
-            torch._foreach_zero_(grads)
-            grad_norm = global_norm(grads)
+            finite = torch.isfinite(torch.stack(
+                torch._foreach_norm(grads, float("inf")))).all()
+            # non-finite: zero the gradients so the update stays finite,
+            # then keep the state from before the step (mmcv LossScaler)
+            for g in grads:
+                g.masked_fill_(~finite, 0.0)
+        grad_norm = state.optimizer.apply()
+        if dynamic_loss_scale:
             with torch.no_grad():
-                for t, old in zip(_bn_stats(model), stats):
-                    t.copy_(old)
+                for t, old in zip(kept, before):
+                    torch.where(finite, t, old, out=t)
+                scale, good = state.loss_scale, state.good_steps
+                grown = finite & (good + 1 >= scale_growth_interval)
+                scale.copy_(torch.where(
+                    finite, torch.where(grown, scale * 2.0, scale),
+                    torch.clamp(scale * 0.5, min=1.0)))
+                good.copy_(torch.where(finite & ~grown, good + 1, 0))
 
-        if state.ema_params is not None and ema_momentum is not None:
-            ema_update(state.ema_params, model, state.step, ema_momentum,
-                       ema_warmup)
+        if m is not None:
+            ema_apply(state.ema_params, model, m)
 
         log_vars = {k: v.detach() for k, v in log_vars.items()}
         if cfg is not None and cfg.mesh.data > 1:
@@ -185,19 +257,44 @@ def make_train_step(loss_fn: Callable | None = None,
             collectives.reduce_mean_(list(log_vars.values()),
                                      cfg.mesh.data_group, cfg.mesh.data)
         log_vars["grad_norm"] = grad_norm
-        log_vars["lr"] = state.optimizer.lr(state.step)
         if dynamic_loss_scale:
-            grown = finite and state.good_steps + 1 >= scale_growth_interval
-            if not finite:
-                state.loss_scale = max(state.loss_scale * 0.5, 1.0)
-            elif grown:
-                state.loss_scale *= 2.0
-            state.good_steps = state.good_steps + 1 \
-                if finite and not grown else 0
-            log_vars["loss_scale"] = state.loss_scale
+            log_vars["loss_scale"] = state.loss_scale.clone()
+        return log_vars
+
+    def train_step(state: TrainState, batch: dict, seed: int = 0):
+        model = state.model
+        params = list(model.parameters())
+        device = params[0].device
+        model.train()
+        for p in params:  # allocated once, zeroed in place by the step
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        # the host's part: the rates and the seed, before the step
+        state.optimizer.set_step(state.step)
+        m = None
+        if state.ema_params is not None and ema_momentum is not None:
+            if device not in ema_rates:
+                ema_rates[device] = torch.zeros((), dtype=torch.float32,
+                                                device=device)
+            m = ema_rates[device].fill_(ema_rate(state.step, ema_momentum,
+                                                 ema_warmup))
+        if device not in generators:
+            generators[device] = torch.Generator(device=device)
+        gen = generators[device].manual_seed(step_seed(seed, state.step))
+        pick = 0 if batch_augment is None else batch_augment.pick(gen)
+        inputs = [batch["img"], batch["gt_label"]]
+        if capturable(compiled, device):
+            log_vars = graphs(
+                (weakref.ref(model), pick, _grouped_enabled()), inputs,
+                lambda t: body(state, gen, pick, m, *t),
+                _state_tensors(state) + ([] if m is None else [m]), (gen,))
+        else:
+            log_vars = body(state, gen, pick, m, *inputs)
+        log_vars["lr"] = state.optimizer.lr(state.step)
         state.step += 1
         return state, log_vars
 
+    train_step.graphs = graphs
     return train_step
 
 
@@ -218,7 +315,8 @@ def make_device_normalize(norm: tuple | None):
     ``(mean, std)``, or None for the identity. The reciprocal (fp32) is
     what the JAX package computes: XLA turns its ``/ std`` by a constant
     into that product, and its host ``Normalize`` does the same, so both
-    paths give the same bits."""
+    paths give the same bits. It runs eagerly (two ops), before a compiled
+    step copies the batch into its graph's input."""
     if norm is None:
         return lambda img: img
     mean, std = norm
@@ -233,10 +331,30 @@ def make_device_normalize(norm: tuple | None):
     return dev_norm
 
 
-def make_eval_step(use_ema: bool = False):
-    """Returns ``eval_step(state, imgs) -> sigmoid scores (B, n_classes)``
-    in fp32, from the EMA parameters when asked for and kept, with the
-    current BatchNorm statistics."""
+def scores(model: nn.Module, logits: torch.Tensor) -> torch.Tensor:
+    """The eval step's output: fp32 sigmoid scores."""
+    return torch.sigmoid(logits.float())
+
+
+def make_eval_step(use_ema: bool = False, compiled: bool | None = None,
+                   output: Callable = scores):
+    """Returns ``eval_step(state, imgs) -> output(model, logits)``, by
+    default the sigmoid scores (B, n_classes) in fp32, from the EMA
+    parameters when asked for and kept, with the current BatchNorm
+    statistics. ``compiled`` as in ``make_train_step``: on a CUDA model in
+    a world of one rank, one CUDA graph per input shape and dtype (and
+    model, EMA choice and ``GKGNET_GROUPED`` route), captured at the
+    second call of each."""
+    graphs = StepGraphs()
+
+    def forward(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
+        model = state.model
+        if use_ema and state.ema_params is not None:
+            cls_score, _ = torch.func.functional_call(
+                model, state.ema_params, (imgs,))
+        else:
+            cls_score, _ = model(imgs)
+        return output(model, cls_score)
 
     @torch.no_grad()
     def eval_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
@@ -244,13 +362,18 @@ def make_eval_step(use_ema: bool = False):
         was_training = model.training
         model.eval()
         try:
-            if use_ema and state.ema_params is not None:
-                cls_score, _ = torch.func.functional_call(
-                    model, state.ema_params, (imgs,))
-            else:
-                cls_score, _ = model(imgs)
+            device = next(model.parameters()).device
+            if not capturable(compiled, device):
+                return forward(state, imgs)
+            ema = use_ema and state.ema_params is not None
+            live = list(model.parameters()) + list(model.buffers())
+            if ema:
+                live += list(state.ema_params.values())
+            return graphs((weakref.ref(model), ema, _grouped_enabled()),
+                          [imgs],
+                          lambda t: forward(state, t[0]), live)
         finally:
             model.train(was_training)
-        return torch.sigmoid(cls_score.float())
 
+    eval_step.graphs = graphs
     return eval_step

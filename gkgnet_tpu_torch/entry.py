@@ -5,7 +5,9 @@
 classes in bf16, from a seeded init, and a seeded standard-normal NHWC
 input (never zeros: an all-zeros image makes every kNN distance tie).
 ``predict(model, images)`` answers one request: sigmoid scores.
-``train_entry()`` builds the training step of the same model.
+``train_entry()`` builds the training step of the same model. On the card
+the three run as CUDA graphs by default (``core.graphs``, the counterpart
+of ``jax.jit``); ``compiled=False`` asks for eager calls.
 ``dryrun_multichip(n)`` and ``dryrun_multichip_prod(n)`` (counterparts:
 ``__graft_entry__.dryrun_multichip`` / ``dryrun_multichip_prod``) spawn a
 world of n ranks on this host (``parallel.spawn``), lay them out as a
@@ -24,13 +26,16 @@ from __future__ import annotations
 
 import hashlib
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from gkgnet_tpu_torch.core.graphs import reset_launch_counts
 from gkgnet_tpu_torch.core.optim import build_optimizer
 from gkgnet_tpu_torch.core.schedules import step_lr_with_warmup
-from gkgnet_tpu_torch.core.trainer import create_train_state, make_train_step
+from gkgnet_tpu_torch.core.trainer import (TrainState, create_train_state,
+                                           make_eval_step, make_train_step)
 from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier, init_parameters
 from gkgnet_tpu_torch.ops import knn_mr, knn_topk
 from gkgnet_tpu_torch.parallel import spawn
@@ -52,12 +57,22 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return device
 
 
+def logits(model: GKGNetClassifier, cls_score: torch.Tensor
+           ) -> torch.Tensor:
+    """``make_eval_step``'s output for ``entry()``: the logits."""
+    return cls_score
+
+
 def entry(device: str | torch.device | None = None, batch: int = 1,
           dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-          arch: str = "s", size: int | None = None):
+          arch: str = "s", size: int | None = None,
+          compiled: bool | None = None):
     """Returns ``(fn, (model, x))`` where ``fn(model, x)`` is the eval
     forward giving the logits ``(batch, 80)``; ``arch`` and ``size``
-    (default SIZE) pick another of the model's settings."""
+    (default SIZE) pick another of the model's settings. ``compiled`` as
+    in ``core.trainer.make_eval_step``: by default on the card one CUDA
+    graph per input shape (the first call runs eagerly, the second
+    captures); False runs every call eagerly."""
     device = resolve_device(device)
     size = SIZE if size is None else size
     model = GKGNetClassifier(arch=arch, n_classes=N_CLASSES, size=size,
@@ -67,33 +82,51 @@ def entry(device: str | torch.device | None = None, batch: int = 1,
     x = torch.randn((batch, size, size, 3),
                     generator=torch.Generator().manual_seed(seed))
     x = x.to(device=device, dtype=dtype)
+    step = make_eval_step(compiled=compiled, output=logits)
 
-    @torch.no_grad()
     def fn(model: GKGNetClassifier, x: torch.Tensor) -> torch.Tensor:
-        return model(x)[0]
+        return step(TrainState(0, model, None), x)
 
+    fn.graphs = step.graphs
     return fn, (model, x)
 
 
-@torch.no_grad()
-def predict(model: GKGNetClassifier, images: torch.Tensor) -> torch.Tensor:
-    """NHWC images -> sigmoid scores ``(B, n_classes)`` on the model's
-    device."""
+def _predicted(model: GKGNetClassifier, cls_score: torch.Tensor
+               ) -> torch.Tensor:
+    return model.predict(cls_score)
+
+
+# model -> {compiled: its predict step}; an entry goes with its model
+_PREDICT_STEPS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def predict(model: GKGNetClassifier, images: torch.Tensor,
+            compiled: bool | None = None) -> torch.Tensor:
+    """NHWC images -> scores ``(B, n_classes)`` (the head's
+    ``simple_test``) on the model's device, in eval mode. ``compiled`` as
+    in ``entry()``: the model keeps one CUDA graph per request shape."""
     device = next(model.parameters()).device
-    logits, _ = model(images.to(device))
-    return model.predict(logits)
+    steps = _PREDICT_STEPS.setdefault(model, {})
+    if compiled not in steps:
+        steps[compiled] = make_eval_step(compiled=compiled,
+                                         output=_predicted)
+    return steps[compiled](TrainState(0, model, None), images.to(device))
 
 
 def train_entry(device: str | torch.device | None = None, batch: int = 8,
                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                arch: str = "s", size: int | None = None):
+                arch: str = "s", size: int | None = None,
+                compiled: bool | None = None):
     """Returns ``(fn, (state, batch))`` where ``fn(state, batch)`` takes one
     training step and returns ``(state, log_vars)``: GKGNet-S@576 (or
     ``arch`` at ``size``, default SIZE) with
     drop_path 0.1, AdamW (lr 1e-4 stepped at epochs 10 and 50 of 1000
     steps, 5000 warmup steps, wd 0.05, clip 5) and an EMA of momentum 2e-4;
     seeded standard-normal images and multi-hot labels (each class on with
-    probability 0.05), as ``bench.py``'s ``bench_train`` makes them."""
+    probability 0.05), as ``bench.py``'s ``bench_train`` makes them.
+    ``compiled`` as in ``core.trainer.make_train_step``: by default on the
+    card the step is a CUDA graph (the first call runs eagerly, the second
+    captures)."""
     device = resolve_device(device)
     size = SIZE if size is None else size
     model = GKGNetClassifier(arch=arch, n_classes=N_CLASSES, size=size,
@@ -109,11 +142,12 @@ def train_entry(device: str | torch.device | None = None, batch: int = 8,
     schedule = step_lr_with_warmup(1e-4, 1000, [10, 50], warmup_iters=5000)
     state = create_train_state(model, build_optimizer(model, schedule),
                                ema=True)
-    step = make_train_step(ema_momentum=2e-4)
+    step = make_train_step(ema_momentum=2e-4, compiled=compiled)
 
     def fn(state, batch):
         return step(state, batch, seed)
 
+    fn.graphs = step.graphs
     return fn, (state, data)
 
 
@@ -160,12 +194,6 @@ def launch_counts() -> dict:
                 gather_backward=knn_mr.gather_backward_launches)
 
 
-def _reset_counts() -> None:
-    knn_mr.launches = knn_mr.backward_launches = 0
-    knn_mr.grouped_launches = knn_topk.launches = 0
-    knn_mr.normalize_launches = knn_mr.gather_backward_launches = 0
-
-
 def _timed(device: torch.device, fn):
     """``(fn(), ms)`` on a host clock around device synchronizations."""
     if device.type == "cuda":
@@ -202,7 +230,7 @@ def dryrun_rank(name: str, batch: int, steps: int = 1,
     model = state.model
 
     def forward(overlap: bool) -> dict:
-        _reset_counts()
+        reset_launch_counts()
         model.eval()
         with torch.no_grad(), graph_sharding(mesh, overlap=overlap):
             logits, ms = _timed(mesh.device, lambda: model(local["img"])[0])
@@ -214,7 +242,7 @@ def dryrun_rank(name: str, batch: int, steps: int = 1,
         out["eval_gather"] = forward(False)
         out["eval_ring"] = forward(True)
     for _ in range(steps):
-        _reset_counts()
+        reset_launch_counts()
         with graph_sharding(mesh):
             (state, logs), ms = _timed(
                 mesh.device, lambda: step(state, local, 7))

@@ -85,7 +85,8 @@ def build_batch_augment(cfgs: list[dict] | None) -> Callable | None:
     containing 'mixup' or 'cutmix'), or None. Returns
     ``apply(imgs, labels, generator) -> (imgs, labels)``, which draws one
     of them per call by the normalized probabilities (each ``1 / len``
-    by default), or None without augments."""
+    by default; ``apply.pick(generator)`` draws the choice, then
+    ``apply.fns[choice]`` runs), or None without augments."""
     if not cfgs:
         return None
     fns, probs = [], []
@@ -101,12 +102,17 @@ def build_batch_augment(cfgs: list[dict] | None) -> Callable | None:
         probs.append(cfg.get("prob", 1.0 / len(cfgs)))
     weights = torch.tensor(probs, dtype=torch.float32) / sum(probs)
 
+    def pick(generator: torch.Generator) -> int:
+        """Draw which augment runs. With several, the draw is read back
+        on the host (a compiled train step keeps a graph for each); with
+        one, nothing is read."""
+        drawn = torch.multinomial(weights.to(generator.device), 1,
+                                  generator=generator)
+        return 0 if len(fns) == 1 else int(drawn)
+
     def apply(imgs: torch.Tensor, labels: torch.Tensor,
               generator: torch.Generator):
-        pick = torch.multinomial(weights.to(generator.device), 1,
-                                 generator=generator)
-        # the one value read back per step: which augment runs
-        return fns[int(pick)](imgs, labels, generator)
+        return fns[pick(generator)](imgs, labels, generator)
 
-    apply.fns, apply.weights = fns, weights
+    apply.fns, apply.weights, apply.pick = fns, weights, pick
     return apply

@@ -76,6 +76,8 @@ grouped_launches = 0
 backward_launches = 0
 normalize_launches = 0
 gather_backward_launches = 0
+COUNTERS = ("launches", "grouped_launches", "backward_launches",
+            "normalize_launches", "gather_backward_launches")
 
 MAX_KD = 64  # largest k * dilation the kernel's register lists hold
 MAX_BWD_K = 64  # largest k of the backward kernel's per-channel tie masks

@@ -34,6 +34,7 @@ from gkgnet_tpu_torch.ops import _build
 
 # Kernel launches since the last reset; ``launch`` adds one per launch.
 launches = 0
+COUNTERS = ("launches",)
 
 MAX_K = 64                  # largest k the kernel's register lists hold
 MAX_SMEM_BYTES = 232448     # dynamic shared memory one block may opt into

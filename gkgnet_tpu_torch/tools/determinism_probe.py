@@ -95,7 +95,7 @@ def graph_only_rank(mode: str) -> list[dict]:
     for run in range(2):
         fn, (state, batch) = entry_mod.train_entry(device=mesh.device,
                                                    batch=8)
-        entry_mod._reset_counts()
+        entry_mod.reset_launch_counts()
         with graph_sharding(mesh):
             state, logs = fn(state, batch)
         torch.cuda.synchronize()
@@ -119,7 +119,8 @@ def one_process() -> list[tuple[float, dict]]:
     """The one-process bf16 step twice from the seeded state."""
     out = []
     for _ in range(2):
-        fn, (state, batch) = entry_mod.train_entry(device="cuda", batch=8)
+        fn, (state, batch) = entry_mod.train_entry(device="cuda", batch=8,
+                                                   compiled=False)
         state, logs = fn(state, batch)
         torch.cuda.synchronize()
         out.append((float(logs["loss"]), grads_of(state.model)))

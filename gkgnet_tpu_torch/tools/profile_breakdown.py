@@ -153,8 +153,9 @@ def eval_tables(arch: str, size: int, batch: int, iters: int,
     """The whole model both ways, then each case alone both ways; prints
     the table and returns its numbers."""
     # the whole model first, before the cases' inputs hold memory
+    # eager calls: the plain kernels are swapped in between them
     fn, (model, x) = entry(device=device, batch=batch, dtype=dtype,
-                           arch=arch, size=size)
+                           arch=arch, size=size, compiled=False)
     t_model = _ms(lambda: fn(model, x), x, iters)
     with plain_kernels():
         t_model_plain = _ms(lambda: fn(model, x), x, iters)
@@ -243,7 +244,8 @@ def train_tables(arch: str, size: int, batch: int, iters: int,
         del xc, yc, bias, inputs
 
     step, (state, data) = train_entry(device=device, batch=batch,
-                                      dtype=dtype, arch=arch, size=size)
+                                      dtype=dtype, arch=arch, size=size,
+                                      compiled=False)
     model = state.model
     img, gt = data["img"], data["gt_label"]
 

@@ -1452,3 +1452,99 @@ def test_gather_nodes_backward_on_the_card_runs_the_kernel(cuda, dtype):
         max_relative(x.to(dev), idx.to(dev), yd).backward(gm.to(dev))
         got.append(yd.grad.cpu())
     assert torch.equal(got[1], got[0])
+
+
+# ------------------------------------------- the compiled steps (graphs)
+
+
+def _state_bits(state):
+    """Every tensor a train step keeps: parameters, buffers, EMA and
+    optimizer state."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in (state.ema_params or {}).items()})
+    names = {p: n for n, p in state.model.named_parameters()}
+    for p, st in state.optimizer.optimizer.state.items():
+        out.update({f"opt.{names[p]}.{k}": v for k, v in st.items()})
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_compiled_steps_match_eager_bitwise(cuda, dtype):
+    """t@128 (k=3, drop_path 0.1): three graphed train steps and three
+    eager ones from one seeded state give the same bits (every log value,
+    parameter, BatchNorm statistic, EMA tensor and optimizer state
+    tensor), each call 16 + 16 knn_mr launches, one capture; then graphed
+    eval scores bitwise the eager ones at batch 2 and at a second input
+    shape (batch 1, its own capture). cuDNN's deterministic algorithms on
+    for both paths: its default fp32 convolution backward sums in an
+    order that changes from run to run on an H100, eager against eager."""
+    from gkgnet_tpu_torch.core.trainer import make_eval_step
+
+    gen = torch.Generator().manual_seed(3)
+    img = torch.randn((2, 128, 128, 3), generator=gen).to(cuda, dtype)
+    gt = (torch.rand((2, 10), generator=gen) < 0.3).float().to(cuda)
+    states = []
+    for _ in range(2):
+        model = GKGNetClassifier(arch="t", k=3, k_label_gcn=3, n_classes=10,
+                                 size=128, drop_path=0.1, dtype=dtype)
+        init_parameters(model, torch.Generator().manual_seed(0))
+        model = model.to(cuda)
+        states.append(create_train_state(
+            model, build_optimizer(model, 1e-3), ema=True))
+    graphed = make_train_step(ema_momentum=2e-4)
+    eager = make_train_step(ema_momentum=2e-4, compiled=False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i in range(3):
+            before = (knn_mr.launches, knn_mr.backward_launches)
+            _, g_log = graphed(states[0], {"img": img, "gt_label": gt}, i)
+            torch.cuda.synchronize()
+            assert (knn_mr.launches - before[0],
+                    knn_mr.backward_launches - before[1]) == (16, 16)
+            _, e_log = eager(states[1], {"img": img, "gt_label": gt}, i)
+            for key in e_log:
+                if key != "lr":
+                    assert torch.equal(g_log[key], e_log[key]), (i, key)
+        assert graphed.graphs.captures == 1
+        got, want = _state_bits(states[0]), _state_bits(states[1])
+        assert set(got) == set(want)
+        for key in want:
+            assert torch.equal(got[key], want[key]), key
+        g_eval, e_eval = make_eval_step(), make_eval_step(compiled=False)
+        for x in (img, img[:1].contiguous()):
+            ref = e_eval(states[0], x)
+            for _ in range(3):  # warm-up, capture, replay
+                before = knn_mr.launches
+                assert torch.equal(g_eval(states[0], x), ref)
+                torch.cuda.synchronize()
+                assert knn_mr.launches - before == 16
+        assert g_eval.graphs.captures == 2
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_compiled_true_on_a_collective_step_raises(cuda):
+    """A step under graph_sharding over a world of two ranks runs
+    collectives: ``compiled=True`` raises before it runs, ``None`` would
+    run it eagerly."""
+    from gkgnet_tpu_torch.core import graphs
+    from gkgnet_tpu_torch.parallel.mesh import Mesh
+    from gkgnet_tpu_torch.parallel.sharding import graph_sharding
+
+    model = GKGNetClassifier(arch="t", k=3, k_label_gcn=3, n_classes=10,
+                             size=128)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    state = create_train_state(model.to(cuda), build_optimizer(model, 1e-3))
+    mesh = Mesh(world=2, rank=0, data=2, graph=1, data_rank=0, graph_rank=0,
+                data_group=None, graph_group=None, graph_ranks=(0,),
+                device=cuda, backend="gloo")
+    batch = {"img": torch.zeros((1, 128, 128, 3), device=cuda),
+             "gt_label": torch.zeros((1, 10), device=cuda)}
+    with graph_sharding(mesh):
+        assert not graphs.capturable(None, cuda)
+        with pytest.raises(RuntimeError, match="world of more than one"):
+            make_train_step(compiled=True)(state, batch)
+    assert state.step == 0
+    assert graphs.capturable(None, cuda)
