@@ -502,7 +502,14 @@ def print_ptxas_summary(compiler_log: str) -> None:
                        r"(?:Li(\d+)E)?(?:Lb([01])E)?", line)
         bwd = re.search(r"Compiling entry function '_Z\w*?(rank_edges|"
                         r"target_offsets|row_split|target_sum)(\w*)'", line)
-        if bwd:  # the backward's: type, folded or grouped, and its flags
+        small = re.search(r"Compiling entry function '_Z\w*?gather_small"
+                          r"I(13__nv_bfloat16|f)(i|x)Lb([01])E", line)
+        if small:  # the gather backward's one-launch path
+            dtype = "fp32" if small.group(1) == "f" else "bf16"
+            itype = "int32" if small.group(2) == "i" else "int64"
+            rows = "16-byte" if small.group(3) == "1" else "scalar"
+            name = f"gather_small<{dtype}, idx {itype}, {rows} rows>"
+        elif bwd:  # the backward's: type, folded or grouped, and its flags
             args = re.match(r"I(13__nv_bfloat16|f)?((?:Lb[01]E)*)(t|m)?"
                             r"(?:Li(\d+)E)?", bwd.group(2))
             parts = []
@@ -546,8 +553,8 @@ def print_ptxas_summary(compiler_log: str) -> None:
 BACKWARD_KERNELS = ("rank_edges", "target_offsets", "row_split",
                     "target_sum")
 OUR_KERNELS = ("knn_mr_kernel", "knn_mr_tc_kernel", "l2norm_rows",
-               *BACKWARD_KERNELS, "knn_topk_kernel", "knn_topk_tc_kernel",
-               "row_sq")
+               *BACKWARD_KERNELS, "place_edges", "gather_small",
+               "knn_topk_kernel", "knn_topk_tc_kernel", "row_sq")
 
 
 def profile_device(run, unit: str, iters: int = 3) -> dict:
@@ -587,13 +594,16 @@ def profile_device(run, unit: str, iters: int = 3) -> dict:
 
 # the kernel that runs once in each launch of a counted wrapper, as the
 # profiler names it (demangled); the forward's normalization and
-# launch_normalize both run l2norm_rows, so normalize_launches is the rest
+# launch_normalize both run l2norm_rows, so normalize_launches is the rest;
+# the gather backward runs place_edges on its large path and gather_small,
+# its only kernel, on its small one
 LAUNCH_MARKS = {
     "knn_mr.launches": re.compile(r"\bknn_mr(_tc)?_kernel<\d+, false, 0\b"),
     "knn_mr.grouped_launches":
         re.compile(r"\bknn_mr(_tc)?_kernel<\d+, true, 0\b"),
     "knn_mr.backward_launches": re.compile(r"\brow_split<"),
-    "knn_mr.gather_backward_launches": re.compile(r"\bplace_edges\b"),
+    "knn_mr.gather_backward_launches":
+        re.compile(r"\b(place_edges\(|gather_small<)"),
     "knn_topk.launches": re.compile(r"\bknn_topk(_tc)?_kernel<"),
 }
 REPLAYS = Counter()  # StepGraphs' first replays checked, and their launches
@@ -942,16 +952,23 @@ def backward_row(name: str, x, y, idx, g, calls: int, tag: str = "bwd_row"
 # The gather's backward (aggregate.gather_backward, csrc/knn_mr_bwd.cu) at
 # the label-sharded build's calls of phase 13 (b) (BG 16, a graph rank's
 # half of the stage's targets; its owner-side fetch clamps the other
-# rank's winners onto two hub targets) and at the Grapher path's stage-1
-# 'edge' gather: (name, BG, N, k, M, D, M of the whole stage or None, calls
-# per train step of a (b) rank).
+# rank's winners onto two hub targets), at the Grapher path's stage-1
+# 'edge' gather (the large path) and at the non-fused aggregators' stage-4
+# spatial gather (N = M = 324, D 640; the small path): (name, BG, N, k, M,
+# D, M of the whole stage or None, calls per train step of a (b) rank).
 GATHER_ROWS = [
     ("label1_local", 16, 80, 9, 10368, 40, 20736, 1),
     ("label2_local", 16, 80, 9, 2592, 80, 5184, 1),
     ("label3_local", 16, 80, 9, 648, 200, 1296, 1),
     ("label4_local", 16, 80, 9, 162, 320, 324, 1),
     ("grapher1_edge", 8, 20736, 9, 1296, 80, None, 0),
+    ("grapher4_spatial", 8, 324, 9, 324, 640, None, 0),
 ]
+# the kernels of one gather backward call, by path (the large path's
+# target_sum is its kEdgeRows instantiation)
+GATHER_KERNELS = {"small": ["gather_small"],
+                  "large": ["place_edges", "rank_edges", "target_offsets",
+                            "target_sum"]}
 
 
 def gather_rows() -> list[dict]:
@@ -974,14 +991,52 @@ def gather_rows() -> list[dict]:
     return rows
 
 
+def kernels_of(run, calls: int = 10) -> tuple[list[str], float]:
+    """The kernels one call of ``run`` launches on the card, by their short
+    names in launch order, and their device ms a call: each kernel's mean
+    time over ``calls`` calls (torch.profiler, after one unprofiled call).
+    A profile of short calls now and then comes back without some of its
+    kernel records (most often a process's first), so an empty one is
+    taken again, a kernel's launches a call are its records over the
+    calls, rounded, and its time is the mean over the records there are."""
+    run()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.device_time_total > 0),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    times: dict[str, list] = {}  # in order of the first launch
+    for e in events:  # "void (anonymous namespace)::name<...>(...)"
+        found = re.search(r"(?:^|::|\s)(\w+)[<(]", e.name)
+        times.setdefault(found.group(1) if found else e.name,
+                         []).append(e.device_time_total)
+    names = [k for k, v in times.items()
+             for _ in range(max(1, round(len(v) / calls)))]
+    return names, sum(sum(v) / len(v) * max(1, round(len(v) / calls))
+                      for v in times.values()) / 1e3
+
+
 def gather_row(name: str, g, idx, m: int, calls: int) -> dict:
     """The gather backward kernel on g (BG, N, k, D) and idx: gy bitwise
     the ordered plain version (each target's fp32 sum in ascending edge
     id) and within the fp64 bound, a second launch bitwise the first (no
-    float atomics), and the kernel's, the plain version's and one
+    float atomics), the path it took and the kernels one call launched
+    (one on the small path), and the kernel's, the plain version's and one
     ``index_add_``'s times (the scatter-add that ``torch.gather``'s own
     backward is, with float atomics); printed as a ``gather_row`` line."""
     bg, n, k, d = g.shape
+    path = knn_mr.gather_backward_path(n, k)
+    launched, device_ms = kernels_of(
+        lambda: knn_mr.launch_gather_backward(g, idx, m))
+    check(sorted(launched) == GATHER_KERNELS[path], f"{name}: the {path} "
+          f"path launched {launched}, not {GATHER_KERNELS[path]}")
     gy = knn_mr.launch_gather_backward(g, idx, m)
     torch.cuda.synchronize()
     want = aggregate.gather_backward_ordered_reference(g, idx, m)
@@ -1002,6 +1057,7 @@ def gather_row(name: str, g, idx, m: int, calls: int) -> dict:
     rows, out = g.reshape(-1, d), torch.zeros((bg * m, d), dtype=g.dtype,
                                               device="cuda")
     library_ms = cuda_ms(lambda: out.index_add_(0, flat, rows), 20, 3)
+    _, library_device_ms = kernels_of(lambda: out.index_add_(0, flat, rows))
     # least time: g and idx read once, gy written once; an add per edge
     # and channel
     nbytes = g.nbytes + idx.nbytes + gy.nbytes
@@ -1009,8 +1065,10 @@ def gather_row(name: str, g, idx, m: int, calls: int) -> dict:
     t_ops = bg * n * k * d / PEAK_FLOPS["fp32"] * 1e3
     max_deg, p99_deg = in_degrees(idx, m)
     row = dict(name=name, dtype="bf16", BG=bg, N=n, k=k, M=m, D=d,
+               path=path, kernels=launched, device_ms=device_ms,
                calls_per_step=calls, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+               library_ms=library_ms, library_device_ms=library_device_ms,
+               bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                max_abs_err=err, fp64_err=gap.max().item(),
                max_in_degree=max_deg, p99_in_degree=p99_deg)

@@ -99,6 +99,36 @@
 // Its bytes: g (E x D) read once, idx (E ints) and gy (BG x M x D) written
 // once; the edges' rows are gathered by target, each once.
 //
+// Most of its calls are small: the label-sharded build's owner-side fetch
+// and the ring's max_relative take 80 x 9 = 720 edges a batch row, the
+// non-fused aggregators' stage-4 blocks 324 x 9 = 2916. What bounds such a
+// call: gy, large and mostly zeros (16 x 10368 x 40 bf16 at label 1, 13
+// MB, ~4 us at 3.35 TB/s), and the owner-side fetch's hub (the other
+// rank's winners all clamped onto one target: ~390 of a row's 720 edges),
+// whose rows one fixed-order fp32 chain per channel must add. Steps 1, 2,
+// 5 and 6 spent ~0.1 ms there on an H100: four dependent launches, each a
+// full-grid drain, plus the wrapper's idx cast and workspace, and the hub
+// walked 4 rows at a time by one thread a 16-byte chunk. So a call of at
+// most kSmallEdges edges a batch row takes one launch of
+//   7. gather_small: one block per (tile of the row's targets, slice of at
+//      most 128 bytes of their rows, batch row), no workspace. The block
+//      reads its row's idx as it comes (int32 or int64) and ranks the
+//      edges to its tile in shared memory (each warp a stretch of edges,
+//      as rank_edges walks a unit); one block scan gives the offsets and
+//      the targets that have an edge. A target without one gets zeros, 16
+//      bytes a thread; the others go a group at a time, their edges' row
+//      slices staged by cp.async in list order (the tile's whole list in
+//      one load where it fits) and added one thread per 4-byte word. The
+//      slices spread a hub's rows over several blocks, and its sums run on
+//      one lane a word (20 lanes for a 40-channel bf16 row). A tile holds
+//      as many targets as its share of the row's edges fills the stage, or
+//      as a wave of blocks needs where that is more: every block loads and
+//      ranks its row's edges again (2.9 KB of int32 at 720 edges, from L2).
+// kSmallEdges is one ranking unit of step 1 (4096): the row's words (4
+// bytes an edge) and list (2 bytes an edge), the tile's counts and the
+// stage fit the 48 KB a launch gets without opting in.
+// Calls above it take steps 1, 2, 5 and 6 as they were.
+//
 // Launch discipline: every kernel runs on the caller's stream, allocates
 // nothing (the caller passes one workspace of knn_mr_bwd_workspace_bytes)
 // and does not synchronize; the entry point returns cudaGetLastError()
@@ -107,6 +137,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -120,6 +151,8 @@ constexpr int kSmemBytes = 48 * 1024;  // rank_edges' counts and targets
 constexpr int kScanThreads = 1024;
 constexpr int kThreads = 256;  // threads wanted per block of steps 3 and 4
 constexpr int kMaxChunks = 256;  // most 16-byte chunks in a row (blockDim.x)
+// most edges a batch row on the gather backward's one-launch path (step 7)
+constexpr int kSmallEdges = 1 << kUnitLogMax;
 
 // channels in a 16-byte chunk
 template <typename T>
@@ -600,6 +633,270 @@ place_edges(const int* __restrict__ idx, const int* __restrict__ rank,
         + rank[e]] = (unsigned)e;
 }
 
+// A chunk of a row at p that need not be 16-byte aligned, as it would be
+// stored: `valid` of its channels exist (the rest read as 0).
+template <typename T>
+__device__ __forceinline__ uint4 load_unaligned(const T* __restrict__ p,
+                                                int valid) {
+  float v[kChan<T>];
+  load_chunk<T, false>(p, valid, v);
+  return pack<T>(v);  // exact: the values came from T
+}
+
+// 16 bytes from global to shared memory without a register, on the
+// block's own thread; complete after cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+      static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A 4-byte word's kWordChan<T> values in fp32, and back.
+template <typename T>
+constexpr int kWordChan = 4 / (int)sizeof(T);
+
+template <typename T>
+__device__ __forceinline__ void unpack_word(unsigned w, float* v) {
+  if constexpr (sizeof(T) == 2) {
+    v[0] = bf16_lo(w);
+    v[1] = bf16_hi(w);
+  } else {
+    v[0] = __uint_as_float(w);
+  }
+}
+
+// A word of fp32 values rounded to T at p; `valid` of them are written.
+// kVec: p is 4-byte aligned and valid is the whole word.
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_word(T* __restrict__ p, int valid,
+                                           const float* v) {
+  if constexpr (kVec && sizeof(T) == 2) {
+    *reinterpret_cast<unsigned*>(p) = bf16_pair(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWordChan<T>; ++i) {
+      if (kVec || i < valid) p[i] = from_f32<T>(v[i]);
+    }
+  }
+}
+
+// 7. (the gather's backward, at most kSmallEdges edges a batch row) Block
+// (x, b), x = tile_index * slices + slice, on the targets [tile *
+// tile_index, +tile) of batch row b (tile <= kThreads) and the chunks
+// [cs * slice, +cs) of their rows (fewer in the last slice), kThreads
+// threads. Dynamic shared memory: the stage (stage_rows row slices of g),
+// the row's edges' words (the edge's target less the tile's first, or tn
+// where it lies outside the tile; after the ranking rank << 16 | that),
+// each warp's counts of the tile's targets (then where its edges to each
+// start), the tile's offsets (tn + 1), its targets that have an edge in
+// order, and its inverse list (an edge id a 16-bit entry).
+//  - Each warp ranks the edges of its own stretch of the row in edge
+//    order (rank_edges' walk), so a target's list runs warp by warp in
+//    ascending edge id; one block scan gives the offsets and the targets
+//    that have an edge.
+//  - A target without an edge gets zeros, a 16-byte chunk a thread.
+//  - The targets with an edge go `group` at a time, a thread on each
+//    (target, 4-byte word of the slice): their edges' row slices come
+//    through the stage by cp.async in list order (the tile's whole list at
+//    once where it fits, else stage_rows at a time), and each thread adds
+//    its target's staged words in list order in fp32, rounded once. A hub
+//    target's rows load at the whole block's rate while its sums run on
+//    one lane a word (20 lanes at a 40-channel bf16 row).
+constexpr int kWarps = kThreads / 32;
+constexpr int kSliceChunks = 8;  // 128 bytes of a row per block
+constexpr int kStageBytes = 16 * 1024;
+constexpr int kSmallSmem = 47 * 1024;  // under the 48 KB of a launch
+                                       // that does not opt in
+constexpr int kBlocksWanted = 5 * 132;  // a wave at 48 registers a thread
+
+template <typename T, typename I, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gather_small(const T* __restrict__ g, const I* __restrict__ idx,
+             T* __restrict__ gy, int n, int m, int d, int k, int tile,
+             int cs, int slices, int stage_rows) {
+  constexpr int C = kChan<T>;
+  constexpr int CW = kWordChan<T>;
+  constexpr int kLoads = 4;  // idx loads in flight a thread
+  constexpr int kUnroll = 4;  // staged words read ahead of their adds
+  extern __shared__ uint4 gather_smem[];
+  __shared__ int warp_part[64];
+  const int edges = n * k;
+  const int b = blockIdx.y;
+  const int slice = blockIdx.x % slices;
+  const int t0 = blockIdx.x / slices * tile;
+  const int tn = min(tile, m - t0);  // the tile's targets
+  const int c0 = slice * cs;  // the slice's first chunk
+  const int ncs = min(cs, (d + C - 1) / C - c0);  // and its chunks
+  uint4* stage = gather_smem;
+  int* word = reinterpret_cast<int*>(stage + stage_rows * cs);
+  int* counts = word + edges;  // kWarps rows of tile
+  int* first = counts + kWarps * tile;
+  int* active = first + tile + 1;
+  unsigned short* list = reinterpret_cast<unsigned short*>(active + tile);
+  const I* idx_b = idx + (long long)b * edges;
+  for (int e0 = threadIdx.x; e0 < edges; e0 += kLoads * kThreads) {
+    I v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      v[u] = e < edges ? idx_b[e] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int e = e0 + u * kThreads;
+      const long long t = (long long)v[u] - t0;
+      if (e < edges) word[e] = t >= 0 && t < tn ? (int)t : tn;
+    }
+  }
+  for (int i = threadIdx.x; i < kWarps * tile; i += kThreads) counts[i] = 0;
+  __syncthreads();
+  // each warp's stretch of whole rounds, walked as rank_edges walks a unit
+  const int stretch = (edges + 32 * kWarps - 1) / (32 * kWarps) * 32;
+  {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    volatile int* bins = counts + warp * tile;
+    const int e0 = warp * stretch;
+    const int e1 = min(e0 + stretch, edges);
+    int t_next = e0 + lane < e1 ? word[e0 + lane] : tn;
+    for (int p0 = e0; p0 < e1; p0 += 32) {
+      const int p = p0 + lane;
+      const int t = t_next;
+      t_next = p + 32 < e1 ? word[p + 32] : tn;
+      if (!__any_sync(0xffffffffu, t < tn)) continue;
+      const unsigned same = __match_any_sync(0xffffffffu, t);
+      const int before = t < tn ? bins[t] : 0;
+      __syncwarp();
+      if (t < tn) {
+        word[p] = (before + __popc(same & below)) << 16 | t;
+        if (31 - __clz(same) == lane) bins[t] = before + __popc(same);
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  // offsets and the targets with an edge, from one scan of (has an edge)
+  // << 16 | edges (a row has at most kSmallEdges < 2**16 edges)
+  int listed, na;
+  {
+    const int t = threadIdx.x;  // tn <= tile <= kThreads
+    int total = 0;
+    if (t < tn) {
+      for (int w = 0; w < kWarps; ++w) total += counts[w * tile + t];
+    }
+    int sums;
+    const int before = block_exclusive_sum(
+        total | (total > 0 ? 1 << 16 : 0), warp_part, sums);
+    listed = sums & 0xffff;
+    na = sums >> 16;
+    if (t < tn) {
+      int run = before & 0xffff;
+      first[t] = run;
+      if (total > 0) active[before >> 16] = t;
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = counts[w * tile + t];
+        counts[w * tile + t] = run;
+        run += c;
+      }
+    }
+    if (t == 0) first[tn] = listed;
+  }
+  __syncthreads();
+  {  // each warp places the edges of its own stretch
+    const int warp = threadIdx.x >> 5;
+    const int* at = counts + warp * tile;
+    for (int e = warp * stretch + (threadIdx.x & 31);
+         e < min((warp + 1) * stretch, edges); e += 32) {
+      const int w = word[e];
+      const int t = w & 0xffff;
+      if (t < tn) list[at[t] + (w >> 16)] = (unsigned short)e;
+    }
+  }
+  T* gy_t = gy + ((long long)b * m + t0) * d;
+  for (int q = threadIdx.x; q < tn * ncs; q += kThreads) {
+    const int t = q / ncs;
+    const int cc = (c0 + q - t * ncs) * C;
+    if (first[t + 1] == first[t]) {
+      float zeros[C] = {};
+      store_chunk<T, kVec>(gy_t + (long long)t * d + cc, min(C, d - cc),
+                           zeros);
+    }
+  }
+  __syncthreads();
+  const T* g_b = g + (long long)b * edges * d;
+  const unsigned* staged = reinterpret_cast<const unsigned*>(stage);
+  const int words = ncs * 4;  // a staged row slice's
+  // this thread's word of the slice and target of a group
+  const int group = kThreads / (4 * cs);
+  const int w = threadIdx.x % (4 * cs);
+  const int tq = threadIdx.x / (4 * cs);
+  const bool in_group = tq < group && w < words;
+  // list entries [q0, q0 + rows) into the stage from its start
+  auto stage_from = [&](int q0, int rows) {
+    for (int s = threadIdx.x; s < rows * ncs; s += kThreads) {
+      const int r = s / ncs;
+      const int cc = (c0 + s - r * ncs) * C;
+      const T* src = g_b + (long long)list[q0 + r] * d + cc;
+      if constexpr (kVec) {
+        cp_async16(stage + s, src);
+      } else {
+        stage[s] = load_unaligned<T>(src, min(C, d - cc));
+      }
+    }
+    if constexpr (kVec) cp_async_wait_all();
+    __syncthreads();
+  };
+  const bool whole = listed <= stage_rows;
+  if (whole && listed > 0) stage_from(0, listed);
+  for (int a0 = 0; a0 < na; a0 += group) {
+    // the group's targets' edges: one stretch of the list
+    const int q_end = first[active[min(a0 + group, na) - 1] + 1];
+    const bool adds = in_group && a0 + tq < na;
+    const int t = adds ? active[a0 + tq] : 0;
+    float acc[CW];
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+    for (int q0 = first[active[a0]]; q0 < q_end; q0 += stage_rows) {
+      const int rows = min(stage_rows, q_end - q0);
+      const int at = whole ? 0 : q0;  // the entry at the stage's start
+      if (!whole) stage_from(q0, rows);
+      if (adds) {
+        const int hi = min(first[t + 1], q0 + rows) - at;
+        int i = max(first[t], q0) - at;
+        for (; i + kUnroll <= hi; i += kUnroll) {
+          unsigned raw[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            raw[u] = staged[(i + u) * words + w];
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            float v[CW];
+            unpack_word<T>(raw[u], v);
+#pragma unroll
+            for (int c = 0; c < CW; ++c) acc[c] = __fadd_rn(acc[c], v[c]);
+          }
+        }
+        for (; i < hi; ++i) {
+          float v[CW];
+          unpack_word<T>(staged[i * words + w], v);
+#pragma unroll
+          for (int c = 0; c < CW; ++c) acc[c] = __fadd_rn(acc[c], v[c]);
+        }
+      }
+      if (!whole) __syncthreads();
+    }
+    const int ch = c0 * C + w * CW;
+    if (adds && ch < d) {
+      store_word<T, kVec>(gy_t + (long long)t * d + ch, d - ch, acc);
+    }
+  }
+}
+
 struct Workspace {
   int* rank;
   int* hist;
@@ -814,6 +1111,61 @@ int launch_gather(const void* g, const void* idx, void* gy, void* work,
   return cudaGetLastError();
 }
 
+// The gather's backward on at most kSmallEdges edges a batch row: step 7,
+// one launch; idx int32 (I = int) or int64 (I = long long). A block takes
+// a slice of at most kSliceChunks chunks of its targets' rows (so a hub
+// target's rows spread over several blocks) and as many targets as its
+// share of the row's edges fills the stage (a row's edges spread evenly:
+// one load's latency for the rows of a tile without a hub), or as the
+// card takes in a wave of blocks where that is more (every block loads
+// and ranks its row's edges), at least a group's and at most kThreads.
+// The stage takes what the rest leaves of kSmallSmem, up to kStageBytes.
+template <typename T, typename I>
+int launch_gather_small(const void* g, const void* idx, void* gy, int b,
+                        int n, int m, int d, int k, cudaStream_t s) {
+  constexpr int C = kChan<T>;
+  const int nch = (d + C - 1) / C;
+  if (nch > kMaxChunks || b > 65535) return cudaErrorInvalidValue;
+  const int edges = n * k;
+  const int cs = std::min(nch, kSliceChunks);
+  const int slices = (nch + cs - 1) / cs;
+  const long long fill =
+      (long long)(kStageBytes / (cs * 16)) * m / std::max(edges, 1);
+  const long long wave =
+      ((long long)b * slices * m + kBlocksWanted - 1) / kBlocksWanted;
+  const int tile = (int)std::min<long long>(
+      kThreads, std::max({(long long)kThreads / (4 * cs), fill, wave}));
+  const int rest = (edges + (kWarps + 2) * tile + 1) * (int)sizeof(int)
+                   + edges * (int)sizeof(unsigned short);
+  const int stage_rows = std::min(kStageBytes, kSmallSmem - rest) / (cs * 16);
+  const size_t smem = (size_t)stage_rows * cs * 16 + rest;
+  const dim3 grid((unsigned)(((long long)m + tile - 1) / tile * slices), b);
+  const T* gt = static_cast<const T*>(g);
+  const I* it = static_cast<const I*>(idx);
+  T* gyt = static_cast<T*>(gy);
+  if (d % C == 0 && aligned(g, 16) && aligned(gy, 16)) {
+    gather_small<T, I, true><<<grid, kThreads, smem, s>>>(
+        gt, it, gyt, n, m, d, k, tile, cs, slices, stage_rows);
+  } else {
+    gather_small<T, I, false><<<grid, kThreads, smem, s>>>(
+        gt, it, gyt, n, m, d, k, tile, cs, slices, stage_rows);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_gather_any(const void* g, const void* idx, void* gy, void* work,
+                      int b, int n, int m, int d, int k, int idx_is_i64,
+                      cudaStream_t s) {
+  if ((long long)n * k > kSmallEdges) {  // idx int32 only
+    return idx_is_i64 ? cudaErrorInvalidValue
+                      : launch_gather<T>(g, idx, gy, work, b, n, m, d, k, s);
+  }
+  return idx_is_i64
+             ? launch_gather_small<T, long long>(g, idx, gy, b, n, m, d, k, s)
+             : launch_gather_small<T, int>(g, idx, gy, b, n, m, d, k, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -847,29 +1199,38 @@ int knn_mr_backward(const void* x, const void* y, const void* idx,
                              k, s);
 }
 
-// Bytes of the workspace gather_backward needs for these sizes.
+// The most edges a batch row (n*k) that gather_backward takes in its one
+// launch, with no workspace and idx int32 or int64.
+int gather_bwd_small_edges() { return kSmallEdges; }
+
+// Bytes of the workspace gather_backward needs for these sizes (0 at most
+// gather_bwd_small_edges() edges a batch row).
 long long gather_bwd_workspace_bytes(int b, int n, int m, int d, int k,
                                      int is_bf16) {
+  if ((long long)n * k <= kSmallEdges) return 0;
   return carve(nullptr, b, n, m, d, k, is_bf16 ? 2 : 4, false).bytes;
 }
 
 // The backward of x_j = y[idx_j]: g (b, n, k, d) the gradient of the
-// gathered rows, idx (b, n, k) int32 with every entry in [0, m), gy
-// (b, m, d) written: gy[t] = the fp32 sum of g's rows over the edges to t,
-// from 0.0 in ascending edge id, rounded once. One type for g and gy
-// (is_bf16: bfloat16, else float32), all contiguous; b <= 65535,
-// b*n*k < 2**31 and at most 256 16-byte chunks in d channels (else
-// cudaErrorInvalidValue). work holds gather_bwd_workspace_bytes. Returns a
+// gathered rows, idx (b, n, k) with every entry in [0, m), gy (b, m, d)
+// written: gy[t] = the fp32 sum of g's rows over the edges to t, from 0.0
+// in ascending edge id, rounded once. One type for g and gy (is_bf16:
+// bfloat16, else float32), all contiguous; b <= 65535, b*n*k < 2**31 and
+// at most 256 16-byte chunks in d channels. idx is int32, or int64
+// (idx_is_i64) where n*k <= gather_bwd_small_edges(). Else
+// cudaErrorInvalidValue. work holds gather_bwd_workspace_bytes. Returns a
 // cudaError_t code.
 int gather_backward(const void* g, const void* idx, void* gy, void* work,
                     int b, int n, int m, int d, int k, int is_bf16,
-                    void* stream) {
+                    int idx_is_i64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((long long)b * m == 0 || d == 0) return cudaSuccess;
   if (is_bf16) {
-    return launch_gather<__nv_bfloat16>(g, idx, gy, work, b, n, m, d, k, s);
+    return launch_gather_any<__nv_bfloat16>(g, idx, gy, work, b, n, m, d, k,
+                                            idx_is_i64, s);
   }
-  return launch_gather<float>(g, idx, gy, work, b, n, m, d, k, s);
+  return launch_gather_any<float>(g, idx, gy, work, b, n, m, d, k,
+                                  idx_is_i64, s);
 }
 
 const char* knn_mr_bwd_error_string(int code) {

@@ -355,8 +355,10 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.knn_mr_bwd_error_string.argtypes = [ctypes.c_int]
         lib.knn_mr_bwd_error_string.restype = ctypes.c_char_p
         lib.gather_backward.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.gather_backward.restype = ctypes.c_int
+        lib.gather_bwd_small_edges.argtypes = []
+        lib.gather_bwd_small_edges.restype = ctypes.c_int
         lib.gather_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 6
         lib.gather_bwd_workspace_bytes.restype = ctypes.c_longlong
     return lib
@@ -497,13 +499,27 @@ def _gather_workspace_bytes(b: int, n: int, m: int, c: int, k: int,
     return _bwd_lib().gather_bwd_workspace_bytes(b, n, m, c, k, is_bf16)
 
 
+@functools.cache
+def _gather_small_edges() -> int:
+    return _bwd_lib().gather_bwd_small_edges()
+
+
+def gather_backward_path(n: int, k: int) -> str:
+    """Which path ``launch_gather_backward`` takes for n queries of k edges:
+    ``"small"`` (at most the kernel's cap of n*k edges a batch row: one
+    launch, no workspace, idx read as it comes) or ``"large"`` (four
+    launches and a workspace, idx cast to int32)."""
+    return "small" if n * k <= _gather_small_edges() else "large"
+
+
 def launch_gather_backward(g: torch.Tensor, idx: torch.Tensor,
                            m: int) -> torch.Tensor:
     """Launch ``csrc/knn_mr_bwd.cu``'s ``gather_backward``, the backward of
     ``aggregate.gather_nodes``, on g ``(B, N, k, C)`` bfloat16 or float32
     and idx ``(B, N, k)`` on one card, every entry in [0, m): gy
     ``(B, m, C)``, bitwise ``aggregate.gather_backward_ordered_reference``
-    (each target's fp32 sum in ascending edge id, no float atomics)."""
+    (each target's fp32 sum in ascending edge id, no float atomics). One
+    launch where ``gather_backward_path`` says ``"small"``."""
     global gather_backward_launches
     check_gather_backward(g, idx)
     if not g.is_cuda or idx.device != g.device:
@@ -522,19 +538,27 @@ def launch_gather_backward(g: torch.Tensor, idx: torch.Tensor,
                          f"2**31 edges, got {chunks} chunks, {b} rows and "
                          f"{b * n * k} edges")
     g = g.contiguous()
-    idx = idx.to(torch.int32).contiguous()
+    small = gather_backward_path(n, k) == "small"
+    if idx.dtype != torch.int32 and not (small and idx.dtype == torch.int64):
+        idx = idx.to(torch.int32)
+    idx = idx.contiguous()
     gy = torch.empty((b, m, c), dtype=g.dtype, device=g.device)
     lib = _bwd_lib()
     is_bf16 = int(g.dtype == torch.bfloat16)
     dev = g.get_device()
-    work = torch.empty(_gather_workspace_bytes(b, n, m, c, k, is_bf16),
-                       dtype=torch.uint8, device=g.device)
+    work = None if small else torch.empty(
+        _gather_workspace_bytes(b, n, m, c, k, is_bf16), dtype=torch.uint8,
+        device=g.device)
     with (torch.cuda.device(dev) if dev != torch.cuda.current_device()
           else contextlib.nullcontext()):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gather_backward(g.data_ptr(), idx.data_ptr(), gy.data_ptr(),
-                                  work.data_ptr(), b, n, m, c, k, is_bf16,
-                                  stream)
+        # the stream's handle without a torch.cuda.Stream object, which
+        # costs ~5 us of host time a call on an H100 host, half a small
+        # call's kernel (the handle PyTorch's own Triton launcher reads)
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        err = lib.gather_backward(
+            g.data_ptr(), idx.data_ptr(), gy.data_ptr(),
+            None if work is None else work.data_ptr(), b, n, m, c, k,
+            is_bf16, int(idx.dtype == torch.int64), stream)
     if err != 0:
         raise RuntimeError(f"gather backward kernel launch failed: "
                            f"{lib.knn_mr_bwd_error_string(err).decode()} "

@@ -28,6 +28,17 @@ from test_torch_model import _jax_variables, _load_subtree, _t
 B_CONFIG = "configs/gkgnet_b_coco_576.py"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_arch_b_registry_matches_jax():
     assert ARCH_SETTINGS["b"] == JARCH["b"]
     assert ARCH_SETTINGS["b"]["channels"] == (128, 256, 512, 1024)

@@ -18,8 +18,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (check_topk, folded_route, forced_chunked,  # noqa: E402
-                        fp32_block, tie_fixture, topk_fixture)
+from chip_smoke import (GATHER_KERNELS, check_topk, folded_route,  # noqa: E402
+                        forced_chunked, fp32_block, kernels_of, tie_fixture,
+                        topk_fixture)
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
                                            make_train_step)
@@ -1422,6 +1423,74 @@ def test_gather_backward_kernel_is_the_ordered_sum(cuda, b, n, k, m, c,
     assert torch.equal(again, got)
 
 
+# The small path (one launch of gather_small, no workspace) at its edges:
+# (b, n, k, m, c, idx type, how idx is made). n*k at the cap (4096) and
+# one past it (the large path); one hub target that takes every edge of a
+# row; targets that mostly have no edge; rows of 33 channels (not whole
+# 16-byte chunks in either type); B > 1 with M = 1 and k = 1; idx int64 at
+# the label shape and at the cap.
+GATHER_SMALL_CASES = {
+    "at_cap": (3, 512, 8, 300, 40, torch.int32, "random"),
+    "past_cap": (3, 4097, 1, 300, 40, torch.int32, "random"),
+    "hub_takes_a_row": (2, 80, 9, 50, 80, torch.int32, "hub"),
+    "targets_without_edges": (2, 20, 9, 5000, 24, torch.int32, "random"),
+    "unaligned": (3, 50, 5, 7, 33, torch.int32, "hub"),
+    "one_target": (4, 6, 1, 1, 8, torch.int32, "random"),
+    "int64": (16, 80, 9, 162, 320, torch.int64, "random"),
+    "int64_at_cap": (2, 4096, 1, 64, 16, torch.int64, "hub"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(GATHER_SMALL_CASES))
+def test_gather_backward_small_path_is_the_ordered_sum(cuda, case, dtype):
+    """At and around the small path's limits, gy is bitwise the ordered
+    plain version and the same over two launches; a call at most the cap's
+    edges a row launches gather_small alone, one past it the large path's
+    four kernels, and idx int64 is read as it comes (no cast kernel)."""
+    b, n, k, m, c, itype, kind = GATHER_SMALL_CASES[case]
+    gen = torch.Generator().manual_seed(b * n * k + c)
+    g = torch.randn((b, n, k, c), generator=gen).to(dtype)
+    idx = torch.randint(0, m, (b, n, k), generator=gen).to(itype)
+    if kind == "hub":  # every edge of the last row on one target
+        idx[-1] = m // 2
+    path = knn_mr.gather_backward_path(n, k)
+    assert path == ("large" if n * k > 4096 else "small")
+    want = aggregate.gather_backward_ordered_reference(g, idx, m)
+    gd, idxd = g.to(cuda), idx.to(cuda)
+    launched, _ = kernels_of(lambda: knn_mr.launch_gather_backward(gd, idxd,
+                                                                   m))
+    assert sorted(launched) == GATHER_KERNELS[path]
+    before = knn_mr.gather_backward_launches
+    got = knn_mr.launch_gather_backward(gd, idxd, m)
+    again = knn_mr.launch_gather_backward(gd, idxd, m)
+    torch.cuda.synchronize()
+    assert knn_mr.gather_backward_launches == before + 2
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+
+
+def test_gather_backward_beyond_its_limits_raises(cuda):
+    """A CUDA call beyond the kernel's limits raises and launches nothing:
+    rows of more than 256 16-byte chunks, more than 65535 batch rows, and
+    an int64 idx on the large path is cast, not refused."""
+    before = knn_mr.gather_backward_launches
+    g = torch.zeros((1, 2, 1, 1025), device=cuda)
+    with pytest.raises(ValueError, match="16-byte chunks"):
+        knn_mr.launch_gather_backward(
+            g, torch.zeros((1, 2, 1), dtype=torch.int32, device=cuda), 3)
+    g = torch.zeros((65536, 1, 1, 1), device=cuda)
+    with pytest.raises(ValueError, match="batch rows"):
+        knn_mr.launch_gather_backward(
+            g, torch.zeros((65536, 1, 1), dtype=torch.int32, device=cuda), 1)
+    assert knn_mr.gather_backward_launches == before
+    g = torch.ones((1, 5000, 1, 4), device=cuda)
+    idx = torch.zeros((1, 5000, 1), dtype=torch.int64, device=cuda)
+    gy = knn_mr.launch_gather_backward(g, idx, 2)
+    assert gy[0, 0].tolist() == [5000.0] * 4 and gy[0, 1].eq(0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_gather_nodes_backward_on_the_card_runs_the_kernel(cuda, dtype):
@@ -1445,6 +1514,12 @@ def test_gather_nodes_backward_on_the_card_runs_the_kernel(cuda, dtype):
         grads.append(yd.grad.cpu())
     assert torch.equal(grads[1], grads[0]) and torch.equal(grads[2],
                                                            grads[0])
+    # 200 x 9 edges a row: the small path, one kernel for the call
+    assert knn_mr.gather_backward_path(200, 9) == "small"
+    gd, idxd = g.to(cuda), idx.to(cuda)
+    launched, _ = kernels_of(
+        lambda: aggregate.gather_backward(gd, idxd, 97))
+    assert launched == ["gather_small"]
     gm = torch.randn((4, 200, 48), generator=gen).to(dtype)
     got = []
     for dev in ("cpu", cuda):

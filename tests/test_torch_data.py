@@ -43,6 +43,17 @@ MEAN = [123.675, 116.28, 103.53]
 STD = [58.395, 57.12, 57.375]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def load_tool(relpath):
     """A script of the repository's ``tools/``, loaded from its file."""
     name = "jax_tool_" + relpath.replace("/", "_").removesuffix(".py")

@@ -1,8 +1,9 @@
 """Parity of the port's model features with the JAX package, on the CPU, in
-fp32: the activations, necks, linear heads, losses, the perturbed top-k
-and its graph build, mixup/cutmix, LAMB, the tiled plain kNN build and the
-GKGNet flags. Inputs and weights come from numpy seeds; the JAX side runs
-its plain (XLA) path. Each test states its tolerance.
+fp32: the activations, necks, linear heads, losses, mixup/cutmix, LAMB
+and the tiled plain kNN build (the perturbed build, GKGNet's flags and a
+config of these features are in ``test_torch_features_*.py``). Inputs and
+weights come from numpy seeds; the JAX side runs its plain (XLA) path.
+Each test states its tolerance.
 """
 
 import jax
@@ -18,10 +19,7 @@ from gkgnet_tpu.nn import heads as jheads
 from gkgnet_tpu.nn import layers as jlayers
 from gkgnet_tpu.nn import losses as jlosses
 from gkgnet_tpu.nn import necks as jnecks
-from gkgnet_tpu.nn.classifier import GKGNetClassifier as JaxClassifier
-from gkgnet_tpu.nn.gkgnet import GKGNet as JaxGKGNet
 from gkgnet_tpu.ops import knn as jknn
-from gkgnet_tpu.ops import perturbed_topk as jpt
 from gkgnet_tpu.ops.pos_embed import get_relative_pos_table
 from gkgnet_tpu_torch.core import optim as toptim
 from gkgnet_tpu_torch.nn import augment as taugment
@@ -30,15 +28,23 @@ from gkgnet_tpu_torch.nn import heads as theads
 from gkgnet_tpu_torch.nn import layers as tlayers
 from gkgnet_tpu_torch.nn import losses as tlosses
 from gkgnet_tpu_torch.nn import necks as tnecks
-from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier
 from gkgnet_tpu_torch.nn.gkgnet import GKGNet
 from gkgnet_tpu_torch.ops import knn as tknn
-from gkgnet_tpu_torch.ops import perturbed_topk as tpt
-from gkgnet_tpu_torch.utils.weights import (load_jax_variables,
-                                            state_dict_from_jax)
+from gkgnet_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_model import _jax_variables, _load_subtree, _t
 
 SMALL = dict(arch="t", k=2, k_label_gcn=2, n_classes=6, size=128)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _np(a):
@@ -287,186 +293,6 @@ def test_other_losses_match_jax(case):
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-5, atol=1e-6)
 
 
-# --------------------------------------------------------- perturbed top-k
-
-
-def test_hard_topk_indicator_matches_jax():
-    """The eval indicator, exact: distinct scores and exact ties (the lower
-    index first among equal scores)."""
-    x = np.random.default_rng(0).standard_normal((3, 5, 12)).astype(
-        np.float32)
-    x[0, 0, [2, 7, 9]] = 5.0
-    got = tpt.hard_topk_indicator(_t(x), 2)
-    np.testing.assert_array_equal(got.numpy(),
-                                  _np(jpt.hard_topk_indicator(
-                                      jnp.asarray(x), 2)))
-
-
-def test_perturbed_topk_matches_jax_on_its_noise():
-    """The forward on JAX's own noise draw, exact (whole counts / nS), and
-    ``jax.grad`` of a weighted sum against the port's autograd, within
-    1e-5 (sums over the samples in another order)."""
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal((3, 4, 10)).astype(np.float32)
-    g = rng.standard_normal((3, 4, 3, 10)).astype(np.float32)
-    k, ns, sigma = 3, 40, 0.3
-    key = jax.random.PRNGKey(7)
-    noise = np.asarray(jax.random.normal(key, (ns,) + x.shape, jnp.float32))
-    ref = jpt.perturbed_topk(jnp.asarray(x), k, ns, sigma, key)
-    ref_grad = jax.grad(lambda v: jnp.sum(
-        jpt.perturbed_topk(v, k, ns, sigma, key) * jnp.asarray(g)))(
-            jnp.asarray(x))
-    tx = _t(x).requires_grad_(True)
-    got = tpt.perturbed_topk_from_noise(tx, k, _t(noise), sigma)
-    np.testing.assert_array_equal(got.detach().numpy(), _np(ref))
-    (got * _t(g)).sum().backward()
-    np.testing.assert_allclose(tx.grad.numpy(), _np(ref_grad), rtol=1e-5,
-                               atol=1e-5)
-    # a generator's draw: the same function of its own noise
-    gen = torch.Generator().manual_seed(3)
-    drawn = tpt.perturbed_topk(_t(x), k, ns, sigma, gen)
-    noise2 = torch.randn((ns,) + x.shape,
-                         generator=torch.Generator().manual_seed(3))
-    assert torch.equal(drawn, tpt.perturbed_topk_from_noise(
-        _t(x), k, noise2, sigma))
-
-
-@pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
-def test_soft_knn_gather_matches_jax(training):
-    """The soft neighbours of normalized targets (dilation 2), in eval (the
-    hard top-k) and in training on JAX's noise, fp32, within 1e-6, and
-    the gradient to the targets within 1e-5."""
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((2, 6, 5)).astype(np.float32)
-    y = rng.standard_normal((2, 14, 5)).astype(np.float32)
-    k, dil, ns, sigma = 3, 2, 20, 0.1
-    key = jax.random.PRNGKey(5)
-
-    def jfun(yy):
-        return jpt.soft_knn_gather(jnp.asarray(x), yy, k, num_samples=ns,
-                                   sigma=sigma, dilation=dil,
-                                   rng=key if training else None,
-                                   training=training)
-    ref = jfun(jnp.asarray(y))
-    ref_grad = jax.grad(lambda yy: jnp.sum(jfun(yy) ** 2))(jnp.asarray(y))
-    noise = None
-    if training:
-        noise = _t(np.asarray(jax.random.normal(key, (ns, 2, 6, 14),
-                                                jnp.float32)))
-    ty = _t(y).requires_grad_(True)
-    got = tpt.soft_knn_gather(_t(x), ty, k, num_samples=ns, sigma=sigma,
-                              dilation=dil, training=training, noise=noise)
-    assert got.shape == (2, 6, k, 5)
-    np.testing.assert_allclose(got.detach().numpy(), _np(ref), rtol=1e-6,
-                               atol=1e-6)
-    (got ** 2).sum().backward()
-    np.testing.assert_allclose(ty.grad.numpy(), _np(ref_grad), rtol=1e-5,
-                               atol=1e-5)
-
-
-class _JaxNoise:
-    """Record the scores and the noise of every ``perturbed_topk`` call of
-    the JAX package (run eagerly), then hand them, call by call, to the
-    port's: the port's scores must agree with JAX's within 1e-5, and the
-    selection then runs on JAX's, so that two perturbed scores an ulp
-    apart (the two packages' fp32 distance sums, taken in other orders)
-    cannot rank differently. The scores carry no gradient in the model."""
-
-    def __init__(self, monkeypatch):
-        self.draws = []
-        orig = jpt.perturbed_topk
-
-        def record(x, k, num_samples=500, sigma=0.05, rng=None):
-            self.draws.append((np.asarray(x), np.asarray(jax.random.normal(
-                rng, (num_samples,) + x.shape, jnp.float32))))
-            return orig(x, k, num_samples, sigma, rng)
-
-        def replay(x, k, num_samples=500, sigma=0.05, generator=None):
-            scores, noise = self.draws.pop(0)
-            assert noise.shape == (num_samples,) + tuple(x.shape)
-            np.testing.assert_allclose(x.detach().numpy(), scores,
-                                       rtol=1e-5, atol=1e-5)
-            return tpt.perturbed_topk_from_noise(_t(scores), k, _t(noise),
-                                                 sigma)
-
-        monkeypatch.setattr(jpt, "perturbed_topk", record)
-        monkeypatch.setattr(tpt, "perturbed_topk", replay)
-
-
-def test_perturbed_graph_conv_matches_jax(monkeypatch):
-    """A spatial graph conv with the perturbed build (r = 2, 2 groups) in
-    eval and in train on JAX's noise, and the input gradient in train, fp32,
-    within 1e-4; no edge indices."""
-    noise = _JaxNoise(monkeypatch)
-    c = 8
-    x = np.random.default_rng(0).standard_normal((2, 4, 4, c)).astype(
-        np.float32)
-    jm = jgrapher.SpatialGraphConv(c, 2 * c, k=3, r=2, num_group=2,
-                                   graph_builder="perturbed")
-    tm = tgrapher.SpatialGraphConv(c, 2 * c, k=3, r=2, num_group=2,
-                                   graph_builder="perturbed")
-    variables = _jax_variables(jm, jnp.asarray(x), None, False)
-    _load_subtree(tm, variables,
-                  ("backbone", "backbone_1_grapher", "graph_conv"),
-                  "backbone.backbone.1.0.graph_conv.")
-    ref, ref_idx = jm.apply(variables, jnp.asarray(x), None, False)
-    with torch.no_grad():
-        got, idx = tm.eval()(_t(x), None)
-    assert idx is None and ref_idx is None
-    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-4, atol=1e-4)
-
-    def jloss(xin):
-        (out, _), _ = jm.apply(variables, xin, None, True,
-                               rngs={"perturbed": jax.random.PRNGKey(2)},
-                               mutable=["batch_stats"])
-        return jnp.sum(out ** 2), out
-    (_, ref_out), ref_grad = jax.value_and_grad(jloss, has_aux=True)(
-        jnp.asarray(x))
-    tx = _t(x).requires_grad_(True)
-    out, _ = tm.train()(tx, None, torch.Generator().manual_seed(0))
-    (out ** 2).sum().backward()
-    assert not noise.draws
-    np.testing.assert_allclose(out.detach().numpy(), _np(ref_out), rtol=1e-4,
-                               atol=1e-4)
-    np.testing.assert_allclose(tx.grad.numpy(), _np(ref_grad), rtol=1e-3,
-                               atol=1e-3)
-    with pytest.raises(ValueError):
-        tm.train()(_t(x), None, None)
-    with pytest.raises(ValueError):
-        tgrapher.SpatialGraphConv(c, 2 * c, conv="edge", num_group=1,
-                                  graph_builder="perturbed")
-
-
-@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
-def test_perturbed_classifier_matches_jax(monkeypatch, train):
-    """GKGNetClassifier with graph_builder='perturbed' at t@128 on carried
-    weights: eval, and train-mode logits on JAX's noise, fp32, within
-    1e-4; no edge indices."""
-    noise = _JaxNoise(monkeypatch)
-    kw = dict(SMALL, graph_builder="perturbed")
-    jm = JaxClassifier(**kw)
-    x = np.random.default_rng(6).standard_normal((2, 128, 128, 3)).astype(
-        np.float32)
-    variables = _jax_variables(jm, jnp.asarray(x), False, seed=7)
-    tm = GKGNetClassifier(**kw)
-    load_jax_variables(tm, variables)
-    if train:
-        (ref, ref_edge), _ = jm.apply(
-            variables, jnp.asarray(x), True,
-            rngs={"perturbed": jax.random.PRNGKey(3)},
-            mutable=["batch_stats", "constants"])
-        with torch.no_grad():
-            got, edge = tm.train()(_t(x), torch.Generator().manual_seed(0))
-        assert not noise.draws
-    else:
-        (ref, ref_edge), _ = jm.apply(variables, jnp.asarray(x), False,
-                                      mutable=["constants"])
-        with torch.no_grad():
-            got, edge = tm.eval()(_t(x))
-    assert edge is None and ref_edge is None
-    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-4, atol=1e-4)
-
-
 # --------------------------------------------------------- mixup / cutmix
 
 
@@ -666,164 +492,3 @@ def test_knn_budget_tiles_the_stochastic_build(monkeypatch):
     x = torch.randn((1, 32, 32, 48))
     conv.train()(x, model.rel_pos_stage0, torch.Generator().manual_seed(0))
     assert seen == [chunks[0]]
-
-
-# ------------------------------------------------------- GKGNet's flags
-
-
-@pytest.fixture(scope="module")
-def image():
-    return np.random.default_rng(6).standard_normal((2, 128, 128, 3)).astype(
-        np.float32)
-
-
-@pytest.mark.parametrize("flags", [
-    dict(use_multi_group=False, backbone_multi_group=False),
-    dict(use_multi_group=False),
-    dict(backbone_multi_group=False),
-    dict(out_indices=(0, 1, 2, 3), return_stage_feats=True),
-    dict(out_indices=(1, 3), return_stage_feats=True, knn_budget=1 << 10),
-], ids=["no_groups", "label_no_groups", "backbone_no_groups",
-        "all_stage_feats", "stage_feats_budget"])
-def test_gkgnet_flags_match_jax(flags, image):
-    """The backbone with each flag against the JAX backbone on carried
-    weights, eval, fp32, within 1e-4: label embeddings, GAP, the last
-    label graph's edges and, with ``return_stage_feats``, the stage maps
-    of ``out_indices`` in JAX's order (maps of magnitude ~30: within 1e-5
-    of each map's largest value)."""
-    kw = dict(SMALL, **flags)
-    jm = JaxGKGNet(**kw)
-    variables = _jax_variables(jm, jnp.asarray(image), False, seed=9)
-    ref, _ = jm.apply(variables, jnp.asarray(image), False,
-                      mutable=["constants"])
-    tm = GKGNet(**kw)
-    _load_subtree(tm, variables, ("backbone",), "backbone.")
-    with torch.no_grad():
-        got = tm.eval()(_t(image))
-    assert len(got) == len(ref) == (4 if flags.get("return_stage_feats")
-                                    else 3)
-    for a, b in ((got[0], ref[0]), (got[1], ref[1])):
-        np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
-    if flags.get("return_stage_feats"):
-        assert len(got[3]) == len(ref[3]) == len(flags["out_indices"])
-        for a, b in zip(got[3], ref[3]):
-            assert tuple(a.shape) == tuple(b.shape)
-            np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-4,
-                                       atol=1e-5 * np.abs(_np(b)).max())
-
-
-@pytest.mark.parametrize("neck", [
-    dict(type="HRFuseScales", out_channels=32, out_indices=(0, 1, 2, 3)),
-    dict(type="FPN", out_channels=32, out_indices=(1, 2, 3)),
-    dict(type="ChannelMapper", out_channels=16, out_indices=(2, 3)),
-    dict(type="GlobalAveragePooling", out_indices=(3,), out_channels=384),
-    dict(type="GlobalAveragePooling", out_indices=(1, 2)),
-], ids=["hrfuse", "fpn", "mapper", "gap", "gap_stage3"])
-def test_neck_classifier_matches_jax(neck, image, monkeypatch):
-    """The classifier with a neck and its MultiLabelLinearClsHead on
-    carried weights (every neck and head leaf through the weight loader),
-    eval, fp32, within 1e-4, and the loss head's loss within 1e-5.
-
-    The port's neck and head run on the JAX backbone's outputs: the two
-    backbones agree (``test_gkgnet_flags_match_jax``) but where their fp32
-    distances (XLA's and torch's sums, in other orders) order a near-tie
-    differently, and the flip carries through the chaotic random model to
-    the stage maps (not a fault: ROADMAP.md section 3 item 2); here it
-    would hide what the neck and head do."""
-    kw = dict(SMALL, neck_cfg=neck)
-    jm = JaxClassifier(**kw)
-    variables = _jax_variables(jm, jnp.asarray(image), False, seed=11)
-    (ref, _), _ = jm.apply(variables, jnp.asarray(image), False,
-                           mutable=["constants"])
-    feats, _ = jm.apply(variables, jnp.asarray(image), False,
-                        method=lambda m, x, train: m.backbone(x, train),
-                        mutable=["constants"])
-    tm = GKGNetClassifier(**kw)
-    load_jax_variables(tm, variables)
-    jax_backbone = (_t(np.asarray(feats[0])), _t(np.asarray(feats[1])),
-                    torch.from_numpy(np.asarray(feats[2])),
-                    tuple(_t(np.asarray(f)) for f in feats[3]))
-    monkeypatch.setattr(tm.backbone, "forward",
-                        lambda imgs, generator=None: jax_backbone)
-    with torch.no_grad():
-        got, _ = tm.eval()(_t(image))
-    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=1e-4, atol=1e-4)
-    gt = np.array([[1, 0, -1, 0, 1, 0], [0, 0, 1, 1, 0, 0]], np.float32)
-    ref_loss = jm.build_loss_head().loss(ref, jnp.asarray(gt))
-    got_loss = tm.build_loss_head().loss(got, _t(gt))
-    np.testing.assert_allclose(got_loss["loss"].numpy(),
-                               _np(ref_loss["loss"]), rtol=1e-5)
-    assert isinstance(tm.head, theads.MultiLabelLinearClsHead)
-
-
-# ------------------------------------------- a config of the new features
-
-
-FEATURES_CONFIG = '''
-model = dict(arch="t", size=128, k=3, k_label_gcn=3, num_group=2,
-             n_classes=5, dtype="float32",
-             neck=dict(type="GlobalAveragePooling", out_indices=(3,),
-                       out_channels=384),
-             train_cfg=dict(augments=[
-                 dict(type="BatchMixup", alpha=0.2, prob=0.5),
-                 dict(type="BatchCutMix", alpha=1.0, prob=0.5)]))
-optimizer = dict(type="lamb", lr=1e-3, weight_decay=0.05)
-'''
-
-
-def test_features_config_builds_and_steps_in_both(tmp_path):
-    """A config with ``model.neck``, ``model.train_cfg.augments`` and
-    ``optimizer.type='lamb'`` builds in both packages (the same parameter
-    tree: every JAX leaf loads into the port) and takes one train step on
-    the CPU in each: finite losses; the port's parameters moved."""
-    from gkgnet_tpu.core.builder import build_model as jbuild
-    from gkgnet_tpu.core.config import Config as JConfig
-    from gkgnet_tpu.core.trainer import create_train_state as jstate
-    from gkgnet_tpu.core.trainer import make_train_step as jstep
-    from gkgnet_tpu_torch.core.builder import build_model
-    from gkgnet_tpu_torch.core.config import Config
-    from gkgnet_tpu_torch.core.trainer import (create_train_state,
-                                               make_train_step)
-    from gkgnet_tpu_torch.nn.classifier import init_parameters
-
-    path = tmp_path / "features.py"
-    path.write_text(FEATURES_CONFIG)
-    jcfg, cfg = JConfig.fromfile(str(path)), Config.fromfile(str(path))
-    x = np.random.default_rng(0).standard_normal((2, 128, 128, 3)).astype(
-        np.float32)
-    gt = np.array([[1, 0, 0, 1, 0], [0, 1, 0, 0, 0]], np.float32)
-
-    jm = jbuild(jcfg.model)
-    augments = jcfg.model["train_cfg"]["augments"]
-    tx = joptim.build_optimizer(
-        jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
-                                       jnp.asarray(x)))["params"],
-        jcfg.optimizer["lr"], "lamb", jcfg.optimizer["weight_decay"])
-    state = jstate(jm, jax.random.PRNGKey(0), jnp.asarray(x), tx)
-    step = jstep(jm, tx, donate=False,
-                 batch_augment=jaugment.build_batch_augment(augments))
-    _, jlogs = step(state, {"img": jnp.asarray(x),
-                            "gt_label": jnp.asarray(gt)},
-                    jax.random.PRNGKey(1))
-    assert np.isfinite(float(jlogs["loss"]))
-
-    tm = build_model(cfg.model)
-    assert isinstance(tm.head, theads.MultiLabelLinearClsHead)
-    load_jax_variables(tm, {"params": jax.device_get(state.params),
-                            "batch_stats": jax.device_get(
-                                state.batch_stats)})
-    init_parameters(tm, torch.Generator().manual_seed(0))
-    opt = toptim.build_optimizer(tm, cfg.optimizer["lr"],
-                                 cfg.optimizer["type"],
-                                 cfg.optimizer["weight_decay"])
-    assert isinstance(opt.optimizer, toptim.Lamb)
-    tstate = create_train_state(tm, opt)
-    before = {k: v.detach().clone() for k, v in tm.named_parameters()}
-    tstep = make_train_step(batch_augment=taugment.build_batch_augment(
-        cfg.model["train_cfg"]["augments"]))
-    tstate, logs = tstep(tstate, {"img": _t(x), "gt_label": _t(gt)})
-    assert np.isfinite(float(logs["loss"]))
-    moved = [k for k, v in tm.named_parameters()
-             if not torch.equal(v.detach(), before[k])]
-    assert "head.fc.weight" in moved and len(moved) > len(before) // 2

@@ -24,6 +24,17 @@ DTYPES = {"fp32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(b, n, k, m, c, seed):
     rng = np.random.default_rng(seed)
     y = rng.standard_normal((b, m, c)).astype(np.float32)

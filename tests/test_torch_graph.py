@@ -31,6 +31,17 @@ from gkgnet_tpu_torch.utils.weights import (init_block_parameters,
                                             state_dict_from_jax)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

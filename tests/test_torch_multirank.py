@@ -33,6 +33,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 240
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_dryrun_multichip_cpu():
     """A world of 4 spawned CPU ranks on a (data 2, graph 2) mesh takes one
     full t@128 train step (forward through the partitioned graph convs,
@@ -171,8 +182,28 @@ def _test_cli(tmp_path, nproc: int, cfg: str, ckpt: str, *options):
         return pickle.load(f), json.load(g)
 
 
+@pytest.fixture(scope="module")
+def one_rank(trained, tmp_path_factory):
+    """The test CLI on 1 rank on the trained checkpoint: (scores,
+    metrics), shared by the tests that compare a 2-rank run with it."""
+    cfg, work, _ = trained
+    return _test_cli(tmp_path_factory.mktemp("one_rank"), 1, cfg,
+                     os.path.join(work, "checkpoints"))
+
+
+@pytest.fixture(scope="module")
+def data_ranks(trained, tmp_path_factory):
+    """The test CLI on 2 data ranks (``mesh.data=2``) on the trained
+    checkpoint: (scores, metrics), shared by the tests that read it."""
+    cfg, work, _ = trained
+    return _test_cli(tmp_path_factory.mktemp("data_ranks"), 2, cfg,
+                     os.path.join(work, "checkpoints"), "--cfg-options",
+                     "mesh.data=2")
+
+
 @pytest.mark.parametrize("mesh", ["mesh.data=2", "mesh.graph=2"])
-def test_test_cli_two_ranks_match_one(trained, tmp_path, mesh):
+def test_test_cli_two_ranks_match_one(trained, one_rank, request, tmp_path,
+                                      mesh):
     """The test CLI on 2 ranks (data 2: each scores its rows r::2; graph 2:
     the partitioned graph convs) against 1 rank on the same checkpoint,
     both launched alike (2 threads a rank): the scores in dataset order
@@ -181,9 +212,11 @@ def test_test_cli_two_ranks_match_one(trained, tmp_path, mesh):
     within 1e-4 (mAP points)."""
     cfg, work, _ = trained
     ckpt = os.path.join(work, "checkpoints")
-    one, metrics_one = _test_cli(tmp_path, 1, cfg, ckpt)
-    two, metrics_two = _test_cli(tmp_path, 2, cfg, ckpt, "--cfg-options",
-                                 mesh)
+    one, metrics_one = one_rank
+    two, metrics_two = (request.getfixturevalue("data_ranks")
+                        if mesh == "mesh.data=2"
+                        else _test_cli(tmp_path, 2, cfg, ckpt,
+                                       "--cfg-options", mesh))
     assert two.shape == one.shape == (8, 80)
     gap = float(np.abs(two - one).max())
     print(f"{mesh}: largest score gap {gap:.3e}")
@@ -192,7 +225,7 @@ def test_test_cli_two_ranks_match_one(trained, tmp_path, mesh):
 
 
 def test_test_cli_data_ranks_score_as_one_process_on_their_batches(
-        trained, tmp_path):
+        trained, data_ranks, tmp_path):
     """The test CLI on 2 data ranks scores each image bitwise as one
     process does that is fed the same batches: the annotation reordered
     so that one rank's batches of 2 are the data ranks' own (rank r's rows
@@ -208,8 +241,7 @@ def test_test_cli_data_ranks_score_as_one_process_on_their_batches(
     ranked = tmp_path / "ranked.data"
     with open(ranked, "wb") as f:
         pickle.dump([records[i] for i in order], f)
-    two, _ = _test_cli(tmp_path, 2, cfg, ckpt, "--cfg-options",
-                       "mesh.data=2")
+    two, _ = data_ranks
     one, _ = _test_cli(tmp_path, 1, cfg, ckpt, "--cfg-options",
                        f"data.test.ann_file={ranked}")
     back = np.empty_like(one)

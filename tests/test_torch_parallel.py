@@ -34,6 +34,17 @@ from gkgnet_tpu_torch.parallel.spawn import run_world
 WORLD_TIMEOUT_S = 240.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's CPU work on one thread: the suite runs several test files at
+    once on the host's cores, and beside them a run on every core's thread
+    spends most of its time waiting for the others."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _random_tree(shapes, rng):
     """Random fp32 leaves for a tree of ShapeDtypeStructs, scaled so that
     activations stay O(1) (as tests/test_torch_model.py makes them)."""
