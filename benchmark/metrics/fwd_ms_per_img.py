@@ -1,0 +1,15 @@
+"""``fwd_ms_per_img.<kind>``: device milliseconds per image, in the traced
+stretch, of the step's forward: the device operations between the
+program's ``forward`` span markers (the model call and, in eval and
+serving, the output transform; ``benchmark/spans.py``), over the
+stretch's images. Nothing where the program launches no markers."""
+
+from benchmark.spans import device_seconds
+
+
+def read(run, name):
+    st = run["stretch"]
+    if st is None or name.split(".")[1] != run["kind"] or not st.images:
+        return None
+    spent = device_seconds(st, "forward")
+    return None if spent is None else 1e3 * spent / st.images

@@ -1974,7 +1974,7 @@ def cli_phase(smi: str) -> tuple[dict, dict, dict]:
     phase 11's kernel rows)."""
     t = time.perf_counter()
     native.lib()  # before the loader's spawned workers load it
-    log(f"cli: native ops built in {native.build_seconds:.2f} s")
+    log(f"cli: native ops loaded: {profiling.table()['setup.native']}")
     with tempfile.TemporaryDirectory(prefix="gkgnet_cli_") as root:
         cli = _cli_phase(root, t, smi)
         served = serving_phase(root, cli, smi)
@@ -4384,11 +4384,12 @@ def main() -> int:
         list(pool.map(lambda load: load(), (knn_mr._lib, knn_mr._bwd_lib,
                                             knn_topk._lib)))
     for name in ("knn_mr", "knn_mr_bwd", "knn_topk"):
-        seconds, compiler_log = _build.build_info[name]
-        log(f"build: {name}.cu in {seconds:.1f} s")
-        print_ptxas_summary(compiler_log)
+        log(f"build: {name}.cu" + ("" if _build.compiler_log[name]
+                                   else " (already built)"))
+        print_ptxas_summary(_build.compiler_log[name])
     log(f"build: the three sources built and loaded in "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{time.perf_counter() - t:.1f} s; set-up table "
+        f"{profiling.table()['setup.kernels']}")
 
     # 3. kernels vs plain at every main-path shape
     rows = kernel_rows()

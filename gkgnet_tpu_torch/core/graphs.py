@@ -40,6 +40,13 @@ counts stay those of eager calls. ``StepGraphs.check_replay``, where set,
 runs each new graph's first replay and holds the kernels it launched to
 those counts (``chip_smoke.py`` profiles it).
 
+A capture launches the device spans' markers (``utils/profiling.py``
+``span``) as nodes of its graph, at most ``profiling.MAX_MARKERS``; a
+signature's first call and its capture are timed in the set-up table
+(``graph.warm``, ``graph.capture``, each to the host's return), and each
+call's host work is in the host ranges ``graph.check``, ``graph.copy_in``,
+``graph.replay`` and ``graph.copy_out`` while a profiler runs.
+
 ``capturable(compiled, device)`` decides: ``compiled=False`` runs
 eagerly; ``None`` captures a step of a CUDA model in a world of one rank
 and runs the rest eagerly (a CPU model, the tests' path; a step over a
@@ -56,6 +63,7 @@ import torch
 
 from gkgnet_tpu_torch.ops import knn_mr, knn_topk
 from gkgnet_tpu_torch.parallel.sharding import active_graph_cfg
+from gkgnet_tpu_torch.utils import profiling
 
 # the kernels' launch counters, (module, attribute)
 COUNTERS = tuple((mod, name) for mod in (knn_mr, knn_topk)
@@ -112,6 +120,7 @@ class _Captured(NamedTuple):
     outputs: object               # the graph's outputs (tensors in a pytree)
     live: tuple[int, ...]         # the state's addresses at capture
     counts: dict[str, int]        # the launch counts the capture added
+    markers: int                  # the span markers the graph holds
 
 
 def _clone(out):
@@ -154,25 +163,31 @@ class StepGraphs:
         up, then captured and replayed. ``live``: the persistent tensors
         the step reads or writes (parameters, buffers, optimizer state);
         ``generators``: the generators its draws come from."""
-        sig = (key,) + tuple((tuple(t.shape), t.dtype, t.device)
-                             for t in inputs)
-        ptrs = tuple(t.data_ptr() for t in live)
-        cap = self.graphs.get(sig)
-        if cap is not None and cap.live != ptrs:
-            del self.graphs[sig]  # the state's tensors moved: capture anew
-            cap = None
+        with profiling.host_span("graph.check"):
+            sig = (key,) + tuple((tuple(t.shape), t.dtype, t.device)
+                                 for t in inputs)
+            ptrs = tuple(t.data_ptr() for t in live)
+            cap = self.graphs.get(sig)
+            if cap is not None and cap.live != ptrs:
+                del self.graphs[sig]  # the state's tensors moved: capture anew
+                cap = None
         if cap is None:
             warm = (sig, threading.get_ident())
             if warm not in self.warmed:
                 self.warmed.add(warm)
-                return self._eager(inputs, body)
-            cap = self._capture(sig, inputs, body, ptrs, generators)
+                with profiling.timed("graph.warm"):
+                    return self._eager(inputs, body)
+            with profiling.timed("graph.capture"):
+                cap = self._capture(sig, inputs, body, ptrs, generators)
         else:
-            for buf, t in zip(cap.inputs, inputs):
-                buf.copy_(t)
-            cap.graph.replay()
-            _add_counts(cap.counts)
-        return _clone(cap.outputs)
+            with profiling.host_span("graph.copy_in"):
+                for buf, t in zip(cap.inputs, inputs):
+                    buf.copy_(t)
+            with profiling.host_span("graph.replay"):
+                cap.graph.replay()
+                _add_counts(cap.counts)
+        with profiling.host_span("graph.copy_out"):
+            return _clone(cap.outputs)
 
     def _eager(self, inputs, body):
         side, ambient = self._side_stream(), torch.cuda.current_stream()
@@ -189,7 +204,9 @@ class StepGraphs:
             graph.register_generator_state(gen)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        before = launch_counts()
+        if torch.cuda.is_available():
+            profiling.load_markers()
+        before, marked = launch_counts(), profiling.marker_launches
         try:
             with torch.cuda.graph(graph, pool=self.pool,
                                   stream=self._side_stream()):
@@ -204,7 +221,12 @@ class StepGraphs:
                 "on that stream)") from e
         after = launch_counts()
         counts = {k: after[k] - before[k] for k in after}
-        cap = _Captured(graph, static, outputs, ptrs, counts)
+        markers = profiling.marker_launches - marked
+        if markers > profiling.MAX_MARKERS:
+            raise RuntimeError(f"the captured step holds {markers} span "
+                               f"markers, more than "
+                               f"{profiling.MAX_MARKERS}")
+        cap = _Captured(graph, static, outputs, ptrs, counts, markers)
         self.graphs[sig] = cap
         self.captures += 1
         # the call's own step: the capture only recorded it

@@ -31,6 +31,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from gkgnet_tpu_torch.utils import profiling
 from gkgnet_tpu_torch.utils.weights import jax_leaf_names
 
 NO_DECAY_LEAVES = ("bias", "scale", "alpha")
@@ -268,6 +269,7 @@ class Optimizer:
         return self.apply()
 
 
+@profiling.timed("setup.optimizer")
 def build_optimizer(model: nn.Module,
                     learning_rate: float | Callable[[int], float],
                     optimizer: str = "adamw", weight_decay: float = 0.05,
@@ -276,7 +278,8 @@ def build_optimizer(model: nn.Module,
                     paramwise_no_decay: bool = True) -> Optimizer:
     """AdamW, LAMB (or SGD with momentum ``betas[0]``) over the model's
     parameters in two groups, decayed and not, with clipping at
-    ``grad_clip_norm``."""
+    ``grad_clip_norm``. Timed in the set-up table's ``setup.optimizer``
+    row (``utils/profiling.py``)."""
     mask = no_decay_mask(model) if paramwise_no_decay else {}
     decay, no_decay = [], []
     for name, p in model.named_parameters():

@@ -66,6 +66,7 @@ from gkgnet_tpu_torch.nn.grapher import _grouped_enabled
 from gkgnet_tpu_torch.nn.layers import BatchNorm
 from gkgnet_tpu_torch.parallel import collectives
 from gkgnet_tpu_torch.parallel.sharding import active_graph_cfg
+from gkgnet_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -218,38 +219,47 @@ def make_train_step(loss_fn: Callable | None = None,
             imgs, gt = batch_augment.fns[pick](imgs, gt, gen)
         cfg = active_graph_cfg()
         with _deterministic_convs(cfg is not None and cfg.mesh.graph > 1):
-            cls_score, _ = model(imgs, generator=gen)
-            head_loss = loss_fn or model.build_loss_head().loss
-            total, log_vars = parse_losses(head_loss(cls_score, gt))
-            if dynamic_loss_scale:
-                (total * state.loss_scale).backward()
-            else:
-                total.backward()
+            with profiling.span("forward"):
+                cls_score, _ = model(imgs, generator=gen)
+            with profiling.span("loss"):
+                head_loss = loss_fn or model.build_loss_head().loss
+                total, log_vars = parse_losses(head_loss(cls_score, gt))
+            with profiling.span("backward"):
+                if dynamic_loss_scale:
+                    (total * state.loss_scale).backward()
+                else:
+                    total.backward()
         if cfg is not None and cfg.mesh.data > 1:
             collectives.reduce_mean_(grads, cfg.mesh.data_group,
                                      cfg.mesh.data)
-        if dynamic_loss_scale:
-            torch._foreach_div_(grads, state.loss_scale)
-            finite = torch.isfinite(torch.stack(
-                torch._foreach_norm(grads, float("inf")))).all()
-            # non-finite: zero the gradients so the update stays finite,
-            # then keep the state from before the step (mmcv LossScaler)
-            for g in grads:
-                g.masked_fill_(~finite, 0.0)
-        grad_norm = state.optimizer.apply()
-        if dynamic_loss_scale:
-            with torch.no_grad():
-                for t, old in zip(kept, before):
-                    torch.where(finite, t, old, out=t)
-                scale, good = state.loss_scale, state.good_steps
-                grown = finite & (good + 1 >= scale_growth_interval)
-                scale.copy_(torch.where(
-                    finite, torch.where(grown, scale * 2.0, scale),
-                    torch.clamp(scale * 0.5, min=1.0)))
-                good.copy_(torch.where(finite & ~grown, good + 1, 0))
+        # the scaler's span holds the optimizer's: one span of markers
+        with (profiling.span("loss_scale") if dynamic_loss_scale
+              else contextlib.nullcontext()):
+            if dynamic_loss_scale:
+                torch._foreach_div_(grads, state.loss_scale)
+                finite = torch.isfinite(torch.stack(
+                    torch._foreach_norm(grads, float("inf")))).all()
+                # non-finite: zero the gradients so the update stays
+                # finite, then keep the state from before the step (mmcv
+                # LossScaler)
+                for g in grads:
+                    g.masked_fill_(~finite, 0.0)
+            with profiling.span("optimizer"):
+                grad_norm = state.optimizer.apply()
+            if dynamic_loss_scale:
+                with torch.no_grad():
+                    for t, old in zip(kept, before):
+                        torch.where(finite, t, old, out=t)
+                    scale, good = state.loss_scale, state.good_steps
+                    grown = finite & (good + 1 >= scale_growth_interval)
+                    scale.copy_(torch.where(
+                        finite, torch.where(grown, scale * 2.0, scale),
+                        torch.clamp(scale * 0.5, min=1.0)))
+                    good.copy_(torch.where(finite & ~grown, good + 1, 0))
 
         if m is not None:
-            ema_apply(state.ema_params, model, m)
+            with profiling.span("ema"):
+                ema_apply(state.ema_params, model, m)
 
         log_vars = {k: v.detach() for k, v in log_vars.items()}
         if cfg is not None and cfg.mesh.data > 1:
@@ -262,37 +272,45 @@ def make_train_step(loss_fn: Callable | None = None,
         return log_vars
 
     def train_step(state: TrainState, batch: dict, seed: int = 0):
-        model = state.model
-        params = list(model.parameters())
-        device = params[0].device
-        model.train()
-        for p in params:  # allocated once, zeroed in place by the step
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        # the host's part: the rates and the seed, before the step
-        state.optimizer.set_step(state.step)
-        m = None
-        if state.ema_params is not None and ema_momentum is not None:
-            if device not in ema_rates:
-                ema_rates[device] = torch.zeros((), dtype=torch.float32,
-                                                device=device)
-            m = ema_rates[device].fill_(ema_rate(state.step, ema_momentum,
-                                                 ema_warmup))
-        if device not in generators:
-            generators[device] = torch.Generator(device=device)
-        gen = generators[device].manual_seed(step_seed(seed, state.step))
-        pick = 0 if batch_augment is None else batch_augment.pick(gen)
-        inputs = [batch["img"], batch["gt_label"]]
-        if capturable(compiled, device):
-            log_vars = graphs(
-                (weakref.ref(model), pick, _grouped_enabled()), inputs,
-                lambda t: body(state, gen, pick, m, *t),
-                _state_tensors(state) + ([] if m is None else [m]), (gen,))
-        else:
-            log_vars = body(state, gen, pick, m, *inputs)
-        log_vars["lr"] = state.optimizer.lr(state.step)
-        state.step += 1
-        return state, log_vars
+        with profiling.host_span("train_step"):
+            with profiling.host_span("train_step.prepare"):
+                model = state.model
+                params = list(model.parameters())
+                device = params[0].device
+                model.train()
+                for p in params:  # allocated once, zeroed in place
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                # the host's part: the rates and the seed, before the step
+                state.optimizer.set_step(state.step)
+                m = None
+                if state.ema_params is not None \
+                        and ema_momentum is not None:
+                    if device not in ema_rates:
+                        ema_rates[device] = torch.zeros(
+                            (), dtype=torch.float32, device=device)
+                    m = ema_rates[device].fill_(ema_rate(
+                        state.step, ema_momentum, ema_warmup))
+                if device not in generators:
+                    generators[device] = torch.Generator(device=device)
+                gen = generators[device].manual_seed(
+                    step_seed(seed, state.step))
+                pick = 0 if batch_augment is None \
+                    else batch_augment.pick(gen)
+                inputs = [batch["img"], batch["gt_label"]]
+                compile_it = capturable(compiled, device)
+                if compile_it:
+                    live = _state_tensors(state) + ([] if m is None
+                                                    else [m])
+            if compile_it:
+                log_vars = graphs(
+                    (weakref.ref(model), pick, _grouped_enabled()), inputs,
+                    lambda t: body(state, gen, pick, m, *t), live, (gen,))
+            else:
+                log_vars = body(state, gen, pick, m, *inputs)
+            log_vars["lr"] = state.optimizer.lr(state.step)
+            state.step += 1
+            return state, log_vars
 
     train_step.graphs = graphs
     return train_step
@@ -324,9 +342,11 @@ def make_device_normalize(norm: tuple | None):
     def dev_norm(img: torch.Tensor) -> torch.Tensor:
         if img.dtype != torch.uint8:
             return img
-        m = torch.tensor(mean, dtype=torch.float32, device=img.device)
-        inv = 1.0 / torch.tensor(std, dtype=torch.float32, device=img.device)
-        return (img.float() - m) * inv
+        with profiling.host_span("input"):
+            m = torch.tensor(mean, dtype=torch.float32, device=img.device)
+            inv = 1.0 / torch.tensor(std, dtype=torch.float32,
+                                     device=img.device)
+            return (img.float() - m) * inv
 
     return dev_norm
 
@@ -349,31 +369,37 @@ def make_eval_step(use_ema: bool = False, compiled: bool | None = None,
 
     def forward(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
         model = state.model
-        if use_ema and state.ema_params is not None:
-            cls_score, _ = torch.func.functional_call(
-                model, state.ema_params, (imgs,))
-        else:
-            cls_score, _ = model(imgs)
-        return output(model, cls_score)
+        with profiling.span("forward"):
+            if use_ema and state.ema_params is not None:
+                cls_score, _ = torch.func.functional_call(
+                    model, state.ema_params, (imgs,))
+            else:
+                cls_score, _ = model(imgs)
+            return output(model, cls_score)
 
     @torch.no_grad()
     def eval_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
-        model = state.model
-        was_training = model.training
-        model.eval()
-        try:
-            device = next(model.parameters()).device
-            if not capturable(compiled, device):
-                return forward(state, imgs)
-            ema = use_ema and state.ema_params is not None
-            live = list(model.parameters()) + list(model.buffers())
-            if ema:
-                live += list(state.ema_params.values())
-            return graphs((weakref.ref(model), ema, _grouped_enabled()),
-                          [imgs],
-                          lambda t: forward(state, t[0]), live)
-        finally:
-            model.train(was_training)
+        with profiling.host_span("eval_step"):
+            model = state.model
+            was_training = model.training
+            try:
+                with profiling.host_span("eval_step.prepare"):
+                    model.eval()
+                    device = next(model.parameters()).device
+                    compile_it = capturable(compiled, device)
+                    if compile_it:
+                        ema = use_ema and state.ema_params is not None
+                        live = list(model.parameters()) \
+                            + list(model.buffers())
+                        if ema:
+                            live += list(state.ema_params.values())
+                if not compile_it:
+                    return forward(state, imgs)
+                return graphs((weakref.ref(model), ema, _grouped_enabled()),
+                              [imgs],
+                              lambda t: forward(state, t[0]), live)
+            finally:
+                model.train(was_training)
 
     eval_step.graphs = graphs
     return eval_step

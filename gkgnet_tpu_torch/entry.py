@@ -42,6 +42,7 @@ from gkgnet_tpu_torch.parallel import spawn
 from gkgnet_tpu_torch.parallel.mesh import (make_mesh, replicate_state,
                                             shard_batch)
 from gkgnet_tpu_torch.parallel.sharding import graph_sharding
+from gkgnet_tpu_torch.utils import profiling
 
 SIZE = 576
 N_CLASSES = 80
@@ -105,12 +106,15 @@ def predict(model: GKGNetClassifier, images: torch.Tensor,
     """NHWC images -> scores ``(B, n_classes)`` (the head's
     ``simple_test``) on the model's device, in eval mode. ``compiled`` as
     in ``entry()``: the model keeps one CUDA graph per request shape."""
-    device = next(model.parameters()).device
-    steps = _PREDICT_STEPS.setdefault(model, {})
-    if compiled not in steps:
-        steps[compiled] = make_eval_step(compiled=compiled,
-                                         output=_predicted)
-    return steps[compiled](TrainState(0, model, None), images.to(device))
+    with profiling.host_span("predict"):
+        device = next(model.parameters()).device
+        steps = _PREDICT_STEPS.setdefault(model, {})
+        if compiled not in steps:
+            steps[compiled] = make_eval_step(compiled=compiled,
+                                             output=_predicted)
+        with profiling.host_span("input"):
+            images = images.to(device)
+        return steps[compiled](TrainState(0, model, None), images)
 
 
 def train_entry(device: str | torch.device | None = None, batch: int = 8,

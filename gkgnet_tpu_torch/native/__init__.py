@@ -10,7 +10,9 @@ quiet numpy fallback. ``-ffp-contract=off`` keeps every result bitwise the
 numpy plain version beside its wrapper (``*_reference``), which the tests
 hold it to.
 
-Nothing is built when this module is imported.
+Nothing is built when this module is imported. The first ``lib()`` of a
+process is timed in the set-up table's ``setup.native`` row
+(``utils/profiling.py``), with its ``builds`` and ``cached`` counts.
 """
 
 from __future__ import annotations
@@ -20,11 +22,11 @@ import hashlib
 import os
 import subprocess
 import threading
-import time
 
 import numpy as np
 
 from gkgnet_tpu_torch.ops._build import BUILD_DIR
+from gkgnet_tpu_torch.utils import profiling
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fastops.cpp")
 # no -march=native: build/ may be copied to another machine, and the hash
@@ -35,9 +37,6 @@ CXX_TIMEOUT_S = 300
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# seconds the build took in this process, 0.0 when the library was already
-# built; None until the library is loaded
-build_seconds: float | None = None
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F32P = ctypes.POINTER(ctypes.c_float)
@@ -81,20 +80,21 @@ def _compile(out: str) -> None:
 def lib() -> ctypes.CDLL:
     """The built library, building it first if its source or flags
     changed."""
-    global _lib, build_seconds
+    global _lib
     with _lock:
         if _lib is None:
-            path = _lib_path()
-            t0 = time.perf_counter()
-            if not os.path.exists(path):
-                _compile(path)
-            seconds = time.perf_counter() - t0
-            loaded = ctypes.CDLL(path)
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.argtypes = argtypes
-                fn.restype = None
-            _lib, build_seconds = loaded, seconds
+            with profiling.timed("setup.native"):
+                path = _lib_path()
+                cached = os.path.exists(path)
+                if not cached:
+                    _compile(path)
+                loaded = ctypes.CDLL(path)
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(loaded, name)
+                    fn.argtypes = argtypes
+                    fn.restype = None
+            profiling.tally("setup.native", "cached" if cached else "builds")
+            _lib = loaded
     return _lib
 
 

@@ -10,7 +10,8 @@ the maps of the stages in the neck's ``out_indices`` (else the
 classifier's), the neck's last output is averaged over its spatial or class
 axis, and a linear multi-label head scores it. ``init_parameters`` fills
 the weights from a seeded ``torch.Generator`` with the JAX package's
-initializer families.
+initializer families. Each build is timed in the set-up table's
+``setup.model`` row (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ from gkgnet_tpu_torch.nn.gkgnet import ARCH_SETTINGS, GKGNet
 from gkgnet_tpu_torch.nn.heads import LabelQueryHead, MultiLabelLinearClsHead
 from gkgnet_tpu_torch.nn.necks import (MultiLabelProjection, NHWCConv,
                                        build_neck, neck_out_channels)
+from gkgnet_tpu_torch.utils import profiling
 from gkgnet_tpu_torch.utils.weights import init_block_parameters
 
 
 class GKGNetClassifier(nn.Module):
 
+    @profiling.timed("setup.model")
     def __init__(self, arch: str = "s", k: int = 9, k_label_gcn: int = 9,
                  num_group: int = 2, n_classes: int = 80, size: int = 576,
                  num_gcn: int = 1, drop_path: float = 0.0,

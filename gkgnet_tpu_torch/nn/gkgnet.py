@@ -21,6 +21,11 @@ stage 4 builds its graph on all 1024 channels). ``out_indices`` and
 ``graph_builder`` picks the hard kNN or the perturbed soft build;
 ``knn_budget`` bounds the plain graph build's distance block (a spatial
 stage whose N x M exceeds it tiles its query rows, ``_divisor_chunk``).
+
+``forward`` runs in the device spans (``utils/profiling.py``) ``stem``,
+``stage<i>`` (the downsample and the stage's Grapher/FFN blocks),
+``label<i>`` (the stage's label GCN taps and the label projection) and
+``head`` (the pooled feature), i = 1..4.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from torch import nn
 from gkgnet_tpu_torch.nn.grapher import Grapher, GrapherLabel
 from gkgnet_tpu_torch.nn.layers import FFN, Downsample, Stem
 from gkgnet_tpu_torch.ops.pos_embed import get_relative_pos_table
+from gkgnet_tpu_torch.utils import profiling
 
 ARCH_SETTINGS = {
     "t": dict(conv="mr", act="gelu", norm="batch", bias=True,
@@ -104,15 +110,15 @@ class GKGNet(nn.Module):
         self.backbone = nn.ModuleList()
         self.gcn_label = nn.ModuleList()
         self.ffn_label = nn.ModuleList()
-        # per flat backbone entry: (stage, is a Grapher/FFN pair, ends stage)
-        self._plan: list[tuple[int, bool, bool]] = []
+        # per stage: the range of its entries in ``backbone``
+        self._stages: list[range] = []
         grapher_idx = 0
         stage_n = hw * hw
         for i in range(len(blocks)):
+            first = len(self.backbone)
             if i > 0:
                 self.backbone.append(Downsample(channels[i - 1], channels[i],
                                                 dtype))
-                self._plan.append((i, False, False))
                 stage_n //= 4
             r_i = REDUCE_RATIOS[i]
             chunk = _divisor_chunk(stage_n, stage_n // (r_i * r_i),
@@ -133,8 +139,8 @@ class GKGNet(nn.Module):
                             num_group=num_group, graph_builder=graph_builder,
                             dtype=dtype, knn_chunk=chunk),
                     FFN(channels[i], channels[i] * 4, act, rate, dtype)))
-                self._plan.append((i, True, j == blocks[i] - 1))
                 grapher_idx += 1
+            self._stages.append(range(first, len(self.backbone)))
             n_label_gcn = num_gcn if i == len(blocks) - 1 else 1
             label_rate = float(dpr[sum(blocks[:i])])
             self.gcn_label.append(nn.ModuleList(
@@ -152,21 +158,25 @@ class GKGNet(nn.Module):
                 generator: torch.Generator | None = None):
         """``generator`` feeds the DropPath draws in train mode."""
         b = x.shape[0]
-        label_emb = self.label_lt.weight.to(self.dtype)[None].expand(
-            b, self.n_classes, -1)
-        x = self.stem(x)
-        x = x + self.pos_embed.permute(0, 2, 3, 1).to(self.dtype)
+        with profiling.span("stem"):
+            label_emb = self.label_lt.weight.to(self.dtype)[None].expand(
+                b, self.n_classes, -1)
+            x = self.stem(x)
+            x = x + self.pos_embed.permute(0, 2, 3, 1).to(self.dtype)
         edge_index = None
         stage_feats = []
-        for module, (stage, is_block, ends_stage) in zip(self.backbone,
-                                                         self._plan):
-            if not is_block:
-                x = module(x)
-                continue
-            grapher, ffn = module
-            x = grapher(x, getattr(self, f"rel_pos_stage{stage}"), generator)
-            x = ffn(x, generator)
-            if ends_stage:
+        for stage, entries in enumerate(self._stages):
+            with profiling.span(f"stage{stage + 1}"):
+                for j in entries:
+                    module = self.backbone[j]
+                    if isinstance(module, Downsample):
+                        x = module(x)
+                        continue
+                    grapher, ffn = module
+                    x = grapher(x, getattr(self, f"rel_pos_stage{stage}"),
+                                generator)
+                    x = ffn(x, generator)
+            with profiling.span(f"label{stage + 1}"):
                 for gcn in self.gcn_label[stage]:
                     label_emb, edge_index = gcn(label_emb, x, generator)
                 if stage < len(self.ffn_label):
@@ -174,10 +184,10 @@ class GKGNet(nn.Module):
                     label_emb = torch.nn.functional.linear(
                         label_emb, lin.weight.to(self.dtype),
                         lin.bias.to(self.dtype))
-                if stage in self.out_indices:
-                    stage_feats.append(x)
-        gap = x.float().mean(dim=(1, 2))
+            if stage in self.out_indices:
+                stage_feats.append(x)
+        with profiling.span("head"):
+            gap = x.float().mean(dim=(1, 2)).to(self.dtype)
         if self.return_stage_feats:
-            return (label_emb, gap.to(self.dtype), edge_index,
-                    tuple(stage_feats))
-        return label_emb, gap.to(self.dtype), edge_index
+            return label_emb, gap, edge_index, tuple(stage_feats)
+        return label_emb, gap, edge_index

@@ -10,7 +10,9 @@ interrupted build leaves nothing that a later run would load. No PyTorch
 headers are compiled and nothing waits on a lock.
 
 Nothing is built when this module is imported: ``load`` builds on first
-use, on the machine with the card.
+use, on the machine with the card. Each first ``load`` of a name in a
+process is timed in the set-up table's ``setup.kernels`` row
+(``utils/profiling.py``), with its ``builds`` and ``cached`` counts.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import os
 import re
 import shutil
 import subprocess
-import time
+
+from gkgnet_tpu_torch.utils import profiling
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -32,9 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_TIMEOUT_S = 600
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# name -> (seconds the build took, 0.0 when the library was already built;
-#          the compiler's output, which holds the -Xptxas -v summary)
-build_info: dict[str, tuple[float, str]] = {}
+# name -> the compiler's output, which holds the -Xptxas -v summary ("" when
+# the library was already built)
+compiler_log: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -81,12 +84,11 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def _compile(name: str, out: str) -> tuple[float, str]:
+def _compile(name: str, out: str) -> str:
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=NVCC_TIMEOUT_S)
@@ -100,7 +102,7 @@ def _compile(name: str, out: str) -> tuple[float, str]:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
-    return time.perf_counter() - t0, log
+    return log
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -108,11 +110,11 @@ def load(name: str) -> ctypes.CDLL:
     source changed since the last build."""
     lib = _loaded.get(name)
     if lib is None:
-        path = _lib_path(name)
-        if os.path.exists(path):
-            build_info[name] = (0.0, "")
-        else:
-            build_info[name] = _compile(name, path)
-        lib = ctypes.CDLL(path)
+        with profiling.timed("setup.kernels"):
+            path = _lib_path(name)
+            cached = os.path.exists(path)
+            compiler_log[name] = "" if cached else _compile(name, path)
+            lib = ctypes.CDLL(path)
+        profiling.tally("setup.kernels", "cached" if cached else "builds")
         _loaded[name] = lib
     return lib

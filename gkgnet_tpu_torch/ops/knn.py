@@ -24,6 +24,7 @@ tensors and the plain version for CPU tensors.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from gkgnet_tpu_torch.ops import knn_topk
 
@@ -131,6 +132,22 @@ def _(x, y, k, bias, query_chunk=None):
 def _(x, y, k, bias, query_chunk=None):
     knn_topk.check_inputs(x, y, bias, k)
     return x.new_empty((x.shape[0], x.shape[1], k), dtype=torch.int32)
+
+
+def distance_flops(x_shape, y_shape) -> int:
+    """The FLOP formula of the port's kernel operators for
+    ``torch.utils.flop_counter.FlopCounterMode``: the distance product,
+    2 * rows * N * M * D for x (rows, N, D) and y (rows, M, D); the grouped
+    rows (B, N, g*D) give 2 * B * N * M * g*D, the same count. The
+    selection, the gather and the max-relative are not counted, as the
+    analytic count (``utils.profiling.model_flops``) does not count them."""
+    rows, n, d = x_shape
+    return 2 * rows * n * y_shape[1] * d
+
+
+@register_flop_formula(torch.ops.gkgnet_tpu_torch.knn_topk)
+def _knn_topk_flops(x_shape, y_shape, *args, out_shape=None, **kwargs) -> int:
+    return distance_flops(x_shape, y_shape)
 
 
 def dilate_edges(idx: torch.Tensor, *, dilation: int,

@@ -51,7 +51,9 @@ launches the same file's ``gather_backward``, the backward of
 ``aggregate.gather_nodes`` on the card. ``launches``, ``grouped_launches``,
 ``backward_launches``, ``normalize_launches`` and
 ``gather_backward_launches`` count the kernels' launches (one backward
-launch per call, folded or grouped).
+launch per call, folded or grouped). The operators' backward runs in the
+host range ``gkgnet.knn_mr.bwd`` while a profiler runs, and their FLOP
+formula for ``FlopCounterMode`` is ``knn.distance_flops``.
 """
 
 from __future__ import annotations
@@ -61,14 +63,16 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from gkgnet_tpu_torch.ops import _build
 from gkgnet_tpu_torch.ops.aggregate import (
     _flat_targets, check_gather_backward, fold_groups,
     gather_backward_ordered_reference, gather_backward_reference,
     gather_nodes, max_relative, unfold_groups)
-from gkgnet_tpu_torch.ops.knn import (dilate_edges, knn_topk_reference,
-                                      l2_normalize)
+from gkgnet_tpu_torch.ops.knn import (dilate_edges, distance_flops,
+                                      knn_topk_reference, l2_normalize)
+from gkgnet_tpu_torch.utils import profiling
 
 # Kernel launches since the last reset; each wrapper adds one per launch.
 launches = 0
@@ -671,11 +675,12 @@ def _save_rows(ctx, inputs, output) -> None:
 def _knn_mr_backward(ctx, _, g):
     """No gradient for the graph build, the bias, k or the dilation."""
     x, y, idx = ctx.saved_tensors
-    g = g.contiguous()
-    if x.device.type == "cpu":
-        gx, gy = knn_mr_backward_reference(x, y, idx, g)
-    else:
-        gx, gy = launch_backward(x, y, idx, g)
+    with profiling.host_span("knn_mr.bwd"):
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            gx, gy = knn_mr_backward_reference(x, y, idx, g)
+        else:
+            gx, gy = launch_backward(x, y, idx, g)
     return gx, gy, None, None, None
 
 
@@ -718,11 +723,13 @@ def _knn_mr_grouped_backward(ctx, _, g):
     tensors, the plain version for CPU tensors): no fold or unfold copy,
     the values of ``_bwd_grouped``'s fold -> folded backward -> unfold."""
     x, y, idx = ctx.saved_tensors
-    g = g.contiguous()
-    if x.device.type == "cpu":
-        gx, gy = knn_mr_grouped_backward_reference(x, y, idx, g, ctx.groups)
-    else:
-        gx, gy = launch_backward_grouped(x, y, idx, g, ctx.groups)
+    with profiling.host_span("knn_mr.bwd"):
+        g = g.contiguous()
+        if x.device.type == "cpu":
+            gx, gy = knn_mr_grouped_backward_reference(x, y, idx, g,
+                                                       ctx.groups)
+        else:
+            gx, gy = launch_backward_grouped(x, y, idx, g, ctx.groups)
     return gx, gy, None, None, None, None
 
 
@@ -818,3 +825,14 @@ def backward_gy_bound(ge: torch.Tensor, idx: torch.Tensor, m: int
             mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 0.0)
         bound = bound * (1.0 + 2.0 ** -7) + spacing
     return exact.reshape(bg, m, d), bound.reshape(bg, m, d)
+
+
+@register_flop_formula(torch.ops.gkgnet_tpu_torch.knn_mr_fused)
+def _knn_mr_flops(x_shape, y_shape, *args, out_shape=None, **kwargs) -> int:
+    return distance_flops(x_shape, y_shape)
+
+
+@register_flop_formula(torch.ops.gkgnet_tpu_torch.knn_mr_fused_grouped)
+def _knn_mr_grouped_flops(x_shape, y_shape, *args, out_shape=None,
+                          **kwargs) -> int:
+    return distance_flops(x_shape, y_shape)

@@ -5,7 +5,8 @@ component) and the parameter count need no card. ``--verify`` counts the
 FLOPs that one forward at batch 1 executes, with
 ``torch.utils.flop_counter.FlopCounterMode`` (the port's stand-in for XLA's
 cost analysis; the kernels' operators count their distance products, see
-``utils/profiling.py``), on the card unless ``--device cpu`` is given.
+``ops/knn.py`` ``distance_flops``), on the card unless ``--device cpu`` is
+given.
 
     python -m gkgnet_tpu_torch.tools.analysis_tools.get_flops [CONFIG] \\
         [--shape 576 576] [--arch s] [--verify] [--device cpu]

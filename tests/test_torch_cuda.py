@@ -23,7 +23,7 @@ from chip_smoke import (GATHER_KERNELS, check_topk, folded_route,  # noqa: E402
                         topk_fixture)
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
-                                           make_train_step)
+                                           make_eval_step, make_train_step)
 from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier, init_parameters  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
 from gkgnet_tpu_torch.ops import aggregate, knn_mr, knn_topk  # noqa: E402
@@ -1554,8 +1554,6 @@ def test_compiled_steps_match_eager_bitwise(cuda, dtype):
     shape (batch 1, its own capture). cuDNN's deterministic algorithms on
     for both paths: its default fp32 convolution backward sums in an
     order that changes from run to run on an H100, eager against eager."""
-    from gkgnet_tpu_torch.core.trainer import make_eval_step
-
     gen = torch.Generator().manual_seed(3)
     img = torch.randn((2, 128, 128, 3), generator=gen).to(cuda, dtype)
     gt = (torch.rand((2, 10), generator=gen) < 0.3).float().to(cuda)
@@ -1623,3 +1621,93 @@ def test_compiled_true_on_a_collective_step_raises(cuda):
             make_train_step(compiled=True)(state, batch)
     assert state.step == 0
     assert graphs.capturable(None, cuda)
+
+
+# ------------------------------------------------- span markers in graphs
+
+
+def _small_state(cuda, lr=1e-4):
+    model = GKGNetClassifier(arch="t", k=3, k_label_gcn=3, n_classes=10,
+                             size=128)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda)
+    return create_train_state(model, build_optimizer(model, lr))
+
+
+MODEL_SPANS = ("stem", "stage1", "label1", "stage2", "label2", "stage3",
+               "label3", "stage4", "label4", "head")
+
+
+def test_graph_replay_runs_each_marker_pair_in_order(cuda):
+    """A captured eval graph holds its 22 span markers (at most
+    MAX_MARKERS) and each replay runs every begin and end marker once, in
+    stream order: ``forward`` around the model's ten spans, each span's
+    kernels between its markers. The train graph holds 28."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gkgnet_tpu_torch.utils import profiling
+
+    state = _small_state(cuda)
+    img = torch.randn((2, 128, 128, 3), device=cuda)
+    step = make_eval_step()
+    for _ in range(3):   # eager, capture, replay
+        step(state, img)
+    (cap,) = step.graphs.graphs.values()
+    assert cap.markers == 22 <= profiling.MAX_MARKERS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(state, img)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [e.name for e in events if e.name.startswith("gkgnet_span_")]
+    one = ["gkgnet_span_begin_forward"] + [
+        f"gkgnet_span_{side}_{n}" for n in MODEL_SPANS
+        for side in ("begin", "end")] + ["gkgnet_span_end_forward"]
+    assert marks == one * 2
+    # every span holds device work between its markers
+    inside = {}
+    current = None
+    for e in events:
+        if e.name.startswith("gkgnet_span_begin_") and \
+                e.name != "gkgnet_span_begin_forward":
+            current = e.name[len("gkgnet_span_begin_"):]
+        elif e.name.startswith("gkgnet_span_end_"):
+            current = None
+        elif current is not None:
+            inside[current] = inside.get(current, 0) + 1
+    assert set(inside) == set(MODEL_SPANS)
+    gt = (torch.rand((2, 10), device=cuda) < 0.3).float()
+    train = make_train_step()
+    for _ in range(2):
+        train(state, {"img": img, "gt_label": gt})
+    (cap,) = train.graphs.graphs.values()
+    assert cap.markers == 28 <= profiling.MAX_MARKERS
+
+
+def test_markers_leave_the_graphed_outputs_bitwise(cuda, monkeypatch):
+    """The graphed eval logits and the graphed train steps' losses are
+    bitwise those of graphs captured without markers (learning rate 0,
+    so every step's loss depends on the forward alone)."""
+    from gkgnet_tpu_torch.utils import profiling
+
+    img = torch.randn((2, 128, 128, 3), device=cuda)
+    gt = (torch.rand((2, 10), device=cuda) < 0.3).float()
+    runs = []
+    for markers in (True, False):
+        if not markers:   # a capture that launches no marker
+            monkeypatch.setattr(profiling, "_capturing", lambda: False)
+        state = _small_state(cuda, lr=0.0)
+        train = make_train_step()
+        losses = [train(state, {"img": img, "gt_label": gt})[1]["loss"]
+                  for _ in range(3)]
+        step = make_eval_step()
+        scores = [step(state, img) for _ in range(3)]
+        (cap,) = step.graphs.graphs.values()
+        assert cap.markers == (22 if markers else 0)
+        torch.cuda.synchronize()
+        runs.append((losses, scores))
+    for got, want in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(got, want)

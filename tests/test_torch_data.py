@@ -35,6 +35,7 @@ from gkgnet_tpu_torch.core import schedules as tschedules
 from gkgnet_tpu_torch.data import loader as tloader
 from gkgnet_tpu_torch.data import pipelines as tpipelines
 from gkgnet_tpu_torch.utils import logging as tlogging
+from gkgnet_tpu_torch.utils import profiling
 from gkgnet_tpu_torch.utils import tensorboard as ttensorboard
 from gkgnet_tpu_torch.utils.weights import load_jax_variables
 
@@ -130,9 +131,18 @@ def test_native_op_bitwise_plain_and_jax(op):
         assert_same(got, getattr(jnative, op)(*args, **kw), op)
 
 
-def test_native_build_is_cached_and_rejects_bad_input():
+def test_native_build_is_cached_and_rejects_bad_input(monkeypatch):
+    """The first ``lib()`` of a process builds or loads the library and is
+    timed in the set-up table's ``setup.native`` row; later calls return
+    it as it is and time nothing."""
+    tnative.lib()
+    monkeypatch.setattr(tnative, "_lib", None)   # a fresh process's state
+    before = profiling.table().get("setup.native", {"count": 0})["count"]
     lib = tnative.lib()
-    assert tnative.lib() is lib and tnative.build_seconds is not None
+    assert tnative.lib() is lib
+    row = profiling.table()["setup.native"]
+    assert row["count"] == before + 1 and row["total_s"] > 0
+    assert row.get("builds", 0) + row.get("cached", 0) >= 1
     assert os.path.basename(tnative._lib_path()).startswith("fastops-")
     with pytest.raises(ValueError):
         tnative.normalize_u8(np.zeros((4, 4, 3), np.float32), MEAN, STD)
