@@ -271,7 +271,10 @@ Phases (each prints its elapsed seconds):
      the GKGNET_GROUPED=1 route's eval (batch 8) and step (batch 2), and
      t@576's eval and step from its config, bitwise, t@576 timed both
      ways; (e) a short last batch (5 of 8) takes a second capture, its
-     logits bitwise the eager ones. Phases 4, 5, the CLIs (9-11) and
+     logits bitwise the eager ones; (a) and (e) also read the eval
+     step's kept state (``prepared``: one rebuild, a hit for each replay)
+     and a uint8 batch through make_device_normalize (its constants
+     built once, its output bitwise made-anew constants'). Phases 4, 5, the CLIs (9-11) and
      phase 12's timed turns run the compiled steps; the phases that record
      or time single kernel calls ask for eager calls (compiled=False).
      In every phase, each CUDA graph's first replay is profiled and the
@@ -320,6 +323,7 @@ from gkgnet_tpu_torch.core.export import (  # noqa: E402
 from gkgnet_tpu_torch.core.hooks import precise_bn  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (TrainState,  # noqa: E402
                                            create_train_state,
+                                           make_device_normalize,
                                            make_eval_step, make_train_step)
 from gkgnet_tpu_torch.data.coco import COCO_CLASSES  # noqa: E402
 from gkgnet_tpu_torch.data.loader import (build_dataloader,  # noqa: E402
@@ -4171,6 +4175,25 @@ def compiled_phase(smi: str) -> dict:
     fn(model, x)
     torch.cuda.synchronize()
     check_counts("compiled (a): one replay", (16, 0, 0, 0), Counter())
+    prepared = (fn.prepared.rebuilds, fn.prepared.hits)
+    check(prepared == (1, 2), f"compiled (a): the eval step's kept state "
+          f"after 4 calls: (rebuilds, hits) {prepared}, not (1, 2)")
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    norm = make_device_normalize((mean, std))
+    u8 = torch.randint(0, 256, x.shape, dtype=torch.uint8, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(15))
+    normed = [norm(u8) for _ in range(3)]
+    anew = (u8.float() - torch.tensor(mean, device="cuda")) \
+        * (1.0 / torch.tensor(std, device="cuda"))
+    check(norm.builds == 1 and all(same_bits(n, anew) for n in normed),
+          f"compiled (a): make_device_normalize built its constants "
+          f"{norm.builds} times; bitwise made-anew constants': "
+          f"{[same_bits(n, anew) for n in normed]}")
+    log(f"compiled (a): eval_step.prepared after a warm-up, a capture and "
+        f"2 replays: {prepared[0]} rebuild, {prepared[1]} hits; the device "
+        f"normalize built its constants {norm.builds} time over 3 uint8 "
+        f"batches, its output bitwise made-anew constants'")
+    del norm, u8, normed, anew
     turns = graph_turns({"eager": lambda: plain(st, x),
                          "graphed": lambda: fn(model, x)},
                         event_timer(), fn.graphs)
@@ -4189,6 +4212,7 @@ def compiled_phase(smi: str) -> dict:
     # (e) a short last batch: its own warm-up and capture, in the same pool
     x5 = x[:5].contiguous()
     want5 = plain(st, x5)
+    hits = fn.prepared.hits
     got5 = [fn(model, x5) for _ in range(3)]
     again = fn(model, x)
     torch.cuda.synchronize()
@@ -4198,9 +4222,14 @@ def compiled_phase(smi: str) -> dict:
           f"compiled (e): {fn.graphs.captures} captures; batch-5 logits "
           f"bitwise: {[same_bits(g, want5) for g in got5]}; batch 8 after: "
           f"{same_bits(again, want)}")
+    hits = fn.prepared.hits - hits
+    check(fn.prepared.rebuilds == 1 and hits == 2,
+          f"compiled (e): the eval step's kept state over (e)'s 4 calls: "
+          f"{fn.prepared.rebuilds} rebuilds in all, {hits} hits, not 1 and 2")
     log("compiled (e): a short last batch (5 of 8) warmed up and captured "
         "its own graph in the same pool, its logits bitwise the eager "
-        "ones, and batch 8's graph still gives its bits")
+        "ones, and batch 8's graph still gives its bits; its 2 replays "
+        "were the eval step's kept state's hits, with no rebuild")
     del fn, model, x, st, want, got, x5, want5, got5, again
     torch.cuda.empty_cache()
 

@@ -33,6 +33,15 @@ anew when they moved (a load that replaced a tensor). Random draws come
 from the generators the caller registers: re-seeded on the host before a
 replay, a registered generator gives the draws an eager call would.
 
+``ModelTensors`` gives a model's parameters and buffers without a walk of
+its modules on every call (``list(model.parameters())`` over GKGNet-S's
+421 modules takes 1-2 ms of host time): it keeps the dictionaries its
+modules hold them in and reads them on each call, so a tensor replaced,
+added or removed in a module shows at once; it walks the modules again
+after any module, parameter or buffer is registered in the process
+(PyTorch's global registration hooks count them) or a module is taken out
+of its parent.
+
 The kernels' launch counters (``knn_mr.launches`` and the rest, which
 each ops module lists in its ``COUNTERS``) are Python integers that a
 capture advances once; each replay adds what its capture counted, so the
@@ -57,9 +66,11 @@ raises where it cannot capture. A capture that fails raises.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
+from torch.nn.modules import module as _module
 
 from gkgnet_tpu_torch.ops import knn_mr, knn_topk
 from gkgnet_tpu_torch.parallel.sharding import active_graph_cfg
@@ -114,6 +125,63 @@ def capturable(compiled: bool | None, device: torch.device) -> bool:
     return False
 
 
+# registrations of a module, parameter or buffer in any module of the
+# process (an assignment to an attribute of that kind included)
+_registrations = 0
+
+
+def _registered(module, name, value) -> None:
+    global _registrations
+    _registrations += 1
+
+
+for _hook in (_module.register_module_module_registration_hook,
+              _module.register_module_parameter_registration_hook,
+              _module.register_module_buffer_registration_hook):
+    _hook(_registered)
+
+
+class _Layout(NamedTuple):
+    registrations: int            # the count when the modules were walked
+    tensors: list[dict]           # the modules' non-empty tensor dicts
+    children: list[dict]          # the modules' non-empty child dicts
+    n_children: int               # their entries when walked
+
+
+class ModelTensors:
+    """Called with a model: its parameters and buffers, read from its
+    modules' dictionaries, which are kept between calls (see the module's
+    docstring). ``rebuilds`` counts the walks; ``hits`` is the
+    caller's count of the calls the kept state served. No model is kept
+    alive: the dictionaries hold its submodules and tensors, not itself."""
+
+    def __init__(self):
+        self._layouts: weakref.WeakKeyDictionary = \
+            weakref.WeakKeyDictionary()
+        self.rebuilds = 0
+        self.hits = 0
+
+    def __call__(self, model: torch.nn.Module
+                 ) -> tuple[list[torch.Tensor], bool]:
+        """``(tensors, kept)``: ``kept`` is False when this call walked
+        the modules."""
+        lay = self._layouts.get(model)
+        kept = lay is not None and lay.registrations == _registrations \
+            and sum(map(len, lay.children)) == lay.n_children
+        if not kept:
+            registrations = _registrations  # before the walk: a
+            mods = list(model.modules())    # registration during it counts
+            children = [m._modules for m in mods if m._modules]
+            lay = _Layout(registrations,
+                          [d for m in mods for d in (m._parameters,
+                                                     m._buffers) if d],
+                          children, sum(map(len, children)))
+            self._layouts[model] = lay
+            self.rebuilds += 1
+        return [t for d in lay.tensors for t in d.values()
+                if t is not None], kept
+
+
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: list[torch.Tensor]    # the static input buffers
@@ -121,6 +189,12 @@ class _Captured(NamedTuple):
     live: tuple[int, ...]         # the state's addresses at capture
     counts: dict[str, int]        # the launch counts the capture added
     markers: int                  # the span markers the graph holds
+
+
+class Found(NamedTuple):
+    sig: tuple
+    ptrs: tuple[int, ...]
+    cap: _Captured | None
 
 
 def _clone(out):
@@ -163,6 +237,14 @@ class StepGraphs:
         up, then captured and replayed. ``live``: the persistent tensors
         the step reads or writes (parameters, buffers, optimizer state);
         ``generators``: the generators its draws come from."""
+        return self.run(self.find(key, inputs, live), inputs, body,
+                        generators)
+
+    def find(self, key, inputs: list[torch.Tensor],
+             live: list[torch.Tensor]) -> Found:
+        """The call's signature, the state's addresses and the graph that
+        replays the call: None where the signature has none yet or the
+        state's tensors moved since its capture (it is then dropped)."""
         with profiling.host_span("graph.check"):
             sig = (key,) + tuple((tuple(t.shape), t.dtype, t.device)
                                  for t in inputs)
@@ -171,6 +253,13 @@ class StepGraphs:
             if cap is not None and cap.live != ptrs:
                 del self.graphs[sig]  # the state's tensors moved: capture anew
                 cap = None
+        return Found(sig, ptrs, cap)
+
+    def run(self, found: Found, inputs: list[torch.Tensor],
+            body: Callable[[list[torch.Tensor]], object],
+            generators: tuple[torch.Generator, ...] = ()):
+        """``__call__`` after its ``find``."""
+        sig, ptrs, cap = found
         if cap is None:
             warm = (sig, threading.get_ident())
             if warm not in self.warmed:

@@ -59,7 +59,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from gkgnet_tpu_torch.core.graphs import StepGraphs, capturable
+from gkgnet_tpu_torch.core.graphs import (ModelTensors, StepGraphs,
+                                          capturable)
 from gkgnet_tpu_torch.core.optim import Optimizer
 from gkgnet_tpu_torch.nn.classifier import parse_losses
 from gkgnet_tpu_torch.nn.grapher import _grouped_enabled
@@ -334,20 +335,29 @@ def make_device_normalize(norm: tuple | None):
     what the JAX package computes: XLA turns its ``/ std`` by a constant
     into that product, and its host ``Normalize`` does the same, so both
     paths give the same bits. It runs eagerly (two ops), before a compiled
-    step copies the batch into its graph's input."""
+    step copies the batch into its graph's input. ``mean`` and ``1 / std``
+    are made on a device at its first batch and kept (``builds`` counts
+    them): made anew, each host-to-device copy from pageable memory would
+    wait for the card on every batch."""
     if norm is None:
         return lambda img: img
     mean, std = norm
+    consts: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
     def dev_norm(img: torch.Tensor) -> torch.Tensor:
         if img.dtype != torch.uint8:
             return img
         with profiling.host_span("input"):
-            m = torch.tensor(mean, dtype=torch.float32, device=img.device)
-            inv = 1.0 / torch.tensor(std, dtype=torch.float32,
-                                     device=img.device)
+            if img.device not in consts:
+                consts[img.device] = (
+                    torch.tensor(mean, dtype=torch.float32, device=img.device),
+                    1.0 / torch.tensor(std, dtype=torch.float32,
+                                       device=img.device))
+                dev_norm.builds += 1
+            m, inv = consts[img.device]
             return (img.float() - m) * inv
 
+    dev_norm.builds = 0
     return dev_norm
 
 
@@ -364,42 +374,52 @@ def make_eval_step(use_ema: bool = False, compiled: bool | None = None,
     statistics. ``compiled`` as in ``make_train_step``: on a CUDA model in
     a world of one rank, one CUDA graph per input shape and dtype (and
     model, EMA choice and ``GKGNET_GROUPED`` route), captured at the
-    second call of each."""
+    second call of each.
+
+    The forward runs in eval mode and leaves the model in the mode it
+    found. A replay runs no forward, so it sets no mode: its graph was
+    captured in eval mode. Nor does it walk the model's modules for the
+    state the graph reads: ``eval_step.prepared`` (``core.graphs``
+    ``ModelTensors``) keeps it, and counts in ``hits`` the replays it
+    served unwalked and in ``rebuilds`` its walks."""
     graphs = StepGraphs()
+    prepared = ModelTensors()
 
     def forward(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
         model = state.model
-        with profiling.span("forward"):
-            if use_ema and state.ema_params is not None:
-                cls_score, _ = torch.func.functional_call(
-                    model, state.ema_params, (imgs,))
-            else:
-                cls_score, _ = model(imgs)
-            return output(model, cls_score)
+        was_training = model.training
+        model.eval()
+        try:
+            with profiling.span("forward"):
+                if use_ema and state.ema_params is not None:
+                    cls_score, _ = torch.func.functional_call(
+                        model, state.ema_params, (imgs,))
+                else:
+                    cls_score, _ = model(imgs)
+                return output(model, cls_score)
+        finally:
+            model.train(was_training)
 
     @torch.no_grad()
     def eval_step(state: TrainState, imgs: torch.Tensor) -> torch.Tensor:
         with profiling.host_span("eval_step"):
             model = state.model
-            was_training = model.training
-            try:
-                with profiling.host_span("eval_step.prepare"):
-                    model.eval()
-                    device = next(model.parameters()).device
-                    compile_it = capturable(compiled, device)
-                    if compile_it:
-                        ema = use_ema and state.ema_params is not None
-                        live = list(model.parameters()) \
-                            + list(model.buffers())
-                        if ema:
-                            live += list(state.ema_params.values())
-                if not compile_it:
-                    return forward(state, imgs)
-                return graphs((weakref.ref(model), ema, _grouped_enabled()),
-                              [imgs],
-                              lambda t: forward(state, t[0]), live)
-            finally:
-                model.train(was_training)
+            with profiling.host_span("eval_step.prepare"):
+                device = next(model.parameters()).device
+                compile_it = capturable(compiled, device)
+                if compile_it:
+                    ema = use_ema and state.ema_params is not None
+                    live, kept = prepared(model)
+                    if ema:
+                        live += state.ema_params.values()
+            if not compile_it:
+                return forward(state, imgs)
+            found = graphs.find((weakref.ref(model), ema, _grouped_enabled()),
+                                [imgs], live)
+            if kept and found.cap is not None:
+                prepared.hits += 1
+            return graphs.run(found, [imgs], lambda t: forward(state, t[0]))
 
     eval_step.graphs = graphs
+    eval_step.prepared = prepared
     return eval_step

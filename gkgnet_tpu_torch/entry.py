@@ -88,7 +88,7 @@ def entry(device: str | torch.device | None = None, batch: int = 1,
     def fn(model: GKGNetClassifier, x: torch.Tensor) -> torch.Tensor:
         return step(TrainState(0, model, None), x)
 
-    fn.graphs = step.graphs
+    fn.graphs, fn.prepared = step.graphs, step.prepared
     return fn, (model, x)
 
 

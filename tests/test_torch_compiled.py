@@ -662,6 +662,209 @@ def test_graphs_count_every_counter_of_the_ops_modules():
     assert set(tentry.launch_counts().values()) == {0}
 
 
+# ---------------------------------- the eval step's replay path (stand-in)
+
+
+@pytest.fixture
+def fake_eval(fake_cuda, monkeypatch):
+    """The eval step of a CPU model captured and replayed as on the card:
+    the capture records the step's body, a replay runs it again on the
+    static inputs, as the kernels the capture recorded (in eval mode)
+    would; ``Module.train`` calls made by that stand-in for the device are
+    not the program's, and ``_FakeGraph.replaying`` marks them."""
+    monkeypatch.setattr(ttrainer, "capturable",
+                        lambda compiled, device: compiled is not False)
+    capture = tgraphs.StepGraphs._capture
+
+    def recording(self, sig, inputs, body, ptrs, generators):
+        def rec(static):
+            out = body(static)
+            graph = _FakeGraph.current
+
+            def run():
+                _FakeGraph.replaying = True
+                try:
+                    return [body(static)]
+                finally:
+                    _FakeGraph.replaying = False
+
+            graph.run, graph.outputs = run, [out]
+            return out
+
+        return capture(self, sig, inputs, rec, ptrs, generators)
+
+    monkeypatch.setattr(tgraphs.StepGraphs, "_capture", recording)
+    monkeypatch.setattr(_FakeGraph, "replaying", False, raising=False)
+    return fake_cuda
+
+
+def _images(n: int) -> list:
+    rng = np.random.default_rng(5)
+    return [_t(rng.standard_normal((2, 128, 128, 3))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_eval_replay_sets_no_mode_and_walks_no_modules(fake_eval,
+                                                       monkeypatch, training):
+    """Warm-up and capture run the forward in eval mode and walk the
+    model's modules once (one rebuild, no hit); each replay after them
+    calls no ``Module.train`` on the model and counts one hit; the model
+    leaves every call in the mode it came in; the scores are bitwise the
+    eager step's, on new images too."""
+    state = _cpu_state()
+    model = state.model.train(training)
+    imgs = _images(3)
+    eager = ttrainer.make_eval_step(compiled=False)
+    want = [eager(state, x) for x in imgs]
+    assert model.training == training
+    calls = []
+    train = torch.nn.Module.train
+
+    def spy(self, mode=True):
+        if self is model and not _FakeGraph.replaying:
+            calls.append(mode)
+        return train(self, mode)
+
+    monkeypatch.setattr(torch.nn.Module, "train", spy)
+    step = ttrainer.make_eval_step()
+    for i, x in enumerate(imgs[:1] * 2 + imgs):   # warm-up, capture, replays
+        before = len(calls)
+        got = step(state, x)
+        assert torch.equal(got, want[max(i - 2, 0)]), i
+        assert model.training == training
+        replayed = i >= 2
+        assert (len(calls) == before) == replayed, i
+        assert step.graphs.captures == (i >= 1)
+        assert (step.prepared.rebuilds, step.prepared.hits) == \
+            (1, max(i - 1, 0))
+    assert calls == [False, training] * 2
+    assert len(fake_eval) == 1 and fake_eval[0].replays == 4
+
+
+def _replace_param(state):
+    state.model.head.fc2.bias = torch.nn.Parameter(
+        state.model.head.fc2.bias.detach() + 1.0)
+
+
+def _load_assign(state):
+    sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    sd["head.fc2.bias"] += 1.0
+    state.model.load_state_dict(sd, assign=True)
+
+
+def _replace_buffer(state):
+    bn = state.model.backbone.gcn_label[3][0].ffn.fc2[1]
+    bn.running_var = bn.running_var * 4.0
+
+
+def _replace_ema(state):
+    ema = {k: v.clone() for k, v in state.ema_params.items()}
+    ema["head.fc2.bias"] += 1.0
+    state.ema_params = ema
+
+
+def _move(state):
+    """What ``.to()`` does to a model whose tensors change place: the
+    parameters' data swapped, the buffers replaced in their modules'
+    dictionaries (no registration hook sees either); then a statistic
+    changed in its new place."""
+    state.model._apply(lambda t: t.clone())
+    state.model.backbone.gcn_label[3][0].ffn.fc2[1].running_var.mul_(4.0)
+
+
+@pytest.mark.parametrize("change", [_replace_param, _load_assign,
+                                    _replace_buffer, _replace_ema, _move],
+                         ids=["param", "load_assign", "buffer", "ema",
+                              "moved"])
+def test_eval_replay_recaptures_when_the_state_changes(fake_eval, change):
+    """A parameter or buffer replaced, a load with ``assign=True``, a new
+    ``ema_params`` dict under ``use_ema`` or tensors moved as ``.to()``
+    moves them: the next call captures anew and answers from the new
+    state, bitwise the eager step's on it, and the call after replays."""
+    use_ema = change is _replace_ema
+    model = GKGNetClassifier(**TINY)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    state = ttrainer.create_train_state(
+        model, toptim.build_optimizer(model, 1e-3), ema=use_ema)
+    x = _images(1)[0]
+    step = ttrainer.make_eval_step(use_ema=use_ema)
+    eager = ttrainer.make_eval_step(use_ema=use_ema, compiled=False)
+    old = eager(state, x)
+    for _ in range(3):
+        assert torch.equal(step(state, x), old)
+    assert step.graphs.captures == 1 and step.prepared.hits == 1
+    change(state)
+    new = eager(state, x)
+    assert not torch.equal(new, old)
+    assert torch.equal(step(state, x), new)
+    assert step.graphs.captures == 2 and step.prepared.hits == 1
+    assert torch.equal(step(state, x), new)
+    assert step.graphs.captures == 2 and step.prepared.hits == 2
+    assert step.prepared.rebuilds == (
+        2 if change in (_replace_param, _load_assign, _replace_buffer)
+        else 1)
+
+
+def test_model_tensors_follow_the_modules_and_keep_no_model_alive():
+    """``ModelTensors`` gives the tensors ``parameters()`` and
+    ``buffers()`` give, those that replaced others in their modules (as
+    ``.to()`` replaces them) with no walk, walks again after a module is
+    added, replaced or taken out, and does not keep a model alive."""
+    import gc
+    import weakref
+
+    model = GKGNetClassifier(**TINY)
+    tensors = tgraphs.ModelTensors()
+
+    def ids(ts):
+        return sorted(map(id, ts))
+
+    want = ids(list(model.parameters()) + list(model.buffers()))
+    assert ids(tensors(model)[0]) == want
+    assert tensors(model)[1] and tensors.rebuilds == 1
+    model.eval()
+    model.train()
+    assert tensors(model)[1]            # a mode set registers nothing
+    model._apply(lambda t: t.clone())   # as .to() replaces the buffers
+    got, kept = tensors(model)
+    assert kept and ids(got) == ids(list(model.parameters())
+                                    + list(model.buffers())) != want
+    model.head.fc2 =torch.nn.Linear(model.head.fc2.in_features,
+                                     model.head.fc2.out_features)
+    got, kept = tensors(model)
+    assert not kept and ids(got) == ids(list(model.parameters())
+                                        + list(model.buffers()))
+    del model.backbone.gcn_label[3]
+    got, kept = tensors(model)
+    assert not kept and tensors.rebuilds == 3
+    assert ids(got) == ids(list(model.parameters()) + list(model.buffers()))
+    ref = weakref.ref(model)
+    del model, got
+    gc.collect()
+    assert ref() is None
+
+
+def test_device_normalize_builds_its_constants_once_per_device():
+    """The normalize makes ``mean`` and ``1 / std`` at a device's first
+    uint8 batch and keeps them: one build per device over many batches,
+    none for float batches, and each output bitwise the product that
+    made both anew at every call."""
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    norm = ttrainer.make_device_normalize((mean, std))
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        img = torch.from_numpy(rng.integers(0, 256, (2, 8, 8, 3),
+                                            dtype=np.uint8))
+        want = (img.float() - torch.tensor(mean, dtype=torch.float32)) \
+            * (1.0 / torch.tensor(std, dtype=torch.float32))
+        assert torch.equal(norm(img), want)
+    f = img.float()
+    assert norm(f) is f and norm.builds == 1
+    meta = norm(torch.empty((2, 8, 8, 3), dtype=torch.uint8, device="meta"))
+    assert meta.device.type == "meta" and meta.dtype == torch.float32
+    assert norm.builds == 2
+
+
 # ------------------------------------------- saves of earlier optimizers
 
 

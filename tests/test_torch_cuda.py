@@ -23,6 +23,7 @@ from chip_smoke import (GATHER_KERNELS, check_topk, folded_route,  # noqa: E402
                         topk_fixture)
 from gkgnet_tpu_torch.core.optim import build_optimizer  # noqa: E402
 from gkgnet_tpu_torch.core.trainer import (create_train_state,  # noqa: E402
+                                           make_device_normalize,
                                            make_eval_step, make_train_step)
 from gkgnet_tpu_torch.nn.classifier import GKGNetClassifier, init_parameters  # noqa: E402
 from gkgnet_tpu_torch.nn import grapher  # noqa: E402
@@ -1621,6 +1622,61 @@ def test_compiled_true_on_a_collective_step_raises(cuda):
             make_train_step(compiled=True)(state, batch)
     assert state.step == 0
     assert graphs.capturable(None, cuda)
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """A CUDA call that makes the host wait for the card raises inside."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_graphed_replays_make_the_host_wait_for_nothing(cuda):
+    """Once warmed up and captured, train steps fed by the device
+    normalize from uint8 batches and eval steps on a device batch replay
+    with no call that makes the host wait for the card (the normalize
+    builds its constants once, the eval step walks its modules once and
+    replays with a hit each). Their losses and scores are bitwise those
+    of eager steps on a twin state fed by a normalize that makes its
+    constants anew at every batch, as it did before it kept them."""
+    mean, std = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+    gen = torch.Generator().manual_seed(4)
+    u8 = [torch.randint(0, 256, (2, 128, 128, 3), generator=gen,
+                        dtype=torch.uint8).to(cuda) for _ in range(4)]
+    gt = (torch.rand((2, 10), generator=gen) < 0.3).float().to(cuda)
+
+    def anew(img):
+        return (img.float() - torch.tensor(mean, device=cuda)) \
+            * (1.0 / torch.tensor(std, device=cuda))
+
+    states = [_small_state(cuda, lr=1e-3) for _ in range(2)]
+    norm = make_device_normalize((mean, std))
+    graphed, eager = make_train_step(), make_train_step(compiled=False)
+    g_eval, e_eval = make_eval_step(), make_eval_step(compiled=False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got, want = [], []
+        for i, img in enumerate(u8):
+            x = anew(img)
+            e_logs = eager(states[1], {"img": x, "gt_label": gt})[1]
+            want += [e_logs["loss"], e_eval(states[1], x)]
+            torch.cuda.synchronize()
+            with _sync_errors() if i >= 2 else contextlib.nullcontext():
+                g_logs = graphed(states[0], {"img": norm(img),
+                                             "gt_label": gt})[1]
+                got += [g_logs["loss"], g_eval(states[0], x)]
+            torch.cuda.synchronize()
+        assert graphed.graphs.captures == 1 and g_eval.graphs.captures == 1
+        assert norm.builds == 1
+        assert (g_eval.prepared.rebuilds, g_eval.prepared.hits) == (1, 2)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), i
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 # ------------------------------------------------- span markers in graphs
